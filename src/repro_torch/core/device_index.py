@@ -1,0 +1,328 @@
+"""DeviceIndex — every device-side array of a built Dumpy index, as one
+frozen dataclass of torch tensors (port of ``repro.core.device_index``).
+
+* the ordered collection, tombstone mask and original-id table live in a
+  ``[S, Tp, n]`` *leaf-aligned* shard layout: leaves are partitioned into
+  ``S`` contiguous groups cut only at leaf boundaries (so every leaf pack
+  stays contiguous inside one shard) and each shard is padded to the common
+  row count ``Tp`` (pad rows: ``alive=False``, ``id=-1``, zero series).
+  ``S`` is a leading batch axis on one device;
+* per-shard leaf MINDIST envelopes (``+inf`` pad leaf) and the fixed-size
+  span schedule (windows + (leaf, window)-intersection edges) let each
+  shard run the windowed-pruning loop on its own;
+* the global leaf table, the flattened routing tables and the sibling
+  routing tables serve the approximate and extended searches of later
+  slices; they are carried now so the layout equals the reference's field
+  by field.
+
+Index tables keep the reference's ``int32`` storage; the search casts to
+``int64`` only where torch indexes with them.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import TYPE_CHECKING
+
+import numpy as np
+import torch
+
+if TYPE_CHECKING:  # pragma: no cover - import cycle guard (index.py builds us)
+    from .index import DumpyIndex
+
+
+# Array fields, in the reference's order (the first ten are per shard).
+_ARRAY_FIELDS = (
+    "db", "alive", "ids",
+    "leaf_lo", "leaf_hi",
+    "win_start", "win_lead", "win_size", "edge_leaf", "edge_win",
+    "leaf_start", "leaf_size", "leaf_lo_g", "leaf_hi_g", "inv_order",
+    "node_csl", "node_shift", "node_lam",
+    "rt_parent", "rt_sid", "rt_leaf", "rt_child", "rt_lo", "rt_hi",
+    "rt_nl", "rt_begin", "rt_end",
+    "node_begin", "node_end", "leaf_parent",
+    "grp_off", "grp_begin", "grp_end", "grp_lo", "grp_hi",
+)
+_META_FIELDS = ("n", "w", "chunk", "depth", "lmax", "total",
+                "has_duplicates", "max_replica", "row_bounds",
+                "gmax", "leaf_bounds", "shard_health")
+
+
+def resolve_device(device: str | torch.device = "cuda") -> torch.device:
+    """The device an entry point runs on: CUDA unless the caller asks for
+    the CPU.  Raises where CUDA is absent, rather than running elsewhere."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available: repro_torch runs on the GPU by default; "
+            "pass device='cpu' to run the plain PyTorch versions on the CPU")
+    return device
+
+
+def _to_tensor(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    a = np.ascontiguousarray(a)
+    if not a.flags.writeable:        # e.g. np.asarray of a jax.Array
+        a = a.copy()
+    return torch.from_numpy(a).to(device)
+
+
+@dataclasses.dataclass(frozen=True)
+class DeviceIndex:
+    # -- per shard ([S, ...], leaf-aligned) ----------------------------------
+    db: torch.Tensor          # [S, Tp, n] f32 ordered collection (zero pad)
+    alive: torch.Tensor       # [S, Tp] bool tombstone mask (False pad)
+    ids: torch.Tensor         # [S, Tp] i32 original ids (-1 pad)
+    leaf_lo: torch.Tensor     # [S, Lp, w] f32 per-shard leaf envelopes (+inf pad)
+    leaf_hi: torch.Tensor     # [S, Lp, w] f32
+    win_start: torch.Tensor   # [S, W] i32 span schedule (clamped starts)
+    win_lead: torch.Tensor    # [S, W] i32 masked prefix of end-clamped spans
+    win_size: torch.Tensor    # [S, W] i32 live rows per span (0 = pad span)
+    edge_leaf: torch.Tensor   # [S, E] i32 (local leaf, span) intersections;
+    edge_win: torch.Tensor    # [S, E] i32 pads point at the +inf pad leaf
+    # -- global ---------------------------------------------------------------
+    leaf_start: torch.Tensor  # [L] i32 leaf start in flattened S*Tp coordinates
+    leaf_size: torch.Tensor   # [L] i32
+    leaf_lo_g: torch.Tensor   # [L, w] f32 global leaf envelopes
+    leaf_hi_g: torch.Tensor   # [L, w] f32
+    inv_order: torch.Tensor   # [N] i32 original id -> first flattened row (-1 dead pad)
+    node_csl: torch.Tensor    # [M, lam_max] i32 routing: chosen segments
+    node_shift: torch.Tensor  # [M, lam_max] i32
+    node_lam: torch.Tensor    # [M] i32
+    rt_parent: torch.Tensor   # [Eg] i32 routing edge list (grouped by parent)
+    rt_sid: torch.Tensor      # [Eg] i32
+    rt_leaf: torch.Tensor     # [Eg] i32
+    rt_child: torch.Tensor    # [Eg] i32
+    rt_lo: torch.Tensor       # [Eg, w] f32 child region bounds
+    rt_hi: torch.Tensor       # [Eg, w] f32
+    rt_nl: torch.Tensor       # [Eg] i32 #leaves under the edge target
+    rt_begin: torch.Tensor    # [Eg] i32 contiguous leaf span of the target
+    rt_end: torch.Tensor      # [Eg] i32
+    node_begin: torch.Tensor  # [M] i32 per-internal-node subtree leaf span
+    node_end: torch.Tensor    # [M] i32
+    leaf_parent: torch.Tensor  # [L] i32 parent internal node (-1: root leaf)
+    grp_off: torch.Tensor     # [M+1] i32 distinct-children group offsets
+    grp_begin: torch.Tensor   # [G+gmax] i32 member spans, begin-sorted per
+    grp_end: torch.Tensor     # [G+gmax] i32 group; gmax sentinel pad rows
+    grp_lo: torch.Tensor      # [G+gmax, w] f32
+    grp_hi: torch.Tensor      # [G+gmax, w] f32
+    # -- static -----------------------------------------------------------------
+    n: int                 # series length
+    w: int                 # SAX word length
+    chunk: int             # effective span size of the schedule
+    depth: int             # routing descent depth
+    lmax: int              # max leaf size (approximate-path scan width)
+    total: int             # real (unpadded) ordered rows
+    has_duplicates: bool   # fuzzy layout -> top-k needs the replica margin
+    max_replica: int
+    row_bounds: tuple      # S+1 ordered-row cuts (leaf-aligned, host ints)
+    gmax: int              # max distinct children of any internal node
+    leaf_bounds: tuple     # S+1 leaf-id cuts matching row_bounds
+    # ``None`` = all shards healthy; a tuple of S bools masks dead shards
+    # out of every merge (degraded mode)
+    shard_health: tuple | None = None
+
+    # -- shapes --------------------------------------------------------------
+    @property
+    def device(self) -> torch.device:
+        return self.db.device
+
+    @property
+    def n_shards(self) -> int:
+        return self.db.shape[0]
+
+    # -- construction --------------------------------------------------------
+    @classmethod
+    def from_arrays(cls, arrays: dict[str, np.ndarray], meta: dict,
+                    device: str | torch.device = "cuda") -> "DeviceIndex":
+        """Carry a layout across: ``arrays`` holds every field of
+        :data:`_ARRAY_FIELDS` as a numpy array (for example the fields of the
+        reference's ``DeviceIndex``, read with ``np.asarray``), ``meta`` the
+        static fields of :data:`_META_FIELDS` (``shard_health`` optional).
+        Dtypes are kept; tuples in ``meta`` are normalized to host ints."""
+        device = resolve_device(device)
+        missing = [f for f in _ARRAY_FIELDS if f not in arrays]
+        if missing:
+            raise ValueError(f"from_arrays: missing array fields {missing}")
+        kw = {f: _to_tensor(arrays[f], device) for f in _ARRAY_FIELDS}
+        for f in _META_FIELDS:
+            if f == "shard_health":
+                continue
+            if f not in meta:
+                raise ValueError(f"from_arrays: missing static field {f!r}")
+            kw[f] = meta[f]
+        kw["row_bounds"] = tuple(int(c) for c in meta["row_bounds"])
+        kw["leaf_bounds"] = tuple(int(c) for c in meta["leaf_bounds"])
+        dev = cls(**kw)
+        return dev.with_shard_health(meta.get("shard_health"))
+
+    @classmethod
+    def from_index(cls, index: "DumpyIndex", chunk: int = 2048,
+                   n_shards: int = 1,
+                   device: str | torch.device = "cuda") -> "DeviceIndex":
+        """Build the full device state from a host ``DumpyIndex``.
+
+        ``n_shards`` fixes the leading axis; the shard boundaries are the
+        leaf boundaries nearest the ideal ``total/S`` cuts, so a leaf never
+        straddles two shards and the span loop needs no cross-shard windows.
+        """
+        arrays, meta = layout_arrays(index, chunk, n_shards)
+        return cls.from_arrays(arrays, meta, device)
+
+    # -- incremental state ---------------------------------------------------
+    def with_shard_health(self, health) -> "DeviceIndex":
+        """Mark shards dead/alive for degraded-mode search.  ``health`` is a
+        length-``n_shards`` boolean sequence (or ``None`` to clear); all-True
+        canonicalizes to ``None``."""
+        if health is None:
+            return dataclasses.replace(self, shard_health=None)
+        health = tuple(bool(h) for h in health)
+        if len(health) != self.n_shards:
+            raise ValueError(
+                f"shard_health has {len(health)} entries for "
+                f"{self.n_shards} shards")
+        if not any(health):
+            raise ValueError("shard_health marks every shard dead — "
+                             "no data left to search")
+        if all(health):
+            health = None
+        return dataclasses.replace(self, shard_health=health)
+
+    def with_alive(self, alive_by_id: np.ndarray) -> "DeviceIndex":
+        """Re-derive the padded tombstone mask from the host per-id ``alive``
+        vector (deletions/undeletions without rebuilding the layout).  Every
+        fuzzy replica of a dead id dies with it."""
+        ids_np = self.ids.cpu().numpy()
+        new = np.zeros(ids_np.shape, bool)
+        m = ids_np >= 0
+        new[m] = np.asarray(alive_by_id, bool)[ids_np[m]]
+        return dataclasses.replace(
+            self, alive=torch.from_numpy(new).to(self.device))
+
+
+def layout_arrays(index: "DumpyIndex", chunk: int = 2048, n_shards: int = 1
+                  ) -> tuple[dict[str, np.ndarray], dict]:
+    """The host half of :meth:`DeviceIndex.from_index`: every field as a
+    numpy array, plus the static fields (the reference's construction,
+    verbatim)."""
+    flat = index.flat
+    offs = np.asarray(flat.leaf_offsets, np.int64)
+    L = flat.n_leaves
+    total = int(offs[-1])
+    n = index.db.shape[1]
+    w = flat.leaf_lo.shape[1]
+    S = max(int(n_shards), 1)
+
+    # leaf-aligned cuts: the leaf boundary nearest each ideal row split
+    cut_leaf = [0]
+    for s in range(1, S):
+        ideal = s * total / S
+        j = int(np.searchsorted(offs, ideal))
+        if j > 0 and (j > L or ideal - float(offs[j - 1])
+                      < float(offs[j]) - ideal):
+            j -= 1
+        cut_leaf.append(min(max(j, cut_leaf[-1]), L))
+    cut_leaf.append(L)
+    row_bounds = tuple(int(offs[c]) for c in cut_leaf)
+
+    Tp = max(max(row_bounds[s + 1] - row_bounds[s] for s in range(S)), 1)
+    chunk_eff = max(min(int(chunk), Tp), 1)
+    W = math.ceil(Tp / chunk_eff)
+    Lp = max(cut_leaf[s + 1] - cut_leaf[s] for s in range(S)) + 1  # +pad
+
+    db_ord = index.db_ordered
+    # one unpadded shard is the ordered collection itself: no host copy
+    as_is = S == 1 and total == Tp
+    db_sh = db_ord[None] if as_is else np.zeros((S, Tp, n), np.float32)
+    alive_sh = np.zeros((S, Tp), bool)
+    ids_sh = np.full((S, Tp), -1, np.int32)
+    lo_sh = np.full((S, Lp, w), np.inf, np.float32)
+    hi_sh = np.full((S, Lp, w), np.inf, np.float32)
+    win_start = np.zeros((S, W), np.int32)
+    win_lead = np.zeros((S, W), np.int32)
+    win_size = np.zeros((S, W), np.int32)
+    edges: list[tuple[list, list]] = []
+
+    order = np.asarray(flat.order, np.int64)
+    alive_ord = index.alive[order]
+    pos_flat = np.empty(total, np.int64)   # ordered row -> flattened row
+    for s in range(S):
+        r0, r1 = row_bounds[s], row_bounds[s + 1]
+        l0, l1 = cut_leaf[s], cut_leaf[s + 1]
+        Ts = r1 - r0
+        if not as_is:
+            db_sh[s, :Ts] = db_ord[r0:r1]
+        alive_sh[s, :Ts] = alive_ord[r0:r1]
+        ids_sh[s, :Ts] = order[r0:r1]
+        lo_sh[s, :l1 - l0] = flat.leaf_lo[l0:l1]
+        hi_sh[s, :l1 - l0] = flat.leaf_hi[l0:l1]
+        pos_flat[r0:r1] = s * Tp + np.arange(Ts)
+        local_offs = offs[l0:l1 + 1] - r0
+        el, ew = [], []
+        for wi, w0 in enumerate(range(0, Tp, chunk_eff)):
+            st = min(w0, max(Tp - chunk_eff, 0))
+            size = min(max(Ts - w0, 0), chunk_eff)
+            win_start[s, wi] = st
+            win_lead[s, wi] = w0 - st
+            win_size[s, wi] = size
+            if size > 0:
+                la = int(np.searchsorted(local_offs, w0, "right")) - 1
+                lb = int(np.searchsorted(local_offs, w0 + size, "left"))
+                for lid in range(max(la, 0), lb):
+                    el.append(lid)
+                    ew.append(wi)
+        edges.append((el, ew))
+
+    # pad edges aim at the +inf pad leaf / the last span: segment-min
+    # treats them as no-ops, and edge_win stays sorted
+    E = max(max(len(el) for el, _ in edges), 1)
+    edge_leaf = np.full((S, E), Lp - 1, np.int32)
+    edge_win = np.full((S, E), W - 1, np.int32)
+    for s, (el, ew) in enumerate(edges):
+        edge_leaf[s, :len(el)] = el
+        edge_win[s, :len(ew)] = ew
+
+    leaf_start = np.zeros(max(L, 1), np.int32)
+    for s in range(S):
+        l0, l1 = cut_leaf[s], cut_leaf[s + 1]
+        leaf_start[l0:l1] = s * Tp + (offs[l0:l1] - row_bounds[s])
+    leaf_size = np.diff(offs).astype(np.int32) if L else np.ones(1, np.int32)
+
+    inv = np.full(index.db.shape[0], -1, np.int64)
+    inv[order[::-1]] = pos_flat[::-1]       # first replica wins
+
+    rt = index.routing_flat
+    gmax = rt.gmax
+    # gmax sentinel rows so a fixed-width slice of any group stays in
+    # bounds: begin/end = i32 max, bounds = +inf
+    big = np.iinfo(np.int32).max
+    arrays = dict(
+        db=db_sh, alive=alive_sh, ids=ids_sh, leaf_lo=lo_sh, leaf_hi=hi_sh,
+        win_start=win_start, win_lead=win_lead, win_size=win_size,
+        edge_leaf=edge_leaf, edge_win=edge_win,
+        leaf_start=leaf_start, leaf_size=leaf_size,
+        leaf_lo_g=flat.leaf_lo, leaf_hi_g=flat.leaf_hi,
+        inv_order=inv.astype(np.int32),
+        node_csl=rt.node_csl, node_shift=rt.node_shift, node_lam=rt.node_lam,
+        rt_parent=rt.edge_parent, rt_sid=rt.edge_sid.astype(np.int32),
+        rt_leaf=rt.edge_leaf, rt_child=rt.edge_child,
+        rt_lo=rt.edge_lo, rt_hi=rt.edge_hi,
+        rt_nl=rt.edge_nl, rt_begin=rt.edge_begin, rt_end=rt.edge_end,
+        node_begin=rt.node_begin, node_end=rt.node_end,
+        leaf_parent=rt.leaf_parent, grp_off=rt.grp_off,
+        grp_begin=np.concatenate([rt.grp_begin, np.full(gmax, big, np.int32)]),
+        grp_end=np.concatenate([rt.grp_end, np.full(gmax, big, np.int32)]),
+        grp_lo=np.concatenate([rt.grp_lo,
+                               np.full((gmax, w), np.inf, np.float32)]),
+        grp_hi=np.concatenate([rt.grp_hi,
+                               np.full((gmax, w), np.inf, np.float32)]),
+    )
+    meta = dict(
+        n=n, w=w, chunk=chunk_eff, depth=rt.depth,
+        lmax=max(int(np.diff(offs).max()) if L else 1, 1),
+        total=total,
+        has_duplicates=index.stats.n_duplicates > 0,
+        max_replica=int(index.params.max_replica),
+        row_bounds=row_bounds, gmax=gmax,
+        leaf_bounds=tuple(int(c) for c in cut_leaf),
+    )
+    return arrays, meta

@@ -1,0 +1,41 @@
+"""Plain PyTorch versions of the CUDA kernels (twins of
+``repro/kernels/ref.py``).
+
+Each function is the specification its kernel must match: the CPU tests hold
+them against the reference's oracles, and ``chip_smoke.py`` holds every
+kernel against its twin on the card.  ``kernels.ops`` routes a CPU tensor
+here; nothing on the main path calls them when the tensors are on CUDA.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..core.lb import ed2_batch, lb_interval
+from ..core.sax import sax_encode_t
+
+
+def sax_encode_ref(x: torch.Tensor, w: int, b: int
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """PAA (segment mean) + SAX symbols (searchsorted right):
+    ``x [B, n] -> (paa [B, w] f32, sax [B, w] i32)``."""
+    paa, sax = sax_encode_t(x, w, b)
+    return paa, sax.to(torch.int32)
+
+
+def pairwise_l2_ref(q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Squared L2: ``q [Q, n]``, ``x [X, n]`` → ``[Q, X] f32``."""
+    return ed2_batch(q.to(torch.float32), x.to(torch.float32))
+
+
+def lb_paa_interval_ref(seg_lo: torch.Tensor, seg_hi: torch.Tensor,
+                        lo: torch.Tensor, hi: torch.Tensor, n: int
+                        ) -> torch.Tensor:
+    """Squared interval MINDIST: ``seg_lo/seg_hi [Q, w]``, ``lo/hi [L, w]``
+    → ``[Q, L] f32`` (scaled by n/w)."""
+    return lb_interval(seg_lo, seg_hi, lo, hi, n)
+
+
+def lb_isax_ref(paa_q: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
+                n: int) -> torch.Tensor:
+    """Squared MINDIST(PAA, region): the degenerate interval."""
+    return lb_interval(paa_q, paa_q, lo, hi, n)

@@ -1,0 +1,81 @@
+"""Shared helpers of the ``test_torch_*`` files, which hold the PyTorch port
+(``repro_torch``) against the JAX reference (``repro``) on the same inputs.
+
+* :func:`torch_threads` — module-scoped fixture capping torch's intra-op
+  threads, so several pytest-xdist workers do not oversubscribe the cores;
+* :func:`cuda` — fixture for tests that need the card: it skips, with a
+  reason, where CUDA is absent (decided when the test runs, never at
+  import, so every worker collects the same tests);
+* :func:`build_pair` — the same data and parameters built by both packages
+  (the only helper that imports the reference; the card's tests import no
+  ``jax``, so they run where JAX is not installed).
+"""
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+
+TORCH_THREADS = 2
+
+# the shape sweeps of tests/test_kernels.py
+SAX_SWEEP = [(B, n, w, b) for B in (1, 7, 256, 300)
+             for n, w in ((64, 8), (128, 16), (256, 16), (96, 12))
+             for b in (4, 8)]
+L2_SWEEP = [(1, 1, 64), (17, 333, 96), (128, 128, 128), (5, 1000, 256),
+            (130, 50, 320)]
+LB_SWEEP = [(1, 1, 8, 64), (9, 77, 16, 128), (8, 512, 16, 256),
+            (3, 1500, 8, 64)]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def torch_threads():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(TORCH_THREADS)
+    yield
+    torch.set_num_threads(prev)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the GPU: "
+                    "python -m pytest -m cuda tests/test_torch_kernels_cuda.py)")
+    return torch.device("cuda")
+
+
+def clear_of_breakpoints(paa: np.ndarray, b: int, gap: float = 1e-5):
+    """Where the PAA lies more than ``gap`` from every breakpoint (symbols
+    must agree there whatever the summation order)."""
+    from repro_torch.core.sax import breakpoints
+    return np.abs(paa[..., None] - breakpoints(b)).min(axis=-1) > gap
+
+
+def intervals(rng, Q: int, L: int, w: int):
+    """Random query intervals ``[Q, w]`` and regions ``[L, w]`` (lo ≤ hi)."""
+    lo = rng.standard_normal((L, w)).astype(np.float32)
+    hi = lo + np.abs(rng.standard_normal((L, w))).astype(np.float32)
+    sl = rng.standard_normal((Q, w)).astype(np.float32)
+    sh = sl + np.abs(rng.standard_normal((Q, w))).astype(np.float32)
+    return sl, sh, lo, hi
+
+
+def params_pair(w: int = 8, b: int = 8, th: int = 128, fuzzy_f: float = 0.0):
+    """``(reference DumpyParams, port DumpyParams)`` with equal fields."""
+    from repro.core.build import DumpyParams as RParams
+    from repro.core.sax import SaxParams as RSax
+    from repro.core.split import SplitParams as RSplit
+    from repro_torch.core.build import DumpyParams
+    from repro_torch.core.sax import SaxParams
+    from repro_torch.core.split import SplitParams
+    return (RParams(sax=RSax(w=w, b=b), split=RSplit(th=th), fuzzy_f=fuzzy_f),
+            DumpyParams(sax=SaxParams(w=w, b=b), split=SplitParams(th=th),
+                        fuzzy_f=fuzzy_f))
+
+
+def build_pair(db: np.ndarray, **kw):
+    """``(reference DumpyIndex, port DumpyIndex)`` over the same ``db``."""
+    from repro.core.index import DumpyIndex as RIndex
+    from repro_torch.core.index import DumpyIndex
+    rp, pp = params_pair(**kw)
+    return RIndex.build(db, rp), DumpyIndex.build(db, pp)

@@ -22,6 +22,10 @@ def pytest_configure(config):
         "guard_transfers: run under jax.transfer_guard('disallow') — any "
         "implicit device<->host transfer inside the test raises (explicit "
         "jnp.asarray/np.asarray conversions stay allowed)")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA device (the repro_torch kernels); skips with a "
+        "reason where there is none")
 
 
 @pytest.fixture(autouse=True)

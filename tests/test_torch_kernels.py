@@ -1,0 +1,127 @@
+"""The port's kernel twins against the reference's Pallas kernels (run in
+interpret mode, as ``test_kernels.py`` runs them) over the same shape
+sweeps.  The CUDA kernels against their twins, on the card, are in
+``test_torch_kernels_cuda.py``."""
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from _torch_port import (L2_SWEEP, LB_SWEEP, SAX_SWEEP, clear_of_breakpoints,
+                         intervals, torch_threads)  # noqa: F401
+from repro.kernels import ops as r_ops
+from repro.kernels.lb_isax import lb_isax as r_lb_isax
+from repro.kernels.lb_isax import lb_paa_interval as r_lb_paa_interval
+from repro.kernels.pairwise_l2 import pairwise_l2 as r_pairwise_l2
+from repro.kernels.sax_encode import sax_encode as r_sax_encode
+from repro_torch.kernels import lb_isax, ops, pairwise_l2, ref, sax_encode
+
+RNG = np.random.default_rng(42)
+
+
+@pytest.mark.parametrize("B,n,w,b", SAX_SWEEP)
+def test_sax_encode_twin_matches_pallas(B, n, w, b):
+    x = RNG.standard_normal((B, n)).astype(np.float32)
+    paa_r, sax_r = r_sax_encode(jnp.asarray(x), w=w, b=b, interpret=True)
+    paa, sax = ops.sax_encode(torch.from_numpy(x), w, b)
+    assert paa.dtype == torch.float32 and sax.dtype == torch.int32
+    paa_r, sax_r = np.asarray(paa_r), np.asarray(sax_r)
+    np.testing.assert_allclose(paa.numpy(), paa_r, rtol=1e-5, atol=1e-5)
+    clear = clear_of_breakpoints(paa_r, b)
+    np.testing.assert_array_equal(sax.numpy()[clear], sax_r[clear])
+
+
+@pytest.mark.parametrize("Q,X,n", L2_SWEEP)
+def test_pairwise_l2_twin_matches_pallas(Q, X, n):
+    q = RNG.standard_normal((Q, n)).astype(np.float32)
+    x = RNG.standard_normal((X, n)).astype(np.float32)
+    want = np.asarray(r_pairwise_l2(jnp.asarray(q), jnp.asarray(x),
+                                    interpret=True))
+    got = ops.pairwise_l2(torch.from_numpy(q), torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-2, rtol=1e-4)
+
+
+@pytest.mark.parametrize("Q,L,w,n", LB_SWEEP)
+def test_lb_isax_twin_matches_pallas(Q, L, w, n):
+    _, _, lo, hi = intervals(RNG, Q, L, w)
+    pq = RNG.standard_normal((Q, w)).astype(np.float32)
+    want = np.asarray(r_lb_isax(jnp.asarray(pq), jnp.asarray(lo),
+                                jnp.asarray(hi), n=n, interpret=True))
+    got = ops.lb_isax(torch.from_numpy(pq), torch.from_numpy(lo),
+                      torch.from_numpy(hi), n).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.parametrize("Q,L,w,n", [(1, 1, 8, 64), (9, 77, 16, 128),
+                                     (3, 600, 8, 64)])
+def test_lb_paa_interval_twin_matches_pallas(Q, L, w, n):
+    sl, sh, lo, hi = intervals(RNG, Q, L, w)
+    want = np.asarray(r_lb_paa_interval(
+        jnp.asarray(sl), jnp.asarray(sh), jnp.asarray(lo), jnp.asarray(hi),
+        n=n, interpret=True))
+    t = [torch.from_numpy(a) for a in (sl, sh, lo, hi)]
+    got = ops.lb_paa_interval(*t, n).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-5)
+
+
+def test_lb_paa_interval_pad_leaf_is_inf_not_nan():
+    """The port pads each shard's leaf table with a ``+inf`` leaf (the
+    reference's kernel pads tiles with 3e9 instead): the bound there must
+    be ``+inf``, never NaN."""
+    sl, sh, lo, hi = intervals(RNG, 4, 5, 8)
+    lo[-1] = hi[-1] = np.inf
+    got = ops.lb_paa_interval(*(torch.from_numpy(a) for a in (sl, sh, lo, hi)),
+                              64).numpy()
+    assert np.isinf(got[:, -1]).all() and not np.isnan(got).any()
+    assert np.isfinite(got[:, :-1]).all()
+
+
+@pytest.mark.parametrize("Q,k,C", [(1, 1, 1), (4, 10, 37), (8, 18, 256)])
+def test_topk_merge_matches_reference(Q, k, C):
+    topd = np.sort(RNG.random((Q, k)).astype(np.float32), axis=1)
+    topd[:, k // 2:] = np.inf
+    topi = RNG.integers(0, 1000, (Q, k)).astype(np.int32)
+    topi[np.isinf(topd)] = -1
+    d2 = RNG.random((Q, C)).astype(np.float32)
+    d2[RNG.random((Q, C)) < 0.3] = np.inf
+    ids = np.where(np.isinf(d2), -1, RNG.integers(1000, 2000, (Q, C))
+                   ).astype(np.int32)
+    rd, ri = (np.asarray(a) for a in r_ops.topk_merge(
+        jnp.asarray(topd), jnp.asarray(topi), jnp.asarray(d2),
+        jnp.asarray(ids)))
+    pd, pi = ops.topk_merge(*(torch.from_numpy(a)
+                              for a in (topd, topi, d2, ids)))
+    np.testing.assert_array_equal(pd.numpy(), rd)
+    finite = np.isfinite(rd)          # ties only among the +inf/-1 slots
+    np.testing.assert_array_equal(pi.numpy()[finite], ri[finite])
+    assert pi.dtype == torch.int32
+
+
+def test_ops_routes_cpu_tensors_to_twins():
+    """A CPU tensor goes to the twin and launches nothing; the kernel
+    wrappers themselves refuse CPU tensors (no silent fallback)."""
+    counts = (sax_encode.launches, pairwise_l2.launches, lb_isax.launches)
+    x = torch.from_numpy(RNG.standard_normal((5, 64)).astype(np.float32))
+    paa, sax = ops.sax_encode(x, 8, 8)
+    ops.pairwise_l2(x, x)
+    ops.lb_isax(paa, paa, paa, 64)
+    assert (sax_encode.launches, pairwise_l2.launches,
+            lb_isax.launches) == counts
+    with pytest.raises(ValueError, match="CUDA"):
+        sax_encode.sax_encode(x, 8, 8)
+    with pytest.raises(ValueError, match="CUDA"):
+        pairwise_l2.pairwise_l2(x, x)
+    with pytest.raises(ValueError, match="CUDA"):
+        lb_isax.lb_paa_interval(paa, paa, paa, paa, 64)
+
+
+def test_kernel_library_is_keyed_on_sources_and_flags(monkeypatch):
+    """The built library's name carries a hash of the sources and flags, so
+    an edited source rebuilds; it lives under the repository's build/."""
+    from repro_torch.kernels import _build
+    path = _build.library_path()
+    assert path.parent == _build.BUILD_DIR
+    assert _build.BUILD_DIR.parts[-2:] == ("build", "kernels")
+    assert all((_build.CSRC / s).is_file() for s in _build.SOURCES)
+    monkeypatch.setattr(_build, "FLAGS", _build.FLAGS + ("-lineinfo",))
+    assert _build.library_path() != path
