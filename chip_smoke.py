@@ -8,26 +8,31 @@ Phases, each printed with its seconds:
 
 1. environment: the card's name and power limit (``nvidia-smi``), torch and
    CUDA versions;
-2. build: the three CUDA kernels compile from ``src/repro_torch/kernels/csrc``
+2. build: the six CUDA kernels compile from ``src/repro_torch/kernels/csrc``
    into ``build/kernels/`` (one ``nvcc`` per source, in parallel);
 3. data and index: the paper's *Rand* collection (``random_walks``), the
    host build with the paper's defaults (w=16, b=8, th=10 000), the upload
    of the leaf-aligned ``DeviceIndex`` (chunk 2048, one shard);
-4. kernels: ``sax_encode``, ``pairwise_l2`` and ``lb_paa_interval`` each
-   against its plain PyTorch twin on the card, at the main path's shapes
-   (taken from this index and these queries) and at ragged ones, with the
-   stated tolerances; each kernel's time next to its bound, its twin's time
-   and, where one PyTorch call computes the same function, that call's time;
-5. main path: 256 held-out queries in 4 batches of 64 through
+4. kernels: every kernel against its plain PyTorch twin on the card, at the
+   main paths' shapes (taken from this index and these queries) and at
+   ragged ones, with the stated tolerances (``dtw_band`` bitwise); each
+   kernel's time next to its bound, its twin's time and, where one PyTorch
+   call computes the same function, that call's time;
+5. ED main path: 256 held-out queries in 4 batches of 64 through
    ``exact_search_device_batch`` (k=10), every result held against a
    float64 brute force on the card, one batch rerun with ``n_shards=4``
    (bitwise equal), and the launch count of each kernel on this phase;
-6. profile: one more batch under ``torch.profiler`` (device time by kernel,
-   the device's busy share of the batch).
-
-Any mismatch exits non-zero; so does a machine without CUDA, and a
-directory without the ``src/repro_torch`` package.  The line before the last
-is the card's name and power limit; the last line is one JSON object.
+6. profile: one more ED batch under ``torch.profiler`` (device time by
+   kernel, the device's busy share of the batch);
+7. DTW main path: 128 held-out queries in 2 batches of 64 through
+   ``exact_search_device_batch(metric="dtw")`` (k=10, band 25 = 10% of the
+   length, order "cluster") on the same ``DeviceIndex`` (no second layout
+   is built), every result held against an independent float64 check on
+   the card (LB_Keogh over every live row, then a banded DP over the rows
+   it cannot rule out), one batch rerun with ``order="perq"``,
+   ``order="shared"`` and ``n_shards=4`` (each bitwise equal), the cascade
+   counters and the launch count of each kernel on this phase;
+8. DTW profile: one more DTW batch under ``torch.profiler``.
 """
 from __future__ import annotations
 
@@ -50,6 +55,12 @@ BATCH = 64
 N_QUERIES = 256
 LENGTH = 256
 CHUNK = 2048
+N_DTW = 128            # DTW queries: 2 batches of 64
+BAND = 25              # default_band(256): the paper's 10% Sakoe-Chiba band
+# DTW cascade cost model for the bounds: float32 operations per element of
+# LB_Keogh (2 sub, 3 max, mul, add) and LB_Improved (LB_Keogh, the clip,
+# van Herk max/min, the second pass) and per cell of the band DP
+LBK_OPS, LBI_OPS, DTW_CELL_OPS = 7, 20, 5
 
 
 def fail(msg: str) -> None:
@@ -222,6 +233,229 @@ def check_kernels(torch, np, ops, ref, breakpoints, qs_main, dev, n_iter):
     return rows
 
 
+def wall_ms(torch, fn, args_list) -> float:
+    """Wall ms per call, synchronized, after one warm-up call: for a plain
+    version that reads the device's state on the host every step (it cannot
+    be queued behind a held stream), so host and device time together."""
+    fn(*args_list[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for a in args_list:
+        fn(*a)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / len(args_list)
+
+
+def dtw_cells(n: int, r: int) -> int:
+    """In-band cells of one n x n Sakoe-Chiba DP of radius r."""
+    r = min(r, n - 1)
+    return n * (2 * r + 1) - r * (r + 1)
+
+
+def check_dtw_kernels(torch, ops, ref, envelope, qs_main, dev, n_iter):
+    """Phase 4, DTW half: ``lb_keogh`` and ``lb_improved`` within rtol 1e-5
+    of their twins (two sums of n nonnegative float32 terms in different
+    orders, each within (n-1)·2^-24 of the exact sum), ``dtw_band`` bitwise
+    with the same ``+inf`` lanes; returns the kernel table rows without
+    ``launches``."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    db0 = dev.db[0]
+    Q, n = qs_main.shape
+    U, L = envelope(qs_main, BAND)
+    slab, sub = db0[:CHUNK], db0[:256]
+    # a lane-walk chunk: each query's 128 lanes of least LB_Improved in the
+    # slab, the cutoff at their 10th best DTW², the mask the cascade's
+    lbi = ref.lb_improved_ref(slab, qs_main, U, L, BAND)
+    idx = torch.argsort(lbi, dim=1, stable=True)[:, :128].contiguous()
+    inf_cut = torch.full((Q,), float("inf"), device="cuda")
+    on = torch.ones((Q, 128), dtype=torch.bool, device="cuda")
+    cut = ref.dtw_band_ref(qs_main, slab, on, inf_cut, BAND,
+                           idx=idx).kthvalue(K, dim=1).values
+    mask = torch.gather(lbi, 1, idx) < cut[:, None]
+    gathered = slab[idx].contiguous()                       # [64, 128, 256]
+    lbi_sub = ref.lb_improved_ref(sub, qs_main, U, L, BAND)
+    cut_sub = ref.dtw_band_ref(qs_main, sub, lbi_sub < float("inf"),
+                               inf_cut, BAND).kthvalue(K, dim=1).values
+    mask_sub = lbi_sub < cut_sub[:, None]
+
+    def walks(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").cumsum(-1)
+
+    rq, rx, rc = walks(5, 96), walks(77, 96), walks(5, 77, 96)
+    ragged = []
+    for r in (7, 95, 120):                       # 95, 120: r + 1 >= n
+        rU, rL = (t.clone() for t in envelope(rq, r))
+        rU[:, 0], rL[:, 0] = float("inf"), -float("inf")   # unbounded edge
+        full = ref.dtw_band_ref(rq, rx, torch.ones((5, 77), dtype=torch.bool,
+                                                   device="cuda"),
+                                torch.full((5,), float("inf"),
+                                           device="cuda"), r)
+        rmask = torch.rand((5, 77), generator=gen, device="cuda") < 0.7
+        ragged.append((r, rU, rL, rmask, full.quantile(0.25, dim=1)))
+
+    # -- lb_keogh, lb_improved ------------------------------------------------
+    lb_cases = [(slab, qs_main, U, L, BAND), (sub, qs_main, U, L, BAND),
+                (gathered, qs_main, U, L, BAND)]
+    for r, rU, rL, _, _ in ragged:
+        lb_cases += [(rx, rq, rU, rL, r), (rc, rq, rU, rL, r)]
+    errs = {"lb_keogh": 0.0, "lb_improved": 0.0}
+    for x, q, u, lo, r in lb_cases:
+        for name, got, want in (
+                ("lb_keogh", ops.lb_keogh(x, u, lo), ref.lb_keogh_ref(x, u, lo)),
+                ("lb_improved", ops.lb_improved(x, q, u, lo, r),
+                 ref.lb_improved_ref(x, q, u, lo, r))):
+            torch.cuda.synchronize()
+            if torch.isnan(got).any():
+                fail(f"{name} produced NaN at {tuple(x.shape)} r={r}")
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+            e = float(((got - want).abs() / want.clamp_min(1e-30)).max())
+            errs[name] = max(errs[name], float((got - want).abs().max()))
+            print(f"  {name} x{tuple(x.shape)} Q={q.shape[0]} r={r}: max "
+                  f"|err| {float((got - want).abs().max()):.3e}, max rel "
+                  f"{e:.3e}")
+
+    # -- dtw_band: bitwise, +inf lanes included -------------------------------
+    dp_cases = [("rows", qs_main, slab, mask, cut, BAND, idx),
+                ("gather", qs_main, gathered, mask, cut, BAND, None),
+                ("shared", qs_main, sub, mask_sub, cut_sub, BAND, None)]
+    for r, _, _, rmask, rcut in ragged:
+        dp_cases += [("shared", rq, rx, rmask, rcut, r, None),
+                     ("gather", rq, rc, rmask, rcut * 2, r, None)]
+    for layout, q, x, mk, ct, r, ix in dp_cases:
+        got = ops.dtw_band(q, x, mk, ct, r, idx=ix)
+        want = ref.dtw_band_ref(q, x, mk, ct, r, idx=ix)
+        torch.cuda.synchronize()
+        if not (torch.equal(torch.isinf(got), torch.isinf(want))
+                and torch.equal(got, want)):
+            fail(f"dtw_band differs from its twin ({layout}, "
+                 f"{tuple(mk.shape)}, n={q.shape[1]}, r={r})")
+        print(f"  dtw_band {layout} {tuple(mk.shape)} n={q.shape[1]} r={r}: "
+              f"bitwise equal; lanes on {int(mk.sum())}, finished "
+              f"{int(torch.isfinite(got).sum())}")
+
+    rows = []
+    # LB kernels at the lane program's precompute shape: a fresh
+    # 2048-row slab of the collection per call, cold in L2
+    n_slabs = min(n_iter, db0.shape[0] // CHUNK)
+    slabs = [db0[i * CHUNK:(i + 1) * CHUNK] for i in range(n_slabs)]
+    m = CHUNK
+    for name, src, line, fn, plain, per_el, args in (
+            ("lb_keogh", "lb_keogh.cu", "lb_keogh.py:77", ops.lb_keogh,
+             ref.lb_keogh_ref, LBK_OPS, [(x, U, L) for x in slabs]),
+            ("lb_improved", "lb_improved.cu", "lb_keogh.py:113",
+             ops.lb_improved, ref.lb_improved_ref, LBI_OPS,
+             [(x, qs_main, U, L, BAND) for x in slabs])):
+        ms, host = time_ms(torch, fn, args)
+        # the LB_Improved twin allocates a dozen [64, 2048, 256] temporaries
+        # per call, too slow to queue behind a held stream: wall time
+        plain_ms = (time_ms(torch, plain, args)[0] if name == "lb_keogh"
+                    else wall_ms(torch, plain, args[:10]))
+        n_env = 2 if name == "lb_keogh" else 3
+        b_ms, b_by = bound(4 * (m * n + n_env * Q * n + Q * m),
+                           per_el * Q * m * n)
+        rows.append(dict(name=name, route="cuda",
+                         source=f"src/repro_torch/kernels/csrc/{src}",
+                         replaces=f"src/repro/kernels/{line}",
+                         max_abs_err=errs[name], ms=ms, plain_ms=plain_ms,
+                         bound_ms=b_ms, bound_by=b_by, library_ms=None))
+        print(f"  {name} [{Q},{m},{n}] r={BAND}: kernel {ms:.5f} ms (host "
+              f"{host:.4f} ms per call), twin {plain_ms:.5f} ms, bound "
+              f"{b_ms:.6f} ms ({b_by})")
+
+    # dtw_band at the lane walk's chunk: [64, 128] rows of the collection
+    out = ops.dtw_band(qs_main, slab, mask, cut, BAND, idx=idx)
+    done = int(torch.isfinite(out).sum())
+    rows_read = int(torch.unique(idx).numel())
+    args = [(qs_main, slab, mask, cut, BAND, idx)] * n_iter
+    ms, host = time_ms(torch, ops.dtw_band, args)
+    plain_ms = wall_ms(torch, ref.dtw_band_ref, args[:5])
+    # the cells of the lanes that run to the end (abandoned lanes counted
+    # as 0: a lower bound of this run's work)
+    b_ms, b_by = bound(4 * (Q * n + rows_read * n + 2 * Q * 128) + Q * 128,
+                       DTW_CELL_OPS * done * dtw_cells(n, BAND))
+    rows.append(dict(name="dtw_band", route="cuda",
+                     source="src/repro_torch/kernels/csrc/dtw_band.cu",
+                     replaces="src/repro/kernels/dtw_band.py:94",
+                     max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                     bound_ms=b_ms, bound_by=b_by, library_ms=None))
+    print(f"  dtw_band rows [{Q},128] n={n} r={BAND}: {int(mask.sum())} lanes"
+          f" on, {done} finished: kernel {ms:.5f} ms (host {host:.4f} ms "
+          f"per call), twin {plain_ms:.5f} ms (wall), bound {b_ms:.6f} ms "
+          f"({b_by})")
+    # the same lanes with no cutoff: every lane on runs all its cells
+    on_lanes = int(mask.sum())
+    args = [(qs_main, slab, mask, inf_cut, BAND, idx)] * n_iter
+    ms2, _ = time_ms(torch, ops.dtw_band, args)
+    b2, by2 = bound(4 * (Q * n + rows_read * n + 2 * Q * 128) + Q * 128,
+                    DTW_CELL_OPS * on_lanes * dtw_cells(n, BAND))
+    print(f"  dtw_band rows [{Q},128] without cutoff ({on_lanes} lanes run "
+          f"{dtw_cells(n, BAND)} cells each): kernel {ms2:.5f} ms, bound "
+          f"{b2:.6f} ms ({by2})")
+    return rows
+
+
+def dtw_float64_check(torch, dev, q32, d_port, r, k):
+    """Independent float64 DTW top-(k+1) of ``q32 [Q, n]`` over every live
+    row of shard 0.  LB_Keogh in float64 (its own envelope) over every row,
+    then a float64 banded DP over the rows whose LB is at most the port's
+    k-th distance × (1 + 1e-5).  That is exact: LB ≤ DTW, and the port's
+    k-th distance is the DTW of a real row, so it is at least the true k-th.
+    Returns ``(d [Q, k+1] f64, ids [Q, k+1], rows given the DP)``."""
+    F = torch.nn.functional
+    inf = float("inf")
+    db0, ids0, alive0 = dev.db[0], dev.ids[0], dev.alive[0]
+    Q, n = q32.shape
+    q = q32.double()
+    U = F.pad(q, (r, r), value=-inf).unfold(1, 2 * r + 1, 1).amax(-1)
+    L = F.pad(q, (r, r), value=inf).unfold(1, 2 * r + 1, 1).amin(-1)
+    thr = (torch.as_tensor(d_port[:, k - 1], dtype=torch.float64,
+                           device="cuda") * (1 + 1e-5)) ** 2
+    qi_l, row_l = [], []
+    step = 4096
+    for c0 in range(0, db0.shape[0], step):
+        x = db0[c0:c0 + step].double()[None]
+        e = (x - U[:, None]).clamp_min(0) + (L[:, None] - x).clamp_min(0)
+        keep = ((e * e).sum(-1) <= thr[:, None]) & alive0[None, c0:c0 + step]
+        qi, j = keep.nonzero(as_tuple=True)
+        qi_l.append(qi)
+        row_l.append(j + c0)
+    qi, rows = torch.cat(qi_l), torch.cat(row_l)
+    # the DP over the (query, row) pairs, anti-diagonal by anti-diagonal:
+    # slot t of diagonal d = i + j holds D(i, j) with i - j = t - r
+    T = 2 * r + 1
+    tt = torch.arange(T, device="cuda") - r
+    dist = torch.empty(len(rows), dtype=torch.float64, device="cuda")
+    chunk = 1 << 19
+    for p0 in range(0, len(rows), chunk):
+        a = q[qi[p0:p0 + chunk]]
+        b = db0[rows[p0:p0 + chunk]].double()
+        P = a.shape[0]
+        pad = torch.full((P, 1), inf, dtype=torch.float64, device="cuda")
+        d1 = torch.full((P, T), inf, dtype=torch.float64, device="cuda")
+        d2 = d1.clone()
+        for d in range(2 * n - 1):
+            i2 = d + tt
+            i, j = i2 // 2, (d - tt) // 2
+            valid = (i2 % 2 == 0) & (i >= 0) & (i < n) & (j >= 0) & (j < n)
+            c = (b[:, j.clamp(0, n - 1)] - a[:, i.clamp(0, n - 1)]) ** 2
+            up = torch.cat([pad, d1[:, :-1]], 1)          # D(i-1, j)
+            left = torch.cat([d1[:, 1:], pad], 1)         # D(i, j-1)
+            best = torch.minimum(torch.minimum(up, left), d2)  # D(i-1, j-1)
+            if d == 0:
+                best = torch.where(tt == 0, 0.0, best)
+            d2, d1 = d1, torch.where(valid, c + best, inf)
+        dist[p0:p0 + P] = d1[:, r].sqrt()
+    bd = torch.full((Q, k + 1), inf, dtype=torch.float64, device="cuda")
+    bi = torch.full((Q, k + 1), -1, dtype=torch.int64, device="cuda")
+    for qq in range(Q):
+        sel = qi == qq
+        dd, ii = dist[sel], ids0[rows[sel]].long()
+        v, j = torch.topk(dd, min(k + 1, dd.numel()), largest=False)
+        bd[qq, :len(v)] = v
+        bi[qq, :len(v)] = ii[j]
+    return bd, bi, len(rows)
+
+
 def brute_force(torch, dev, q32, k):
     """Exact top-(k+1) of ``q32 [Q, n]`` over every live row of shard 0 in
     float64 by direct differences: ``(d [Q, k+1] f64, ids [Q, k+1])``."""
@@ -242,15 +476,15 @@ def brute_force(torch, dev, q32, k):
     return v.sqrt(), torch.gather(i, 1, j)
 
 
-def check_exact(np, ids, d, bd, bi, db, qs, k) -> int:
-    """Hold one batch's result against the float64 brute force.  Distances
-    agree to rtol 1e-5; an id may differ from the brute force's only where
-    that position's distance is tied (within the same tolerance) with a
-    neighbouring position, and then the port's id must be exactly as near.
-    Returns the number of tied positions."""
+def check_exact(np, ids, d, bd, bi, true_dist, k) -> int:
+    """Hold one batch's result against the float64 check (``bd, bi``).
+    Distances agree to rtol 1e-5; an id may differ from the check's only
+    where that position's distance is tied (within the same tolerance) with
+    a neighbouring position, and then the port's id must be exactly as near
+    (``true_dist(query, id)``).  Returns the number of tied positions."""
     tol = 1e-5
     if not np.allclose(d.astype(np.float64), bd[:, :k], rtol=tol, atol=0):
-        fail(f"distances disagree with the float64 brute force (max rel "
+        fail(f"distances disagree with the float64 check (max rel "
              f"{np.max(np.abs(d - bd[:, :k]) / bd[:, :k]):.3e})")
     tied = 0
     for qi in range(ids.shape[0]):
@@ -261,10 +495,9 @@ def check_exact(np, ids, d, bd, bi, db, qs, k) -> int:
                 continue
             near = [bd[qi, jj] for jj in (j - 1, j + 1) if 0 <= jj <= k]
             if not any(abs(x - bd[qi, j]) <= tol * bd[qi, j] for x in near):
-                fail(f"query {qi} position {j}: id {ids[qi, j]} != brute "
-                     f"force {bi[qi, j]} at an untied distance {bd[qi, j]}")
-            true = np.sqrt(((db[ids[qi, j]].astype(np.float64)
-                             - qs[qi].astype(np.float64)) ** 2).sum())
+                fail(f"query {qi} position {j}: id {ids[qi, j]} != float64 "
+                     f"check {bi[qi, j]} at an untied distance {bd[qi, j]}")
+            true = true_dist(qi, ids[qi, j])
             if abs(true - bd[qi, j]) > tol * bd[qi, j]:
                 fail(f"query {qi} position {j}: id {ids[qi, j]} at "
                      f"{true} is not tied with {bd[qi, j]}")
@@ -272,7 +505,7 @@ def check_exact(np, ids, d, bd, bi, db, qs, k) -> int:
     return tied
 
 
-def profile_batch(torch, search, index, qb) -> None:
+def profile_batch(torch, search, index, qb, **kw) -> None:
     """One batch of the main path under ``torch.profiler``: device time by
     kernel, and the device's busy share of the batch's wall time (the
     profiler's own overhead lengthens the wall time, so the share is a
@@ -281,7 +514,7 @@ def profile_batch(torch, search, index, qb) -> None:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        search(index, qb, K, chunk=CHUNK)
+        search(index, qb, K, chunk=CHUNK, **kw)
         wall = time.perf_counter() - t0
     events = prof.key_averages()
     device_us = sum(getattr(e, "self_device_time_total", 0.0)
@@ -314,12 +547,14 @@ def main() -> None:
     import numpy as np
     from repro_torch.core.build import DumpyParams
     from repro_torch.core.index import DumpyIndex
+    from repro_torch.core.lb import dtw_envelope_batch, dtw_np
     from repro_torch.core.sax import SaxParams, breakpoints
     from repro_torch.core.search_device import exact_search_device_batch
     from repro_torch.core.split import SplitParams
     from repro_torch.data.series import query_workload, random_walks
     from repro_torch.kernels import _build, ops, ref
-    from repro_torch.kernels import lb_isax, pairwise_l2, sax_encode
+    from repro_torch.kernels import (dtw_band, lb_improved, lb_isax, lb_keogh,
+                                     pairwise_l2, sax_encode)
 
     # ---- 1. environment -------------------------------------------------
     t0 = time.perf_counter()
@@ -366,6 +601,8 @@ def main() -> None:
     qs_main = torch.from_numpy(qs[:BATCH]).cuda()
     rows = check_kernels(torch, np, ops, ref, breakpoints, qs_main, dev,
                          n_iter=50)
+    rows += check_dtw_kernels(torch, ops, ref, dtw_envelope_batch, qs_main,
+                              dev, n_iter=50)
     phase("kernels vs twins", t0)
 
     # ---- 5. main path ------------------------------------------------------
@@ -373,7 +610,9 @@ def main() -> None:
     batches = [qs[i:i + BATCH] for i in range(0, N_QUERIES, BATCH)]
     exact_search_device_batch(index, batches[0], K, chunk=CHUNK)  # warm-up
     mods = {"sax_encode": sax_encode, "pairwise_l2": pairwise_l2,
-            "lb_paa_interval": lb_isax}
+            "lb_paa_interval": lb_isax, "lb_keogh": lb_keogh,
+            "lb_improved": lb_improved, "dtw_band": dtw_band}
+    ed_kernels = ("sax_encode", "pairwise_l2", "lb_paa_interval")
     for m in mods.values():
         m.launches = 0
     torch.cuda.reset_peak_memory_stats()
@@ -395,17 +634,20 @@ def main() -> None:
           f"span run")
     print(f"  launches on the main path: {launches}")
     print(f"  torch.cuda.max_memory_allocated: {peak} bytes")
-    for name, c in launches.items():
-        if c <= 0:
-            fail(f"kernel {name} was not launched on the main path")
+    for name in ed_kernels:
+        if launches[name] <= 0:
+            fail(f"kernel {name} was not launched on the ED main path")
 
     t1 = time.perf_counter()
     tied = 0
     for qb, (ids, d, _) in zip(batches, results):
         bd, bi = brute_force(torch, dev,
                              torch.from_numpy(qb).cuda(), K)
-        tied += check_exact(np, ids, d, bd.cpu().numpy(), bi.cpu().numpy(),
-                            db, qb, K)
+        tied += check_exact(
+            np, ids, d, bd.cpu().numpy(), bi.cpu().numpy(),
+            lambda qi, i: np.sqrt(((db[i].astype(np.float64)
+                                    - qb[qi].astype(np.float64)) ** 2).sum()),
+            K)
     print(f"  all {N_QUERIES} exact top-{K} agree with the float64 brute "
           f"force (tied positions {tied}) ({time.perf_counter() - t1:.3f} s)")
 
@@ -424,8 +666,77 @@ def main() -> None:
     profile_batch(torch, exact_search_device_batch, index, batches[1])
     phase("profile", t0)
 
+    # ---- 7. DTW main path ----------------------------------------------------
+    t0 = time.perf_counter()
+    builds = index._n_device_builds
+    dtw_batches = [qs[i:i + BATCH] for i in range(0, N_DTW, BATCH)]
+    for m in mods.values():
+        m.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    dtw_results, stats = [], []
+    t1 = time.perf_counter()
+    for qb in dtw_batches:
+        ids, d, vis, st = exact_search_device_batch(
+            index, qb, K, chunk=CHUNK, metric="dtw", band=BAND,
+            return_stats=True)
+        dtw_results.append((ids, d, vis))
+        stats.append(st)
+    elapsed = time.perf_counter() - t1
+    dtw_launches = {name: m.launches for name, m in mods.items()}
+    peak = torch.cuda.max_memory_allocated()
+    total = {key: sum(st[key] for st in stats) for key in stats[0]}
+    vis_all = np.concatenate([r[2] for r in dtw_results])
+    print(f"  DTW (band {BAND}, order cluster): {N_DTW} queries in "
+          f"{len(dtw_batches)} batches of {BATCH}: {elapsed:.3f} s, "
+          f"{N_DTW / elapsed:.2f} qps; mean gather chunks visited "
+          f"{vis_all.mean():.2f}")
+    print(f"  cascade counters (both batches): {total}")
+    print(f"  launches on the DTW path: {dtw_launches}")
+    print(f"  torch.cuda.max_memory_allocated: {peak} bytes")
+    for name in ("lb_keogh", "lb_improved", "dtw_band"):
+        if dtw_launches[name] <= 0:
+            fail(f"kernel {name} was not launched on the DTW main path")
+
+    t1 = time.perf_counter()
+    tied, dp_rows = 0, 0
+    for qb, (ids, d, _) in zip(dtw_batches, dtw_results):
+        bd, bi, n_rows = dtw_float64_check(
+            torch, dev, torch.from_numpy(qb).cuda(), d, BAND, K)
+        dp_rows += n_rows
+        tied += check_exact(
+            np, ids, d, bd.cpu().numpy(), bi.cpu().numpy(),
+            lambda qi, i: dtw_np(qb[qi], db[i], BAND), K)
+    print(f"  all {N_DTW} DTW top-{K} agree with the independent float64 "
+          f"check (tied positions {tied}; its DP ran on {dp_rows} "
+          f"(query, row) pairs) ({time.perf_counter() - t1:.3f} s)")
+
+    for label, kw in (("order=perq", dict(order="perq")),
+                      ("order=shared", dict(order="shared")),
+                      ("n_shards=4", dict(n_shards=4))):
+        t1 = time.perf_counter()
+        ids_o, d_o, _ = exact_search_device_batch(
+            index, dtw_batches[0], K, chunk=CHUNK, metric="dtw", band=BAND,
+            **kw)
+        if not (np.array_equal(ids_o, dtw_results[0][0])
+                and np.array_equal(d_o, dtw_results[0][1])):
+            fail(f"DTW {label} differs from order=cluster")
+        print(f"  DTW {label} rerun of batch 0 is bitwise equal to "
+              f"order=cluster ({time.perf_counter() - t1:.3f} s)")
+    if index._n_device_builds != builds:
+        fail("the DTW phase built a second DeviceIndex layout")
+    print(f"  no DeviceIndex built by the DTW phase (layouts cached: "
+          f"{sorted(k[:2] for k in index._device_cache)})")
+    phase("DTW main path", t0)
+
+    # ---- 8. DTW: one profiled batch --------------------------------------------
+    t0 = time.perf_counter()
+    profile_batch(torch, exact_search_device_batch, index, dtw_batches[1],
+                  metric="dtw", band=BAND)
+    phase("DTW profile", t0)
+
     for r in rows:
-        r["launches"] = launches[r["name"]]
+        r["launches"] = (launches if r["name"] in ed_kernels
+                         else dtw_launches)[r["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))

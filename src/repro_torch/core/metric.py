@@ -9,9 +9,10 @@ full-resolution envelope), the interval MINDIST region bound
     LB   = (n/w) * sum_j d_j^2                       (squared form)
 
 and a candidate distance.  For ED the interval degenerates to the query's
-PAA and the envelope to the query itself.  This slice carries ED; the DTW
-preprocessing (LB_Keogh envelope and its segment summary) arrives with the
-DTW slice, and :func:`query_prep` raises for it until then.
+PAA and the envelope to the query itself; for DTW they are the LB_Keogh
+envelope over the Sakoe–Chiba band and its bound-preserving per-segment
+summary (max of U, min of L), and the candidate distance is the
+LB_Keogh → LB_Improved → banded-DP cascade.
 """
 from __future__ import annotations
 
@@ -19,6 +20,8 @@ import dataclasses
 
 import numpy as np
 import torch
+
+from .lb import dtw_envelope_batch, dtw_envelope_np, envelope_paa_np
 
 
 def default_band(n: int) -> int:
@@ -75,17 +78,19 @@ def resolve(metric, n: int, band: int | None = None,
                   order if order is not None else DTW_DEFAULT_ORDER)
 
 
-def dtw_not_ported() -> NotImplementedError:
-    """The error every DTW entry raises until the DTW slice lands."""
-    return NotImplementedError(
-        "metric='dtw' is not ported yet: it arrives with the DTW slice "
-        "(lb_keogh, lb_improved and dtw_band kernels); use the reference "
-        "package repro for DTW search")
-
-
 # ---------------------------------------------------------------------------
 # query preprocessing
 # ---------------------------------------------------------------------------
+
+def query_prep_np(metric: Metric, q: np.ndarray, paa_q: np.ndarray
+                  ) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """Host prep of one query → ``(seg_lo, seg_hi, env_lo, env_hi)``."""
+    if not metric.is_dtw:
+        return paa_q, paa_q, q, q
+    U, L = dtw_envelope_np(q, metric.band)
+    U_seg, L_seg = envelope_paa_np(U, L, paa_q.shape[-1])
+    return L_seg, U_seg, L, U
+
 
 def query_prep(metric: Metric, qs: torch.Tensor, paa_q: torch.Tensor
                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
@@ -93,10 +98,16 @@ def query_prep(metric: Metric, qs: torch.Tensor, paa_q: torch.Tensor
     """Device prep of a query batch ``qs [Q, n]`` →
     ``(seg_lo [Q,w], seg_hi [Q,w], env_lo [Q,n], env_hi [Q,n])``
     (``repro.core.metric.query_prep_jnp``).  For ED the interval is the PAA
-    itself and the envelope slots carry ``qs``."""
-    if metric.is_dtw:
-        raise dtw_not_ported()
-    return paa_q, paa_q, qs, qs
+    itself and the envelope slots carry ``qs``; for DTW the batched
+    LB_Keogh envelope and its segment max/min summary."""
+    if not metric.is_dtw:
+        return paa_q, paa_q, qs, qs
+    Q, n = qs.shape
+    w = paa_q.shape[-1]
+    U, L = dtw_envelope_batch(qs, metric.band)
+    U_seg = U.reshape(Q, w, n // w).amax(dim=-1)
+    L_seg = L.reshape(Q, w, n // w).amin(dim=-1)
+    return L_seg, U_seg, L, U
 
 
 # ---------------------------------------------------------------------------

@@ -1,32 +1,47 @@
 """Device-resident exact kNN over a :class:`~repro_torch.core.device_index.
-DeviceIndex` — the ED part of ``repro.core.search_device``.
+DeviceIndex` — the exact part of ``repro.core.search_device``, for ED and
+banded DTW.
 
 Per shard of the ``[S, Tp, n]`` layout, the same plan as the reference:
 
-    lb        = MINDIST(PAA(q), every local leaf)       (lb_paa_interval kernel)
+    lb        = MINDIST(interval(q), every local leaf)  (lb_paa_interval kernel)
     span LB   = segment-min over intersecting leaves    (scatter_reduce "amin")
     order     = stable argsort(min-over-queries span LB)
     while any query still has an unpruned span:
         slab  = shard rows [start, start + chunk)       (a view, no copy)
-        d     = |q - slab|²                             (pairwise_l2 kernel)
+        d     = |q - slab|²  or the DTW cascade         (kernels, see below)
         topk  = merge(topk, d)                          (per-query active mask)
 
 then the per-shard top-k lists merge with an in-merge fuzzy-duplicate dedup,
-and a k-sized host re-rank restores bitwise id/distance parity with the
-host ``search.exact_search``.  Shards run one after another on one device;
-each shard's early termination uses its local kth-best bound (≥ the global
-bound), so every shard's local top-k is a superset of its contribution to
-the global top-k, and the merged result does not depend on the shard count.
+and a k-sized host re-rank (direct-difference ED, or the float64 ``dtw_np``
+DP) restores bitwise id/distance parity with the host ``search.exact_search``.
+Shards run one after another on one device; each shard's early termination
+uses its local kth-best bound (≥ the global bound), so the merged result does
+not depend on the shard count.
 
-The reference's ``lax.while_loop`` tests its stop condition on every span;
-in eager PyTorch that test is a host sync.  Here the span schedule reaches
-the host once per shard, and the stop condition is tested once every
-:data:`STOP_CHECK_EVERY` spans.  That is exact: once no query can improve
-(``suffix LB ≥ kth best`` for all), every later span has ``qact`` all false,
-so it merges only ``+inf / -1`` slots (the merged value set is unchanged)
-and adds 0 to ``spans_visited``.
+DTW (``metric="dtw"``) shares the ED layout.  Its candidate distance is the
+cascade LB_Keogh → LB_Improved → masked banded DP (the ``lb_keogh``,
+``lb_improved`` and ``dtw_band`` kernels); each stage masks the next against
+the running k-th best, and per-stage kill counters come back with
+``return_stats``.  ``Metric.order`` picks the candidate order:
 
-DTW (``metric="dtw"``) arrives with the DTW slice and raises until then.
+- ``"shared"`` — the span loop above, each slab cut into ``DTW_SUB``-row
+  sub-slabs with the cutoff re-read before each;
+- ``"perq"`` — LB tables over every lane, each query's lanes sorted by its
+  own LB_Improved, a DP over its first ``k`` lanes seeding the cutoff, then
+  ``DTW_LANE_CHUNK``-wide gather chunks of its sorted lanes until its next
+  LB reaches its cutoff;
+- ``"cluster"`` — ``"perq"`` with the queries grouped by estimated work,
+  one walk per group (bitwise the ``"perq"`` result).
+
+The reference's ``lax.while_loop`` tests its stop condition on the device
+every step; in eager PyTorch that test is a host sync.  Both loops here
+reach the host once every :data:`STOP_CHECK_EVERY` steps.  That is exact:
+in the span loop, once no query can improve (``suffix LB ≥ kth best`` for
+all), every later span has ``qact`` all false, so it merges only ``+inf /
+-1`` slots and adds 0 to ``spans_visited`` and to every counter; the lane
+walk carries the reference's condition as a device-side flag that, once
+false, masks every later step's lanes (nothing merged, nothing counted).
 """
 from __future__ import annotations
 
@@ -37,10 +52,24 @@ from ..kernels import ops
 from ..robustness.failpoints import failpoint, with_retries
 from .device_index import DeviceIndex
 from .index import DumpyIndex
-from .metric import ED, Metric, dtw_not_ported, query_prep, resolve
+from .lb import dtw_np_batch
+from .metric import ED, Metric, query_prep, resolve
 
-#: spans between two host-side stop tests of the span loop (one sync each)
+#: steps between two host-side stop tests of the span loop and of the DTW
+#: lane walk (one sync each)
 STOP_CHECK_EVERY = 16
+#: DTW sub-block width inside a span slab (bounds the DP's lane count per
+#: launch without a second, narrower layout)
+DTW_SUB = 256
+#: gather-chunk width of the per-query lane-ordered DTW programs
+DTW_LANE_CHUNK = 128
+#: lane-chunk width of the LB table precompute of those programs
+DTW_LB_CHUNK = 2048
+
+#: slots of the per-stage cascade counters; ``dp_survivors = considered -
+#: killed_lb_keogh - killed_lb_improved - dp_abandoned`` is derived at the end
+STAT_KEYS = ("considered", "killed_lb_keogh", "killed_lb_improved",
+             "dp_abandoned")
 
 _INF = float("inf")
 
@@ -58,13 +87,39 @@ def _prep_batch(metric: Metric, qs_dev: torch.Tensor, w: int, b: int
     return query_prep(metric, qs_dev, paa_q), sax_q.to(torch.int32)
 
 
+def _cascade_stats(valid: torch.Tensor, lbk2: torch.Tensor,
+                   lbi2: torch.Tensor, d2: torch.Tensor,
+                   cutoff2: torch.Tensor) -> torch.Tensor:
+    """Per-stage kill counters of one cascade invocation → int64[4]
+    (:data:`STAT_KEYS` order), on the device.  ``valid`` are the lanes the
+    cascade looked at; a lane that ran the DP but came back ``+inf`` was
+    cutoff-abandoned mid-DP."""
+    ct = cutoff2[:, None]
+    k1 = valid & (lbk2 >= ct)
+    k2 = valid & (lbk2 < ct) & (lbi2 >= ct)
+    ran = valid & (lbi2 < ct)
+    ab = ran & torch.isinf(d2)
+    return torch.stack([valid.sum(), k1.sum(), k2.sum(), ab.sum()])
+
+
 def _dist2_slab(metric: Metric, qs: torch.Tensor, prep: tuple,
-                slab: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
-    """Squared ED of the whole query batch against a shared candidate slab
-    (the ``pairwise_l2`` kernel), invalid/pruned entries ``+inf``."""
-    if metric.is_dtw:
-        raise dtw_not_ported()
-    return torch.where(valid, ops.pairwise_l2(qs, slab), _INF)
+                slab: torch.Tensor, valid: torch.Tensor,
+                cutoff2: torch.Tensor
+                ) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """Squared distances of the whole query batch against a shared
+    candidate slab, invalid/pruned entries ``+inf`` → ``(d2 [Q, m], stats
+    int64[4] or None for ED)``.  ED is the ``pairwise_l2`` kernel; DTW runs
+    the cascade — LB_Keogh, then LB_Improved, and only lanes both leave
+    below the running cutoff ``cutoff2 [Q]`` pay the masked band DP."""
+    if not metric.is_dtw:
+        return torch.where(valid, ops.pairwise_l2(qs, slab), _INF), None
+    _, _, env_lo, env_hi = prep
+    lbk2 = ops.lb_keogh(slab, env_hi, env_lo)                  # [Q, m]
+    lbi2 = ops.lb_improved(slab, qs, env_hi, env_lo, metric.band)
+    ct = cutoff2[:, None]
+    mask = valid & (lbk2 < ct) & (lbi2 < ct)
+    d2 = ops.dtw_band(qs, slab, mask, cutoff2, metric.band)
+    return d2, _cascade_stats(valid, lbk2, lbi2, d2, cutoff2)
 
 
 def _validate_queries_struct(qs, n: int) -> np.ndarray:
@@ -103,18 +158,20 @@ def _validate_queries(qs, n: int) -> np.ndarray:
 
 
 def _mask_dead_shards(health, topd: torch.Tensor, topi: torch.Tensor,
-                      vis: torch.Tensor):
-    """Degraded mode: erase dead shards' per-shard locals (``[S, Q, k]``)
-    before the merge — their slots become ``+inf / -1``, which the dedup
-    top-k treats as absent.  ``health`` is ``DeviceIndex.shard_health``;
-    ``None`` (all healthy) is the identity."""
+                      vis: torch.Tensor, st: torch.Tensor):
+    """Degraded mode: erase dead shards' per-shard locals (``[S, Q, k]``,
+    ``vis [S, Q]``, cascade counters ``st [S, 4]``) before the merge — their
+    slots become ``+inf / -1``, which the dedup top-k treats as absent.
+    ``health`` is ``DeviceIndex.shard_health``; ``None`` (all healthy) is
+    the identity."""
     if health is None:
-        return topd, topi, vis
+        return topd, topi, vis, st
     m = torch.tensor(health, dtype=torch.bool, device=topd.device)
     topd = torch.where(m[:, None, None], topd, _INF)
     topi = torch.where(m[:, None, None], topi, -1)
     vis = torch.where(m[:, None], vis, 0)
-    return topd, topi, vis
+    st = torch.where(m[:, None], st, 0)
+    return topd, topi, vis, st
 
 
 def shard_coverage(index: DumpyIndex, dev: DeviceIndex) -> float:
@@ -172,14 +229,21 @@ def _dedup_topk(d2: torch.Tensor, ids: torch.Tensor, k: int
 # ---------------------------------------------------------------------------
 
 def _shard_knn(dev: DeviceIndex, s: int, prep: tuple, qs: torch.Tensor,
-               k: int, metric: Metric
-               ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, int]:
-    """One shard's span loop → ``(topd [Q,k], topi [Q,k], vis [Q], syncs)``."""
+               k: int, metric: Metric):
+    """One shard's span loop → ``(topd [Q,k], topi [Q,k], vis [Q],
+    stats int64[4], syncs)``.  DTW cuts each slab into ``DTW_SUB``-row
+    sub-slabs and re-reads the running cutoff before each, so later
+    sub-slabs prune against what earlier ones merged."""
     Q = qs.shape[0]
     chunk, n = dev.chunk, dev.n
     device = qs.device
     db_s, alive_s, ids_s = dev.db[s], dev.alive[s], dev.ids[s]
     W = dev.win_start.shape[1]
+    # sub-blocking needs exact tiling; an odd explicit chunk (or one
+    # already at/below DTW_SUB) runs the slab whole, as the reference does
+    n_sub = chunk // DTW_SUB if (
+        metric.is_dtw and chunk > DTW_SUB and chunk % DTW_SUB == 0) else 1
+    sub_w = chunk // n_sub
     lbq = ops.lb_paa_interval(prep[0], prep[1], dev.leaf_lo[s],
                               dev.leaf_hi[s], n)                 # [Q, Lp] sq
     # span LB = min over intersecting leaves (exact: it lower-bounds every
@@ -201,6 +265,7 @@ def _shard_knn(dev: DeviceIndex, s: int, prep: tuple, qs: torch.Tensor,
     topd = torch.full((Q, k), _INF, dtype=torch.float32, device=device)
     topi = torch.full((Q, k), -1, dtype=torch.int32, device=device)
     vis = torch.zeros(Q, dtype=torch.int32, device=device)
+    st = torch.zeros(4, dtype=torch.int64, device=device)
     for i in range(W):
         if i % STOP_CHECK_EVERY == 0:
             syncs += 1
@@ -210,56 +275,216 @@ def _shard_knn(dev: DeviceIndex, s: int, prep: tuple, qs: torch.Tensor,
         qact = win_lb[:, i] < topd[:, k - 1]                    # [Q] active
         valid = torch.zeros(chunk, dtype=torch.bool, device=device)
         valid[lead:lead + size] = alive_s[start + lead:start + lead + size]
-        d2 = _dist2_slab(metric, qs, prep, db_s[start:start + chunk],
-                         valid[None, :] & qact[:, None])
-        sid = ids_s[start:start + chunk]
-        idt = torch.where(torch.isinf(d2), -1, sid[None, :].expand(Q, -1))
-        topd, topi = ops.topk_merge(topd, topi, d2, idt)
+        for b in range(n_sub):
+            s0 = start + b * sub_w
+            # the cutoff re-read of every sub-slab after the first
+            qact_b = qact if b == 0 else qact & (win_lb[:, i] < topd[:, k - 1])
+            d2, stt = _dist2_slab(
+                metric, qs, prep, db_s[s0:s0 + sub_w],
+                valid[None, b * sub_w:(b + 1) * sub_w] & qact_b[:, None],
+                topd[:, k - 1].contiguous())
+            sid = ids_s[s0:s0 + sub_w]
+            idt = torch.where(torch.isinf(d2), -1, sid[None, :].expand(Q, -1))
+            topd, topi = ops.topk_merge(topd, topi, d2, idt)
+            if stt is not None:
+                st += stt
         vis += qact.to(torch.int32)
-    return topd, topi, vis, syncs
+    return topd, topi, vis, st, syncs
 
 
 def _exact_knn_sharded(dev: DeviceIndex, prep: tuple, qs: torch.Tensor, *,
-                       k: int, metric: Metric = ED
-                       ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
-                                  int]:
-    """Interval-MINDIST tables → per-shard span loops → merge with in-merge
-    dedup.  Returns ``(d [Q,k], original ids [Q,k], spans_visited [Q],
-    host syncs)`` with invalid slots as ``inf / -1``.
+                       k: int, metric: Metric = ED):
+    """Per-shard searches → merge with in-merge dedup.  Returns ``(d [Q,k],
+    original ids [Q,k], visited [Q], cascade stats int64[4], host syncs)``
+    with invalid slots as ``inf / -1`` (stats all zero for ED).  Each shard
+    runs the span loop (:func:`_shard_knn`; ED and the DTW ``"shared"``
+    order) or the lane-ordered DTW program (:func:`_lane_knn`).
 
-    Early termination is per query *and* per shard: along the shard's span
-    order, query q may stop merging at step i iff its suffix-min LB there is
-    ≥ its running kth best — every span it has not seen locally is
-    individually prunable."""
+    Early termination is per query *and* per shard: each shard prunes
+    against its local kth best (≥ the global one), so every shard's local
+    top-k is a superset of its contribution to the global top-k."""
     Q = qs.shape[0]
-    parts = [_shard_knn(dev, s, prep, qs, k, metric)
+    lanes = metric.is_dtw and metric.order != "shared"
+    parts = [(_lane_knn if lanes else _shard_knn)(dev, s, prep, qs, k, metric)
              for s in range(dev.n_shards)]
     topd = torch.stack([p[0] for p in parts])                    # [S, Q, k]
     topi = torch.stack([p[1] for p in parts])
     vis = torch.stack([p[2] for p in parts])
-    topd, topi, vis = _mask_dead_shards(dev.shard_health, topd, topi, vis)
+    st = torch.stack([p[3] for p in parts])
+    topd, topi, vis, st = _mask_dead_shards(dev.shard_health, topd, topi,
+                                            vis, st)
     S = topd.shape[0]
     alld = topd.permute(1, 0, 2).reshape(Q, S * k)
     alli = topi.permute(1, 0, 2).reshape(Q, S * k)
     d2m, idm = _dedup_topk(alld, alli, k)
-    return torch.sqrt(d2m), idm, vis.sum(dim=0), sum(p[3] for p in parts)
+    return (torch.sqrt(d2m), idm, vis.sum(dim=0), st.sum(dim=0),
+            sum(p[4] for p in parts))
+
+
+def _cluster_groups(Q: int) -> int:
+    """Sub-batch count of the ``"cluster"`` ordering: enough groups that
+    stragglers stop holding the whole batch, few enough that each group's
+    walk still amortizes its launches (the reference's rule)."""
+    if Q % 4 == 0 and Q >= 32:
+        return 4
+    if Q % 2 == 0 and Q >= 16:
+        return 2
+    return 1
+
+
+def _lane_walk(db_s: torch.Tensor, ids_s: torch.Tensor, qs: torch.Tensor,
+               order: torch.Tensor, lbi_s: torch.Tensor, lbk_s: torch.Tensor,
+               topd: torch.Tensor, topi: torch.Tensor, r: int, kseed: int):
+    """Stage 4 of :func:`_lane_knn` for one group of queries: walk
+    ``DTW_LANE_CHUNK``-wide chunks of every query's LB_Improved-sorted lanes
+    (``order``, ``lbi_s``, ``lbk_s [Qg, Tp]``) from rank ``kseed`` on, each
+    chunk's lanes masked against the re-read cutoff, while the smallest
+    unvisited LB of some query is below its cutoff.  Returns ``(topd, topi,
+    vis, stats int64[4], syncs)``; ``vis`` counts the chunks a query had a
+    lane in, the seed chunk included.
+
+    The reference tests that condition on the device before every chunk.
+    Here it is a device-side flag ``running`` (sticky: once false, no lane
+    is seen again, so the condition stays false) that gates every chunk's
+    lanes, and the host reads it once every :data:`STOP_CHECK_EVERY`
+    chunks: chunks run after it turned false see no lane, merge only
+    ``+inf`` and count nothing."""
+    Qg, Tp = order.shape
+    k = topd.shape[1]
+    device = qs.device
+    C = min(DTW_LANE_CHUNK, Tp)
+    NC = max(-(-(Tp - kseed) // C), 0)
+    cols = torch.arange(C, device=device)
+    vis = torch.ones(Qg, dtype=torch.int32, device=device)
+    st = torch.zeros(4, dtype=torch.int64, device=device)
+    running = torch.ones((), dtype=torch.bool, device=device)
+    syncs = 0
+    for c in range(NC):
+        if c % STOP_CHECK_EVERY == 0:
+            syncs += 1
+            if not bool(running):
+                break
+        r0 = kseed + c * C
+        cutoff = topd[:, k - 1].contiguous()
+        running = running & (lbi_s[:, r0] < cutoff).any()
+        s0 = min(r0, Tp - C)
+        fresh = cols >= (r0 - s0)              # ranks < r0 already seen
+        idx = order[:, s0:s0 + C].contiguous()
+        lbi_c = lbi_s[:, s0:s0 + C]
+        seen = fresh[None, :] & torch.isfinite(lbi_c) & running
+        mask = seen & (lbi_c < cutoff[:, None])
+        d2 = ops.dtw_band(qs, db_s, mask, cutoff, r, idx=idx)
+        idt = torch.where(torch.isinf(d2), -1, ids_s[idx])
+        topd, topi = ops.topk_merge(topd, topi, d2, idt)
+        st += _cascade_stats(seen, lbk_s[:, s0:s0 + C], lbi_c, d2, cutoff)
+        vis += mask.any(dim=1).to(torch.int32)
+    return topd, topi, vis, st, syncs
+
+
+def _lane_knn(dev: DeviceIndex, s: int, prep: tuple, qs: torch.Tensor,
+              k: int, metric: Metric):
+    """One shard of the per-query-ordered DTW program (``Metric.order`` ∈
+    {"perq", "cluster"}) → ``(topd, topi, vis, stats, syncs)``; ``vis``
+    counts the gather chunks a query was live for, the analogue of spans
+    visited.
+
+    (1) LB_Keogh and LB_Improved tables ``[Q, Tp]`` over every lane, in
+    ``DTW_LB_CHUNK``-lane slabs (dead lanes ``+inf``); (2) each query's lanes
+    stably sorted by its LB_Improved; (3) a DP over each query's first
+    ``k`` lanes seeds the running top-k; (4) :func:`_lane_walk` over the
+    sorted ranks.  Because each query's lanes arrive ascending by LB, every
+    unvisited lane has ``LB_Improved ≥ cutoff ≥ final k-th best``.
+    ``"cluster"`` sorts the queries by estimated work (lanes below the seed
+    cutoff) and walks each of :func:`_cluster_groups` groups on its own; a
+    query's own merge sequence is unchanged, so the result is bitwise that
+    of ``"perq"``."""
+    Q = qs.shape[0]
+    r = metric.band
+    _, _, env_lo, env_hi = prep
+    db_s, alive_s, ids_s = dev.db[s], dev.alive[s], dev.ids[s]
+    Tp = db_s.shape[0]
+    device = qs.device
+    topd = torch.full((Q, k), _INF, dtype=torch.float32, device=device)
+    topi = torch.full((Q, k), -1, dtype=torch.int32, device=device)
+    if Tp == 0:                                              # empty shard
+        return (topd, topi, torch.zeros(Q, dtype=torch.int32, device=device),
+                torch.zeros(4, dtype=torch.int64, device=device), 0)
+    LC = min(DTW_LB_CHUNK, Tp)
+    kseed = min(k, Tp)
+
+    # ---- stage 1: LB tables over every lane --------------------------------
+    lbk_all = torch.empty((Q, Tp), dtype=torch.float32, device=device)
+    lbi_all = torch.empty((Q, Tp), dtype=torch.float32, device=device)
+    for c in range(-(-Tp // LC)):
+        s0 = min(c * LC, Tp - LC)        # the tail slab recomputes a few
+        slab = db_s[s0:s0 + LC]
+        al = alive_s[None, s0:s0 + LC]
+        lbk_all[:, s0:s0 + LC] = torch.where(
+            al, ops.lb_keogh(slab, env_hi, env_lo), _INF)
+        lbi_all[:, s0:s0 + LC] = torch.where(
+            al, ops.lb_improved(slab, qs, env_hi, env_lo, r), _INF)
+
+    # ---- stage 2: per-query lane order, ascending LB_Improved --------------
+    lbi_s, order = torch.sort(lbi_all, dim=1, stable=True)
+    lbk_s = torch.gather(lbk_all, 1, order)
+    del lbk_all
+
+    # ---- stage 3: seed DP over each query's k best-LB lanes ----------------
+    seed_idx = order[:, :kseed].contiguous()
+    seed_ok = torch.isfinite(lbi_s[:, :kseed])               # dead lanes: inf
+    d2s = ops.dtw_band(qs, db_s, seed_ok,
+                       torch.full((Q,), _INF, device=device), r,
+                       idx=seed_idx)
+    idt = torch.where(torch.isinf(d2s), -1, ids_s[seed_idx])
+    topd, topi = ops.topk_merge(topd, topi, d2s, idt)
+    zero = torch.zeros((), dtype=torch.int64, device=device)
+    st = torch.stack([seed_ok.sum(), zero, zero,
+                      (seed_ok & torch.isinf(d2s)).sum()])
+
+    # ---- stage 4: gather-chunk walk of the sorted ranks --------------------
+    G = _cluster_groups(Q) if metric.order == "cluster" else 1
+    if G == 1:
+        topd, topi, vis, stw, syncs = _lane_walk(
+            db_s, ids_s, qs, order, lbi_s, lbk_s, topd, topi, r, kseed)
+        return topd, topi, vis, st + stw, syncs
+    # cluster: group queries by estimated work at the seed cutoff
+    est = (lbi_all < topd[:, k - 1][:, None]).sum(dim=1)
+    perm = torch.argsort(est, stable=True)
+    inv = torch.argsort(perm, stable=True)
+    Qg = Q // G
+    parts = []
+    for g in range(G):
+        rows = perm[g * Qg:(g + 1) * Qg]
+        parts.append(_lane_walk(db_s, ids_s, qs[rows], order[rows],
+                                lbi_s[rows], lbk_s[rows], topd[rows],
+                                topi[rows], r, kseed))
+    topd = torch.cat([p[0] for p in parts])[inv]
+    topi = torch.cat([p[1] for p in parts])[inv]
+    vis = torch.cat([p[2] for p in parts])[inv]
+    return (topd, topi, vis, st + sum(p[3] for p in parts),
+            sum(p[4] for p in parts))
 
 
 def _finalize_exact(index: DumpyIndex, qs: np.ndarray, ids_dev: np.ndarray,
-                    k: int) -> tuple[np.ndarray, np.ndarray]:
+                    k: int, metric: Metric = ED
+                    ) -> tuple[np.ndarray, np.ndarray]:
     """k-sized host re-rank for bitwise parity with ``search.exact_search``:
-    recompute candidate distances with the host math (direct-difference ED)
-    and sort by (d, id) — exactly the host heap's order.  This is also what
-    makes the result independent of ``torch.topk``'s order among equal
-    device distances.  Device invalid slots (``id -1``) stay padded as
-    ``-1 / inf``."""
+    recompute candidate distances with the host math (direct-difference ED,
+    or the float64 ``dtw_np`` DP the host heap compares) and sort by (d, id)
+    — exactly the host heap's order.  This is also what makes the result
+    independent of ``torch.topk``'s order among equal device distances.
+    Device invalid slots (``id -1``) stay padded as ``-1 / inf``."""
     Q, kk = ids_dev.shape
     if index.db.shape[0] == 0:                              # empty collection
         return (np.full((Q, k), -1, np.int64),
                 np.full((Q, k), np.inf, np.float32))
     cand = index.db[np.maximum(ids_dev, 0)]                 # [Q, kk, n]
-    diff = cand - qs[:, None, :]
-    d = np.sqrt((diff * diff).sum(axis=-1)).astype(np.float32)
+    if metric.is_dtw:
+        # f64 vectorized DP, bitwise the scalar dtw_np per lane
+        d = dtw_np_batch(qs, cand, metric.band)
+    else:
+        diff = cand - qs[:, None, :]
+        d = np.sqrt((diff * diff).sum(axis=-1)).astype(np.float32)
     d = np.where(ids_dev < 0, np.inf, d)
     out_ids = np.full((Q, k), -1, np.int64)
     out_d = np.full((Q, k), np.inf, np.float32)
@@ -292,13 +517,16 @@ def exact_search_device_batch(index: DumpyIndex, qs: np.ndarray, k: int,
     ``shard_health`` (a length-``n_shards`` bool sequence, or a ``dev``
     whose ``shard_health`` is set) enables degraded mode: dead shards are
     masked out of the merge and the return tuple gains a trailing
-    ``coverage`` float.  ``return_stats=True`` appends
-    ``{"host_syncs": …}``, the number of device→host syncs of the span
-    loops."""
+    ``coverage`` float.
+
+    ``metric="dtw"`` shares the ED layout and runs the LB_Keogh →
+    LB_Improved → band-DP cascade under the candidate ordering ``order``
+    (default ``"cluster"``, see ``core.metric.ORDERS``).
+    ``return_stats=True`` appends a dict: the cascade counters
+    (:data:`STAT_KEYS` + ``dp_survivors``, all zero for ED) and
+    ``host_syncs``, the device→host syncs of the search loops."""
     qs = _validate_queries(qs, index.n)
     met = resolve(metric, qs.shape[1], band, order)
-    if met.is_dtw:
-        raise dtw_not_ported()
     if dev is None:
         dev = index.device_index(chunk=chunk, n_shards=n_shards,
                                  device=device)
@@ -308,22 +536,28 @@ def exact_search_device_batch(index: DumpyIndex, qs: np.ndarray, k: int,
     sax = index.params.sax
     qs_dev = torch.from_numpy(qs).to(dev.device)
     prep, _ = _prep_batch(met, qs_dev, sax.w, sax.b)
-    # +8 slack: the loop ranks by the f32 |q|²+|x|²-2qx form whose rounding
-    # can swap near-ties across the k boundary; the host re-rank then picks
-    # the true top-k from the widened set
+    # +8 slack: the loop ranks by f32 device math (the |q|²+|x|²-2qx form
+    # for ED, the f32 band DP for DTW) whose rounding can swap near-ties
+    # across the k boundary; the host re-rank then picks the true top-k
+    # from the widened set
     kk = _result_margin(dev, k) + 8
 
     def _launch():
         failpoint("search.shard_merge")
         return _exact_knn_sharded(dev, prep, qs_dev, k=kk, metric=met)
 
-    _, ids, visited, syncs = with_retries(_launch, site="search.shard_merge")
-    ids_out, d_out = _finalize_exact(index, qs, ids.cpu().numpy(), k)
+    _, ids, visited, st, syncs = with_retries(_launch,
+                                              site="search.shard_merge")
+    ids_out, d_out = _finalize_exact(index, qs, ids.cpu().numpy(), k, met)
     out = [ids_out, d_out, visited.cpu().numpy()]
     if want_cov:
         out.append(shard_coverage(index, dev))
     if return_stats:
-        out.append({"host_syncs": syncs})
+        st = [int(v) for v in st.cpu()]
+        stats = dict(zip(STAT_KEYS, st))
+        stats["dp_survivors"] = st[0] - st[1] - st[2] - st[3]
+        stats["host_syncs"] = syncs
+        out.append(stats)
     return tuple(out)
 
 

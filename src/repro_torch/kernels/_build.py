@@ -18,18 +18,25 @@ import subprocess
 import threading
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("sax_encode.cu", "pairwise_l2.cu", "lb_paa_interval.cu")
+SOURCES = ("sax_encode.cu", "pairwise_l2.cu", "lb_paa_interval.cu",
+           "lb_keogh.cu", "lb_improved.cu", "dtw_band.cu")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_LL = ctypes.c_longlong
 #: C entry → argtypes; every entry returns ``cudaGetLastError()`` as int
 _SIGNATURES = {
     "dumpy_sax_encode_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "dumpy_pairwise_l2_f32": [_P, _P, _P, _I, _I, _I, _P],
     "dumpy_lb_paa_interval_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
+    "dumpy_lb_keogh_f32": [_P, _P, _P, _P, _I, _I, _I, _LL, _P],
+    "dumpy_lb_improved_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _LL, _P],
+    "dumpy_dtw_band_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _LL, _P],
 }
 
 _lock = threading.Lock()
@@ -110,6 +117,25 @@ def lib() -> ctypes.CDLL:
                 getattr(handle, fn).restype = ctypes.c_int
             _lib = handle
     return _lib
+
+
+def require_cuda(what: str, **tensors) -> None:
+    """Check a kernel's float32 operands: ``name=(tensor, ndim or tuple of
+    allowed ndims)``; every tensor must be contiguous, on one CUDA
+    device."""
+    dev = None
+    for name, (t, dims) in tensors.items():
+        if not t.is_cuda or (dev is not None and t.device != dev):
+            raise ValueError(f"{what} kernel takes CUDA tensors on one "
+                             f"device")
+        dev = t.device
+        dims = dims if isinstance(dims, tuple) else (dims,)
+        if (t.dtype != torch.float32 or t.dim() not in dims
+                or not t.is_contiguous()):
+            raise ValueError(
+                f"{what}: {name} must be contiguous "
+                f"{' or '.join(map(str, dims))}-D float32, got "
+                f"{tuple(t.shape)} {t.dtype}")
 
 
 def check(err: int, what: str) -> None:

@@ -1,0 +1,67 @@
+"""CUDA kernel: masked banded DTW² with cutoff early-abandon, the DP of the
+exact DTW search (``csrc/dtw_band.cu``).
+
+Replaces the TPU kernel ``repro/kernels/dtw_band.py::dtw_band`` (body
+``_kernel``: a full-width ``(block_m, n)`` anti-diagonal DP per tile under a
+``while_loop`` that exits when the tile's lanes are dead).  The reference's
+search reaches that kernel for the shared slab and runs the same DP as
+``dtw2_masked_gather_jnp`` for per-query candidate sets; this one kernel
+serves both, and a third form: rows ``idx [Q, m]`` of a collection, which
+spares the search a ``[Q, m, n]`` gather.  The DP is the band-compacted
+anti-diagonal scan of ``core.lb._dtw2_masked_scan`` cell for cell, so the
+result equals the plain version bit for bit, ``+inf`` lanes included.  One
+warp per (query, candidate) lane; masked lanes do no work.  Bound by the
+latency of 2n-1 dependent diagonal steps per lane.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import _build
+
+#: launches of the CUDA kernel (a plain count; callers reset it to 0)
+launches = 0
+
+
+def dtw_band(qs: torch.Tensor, xs: torch.Tensor, mask: torch.Tensor,
+             cutoff2: torch.Tensor, r: int,
+             idx: torch.Tensor | None = None) -> torch.Tensor:
+    """``qs [Q, n]``; candidates ``xs [m, n]``, ``xs [Q, m, n]``, or rows
+    ``idx [Q, m]`` (int64) of ``xs [T, n]``; ``mask [Q, m]`` bool,
+    ``cutoff2 [Q]`` f32, all on CUDA → ``[Q, m]`` squared distances."""
+    global launches
+    tensors = dict(qs=(qs, 2), xs=(xs, (2, 3)), cutoff2=(cutoff2, 1))
+    _build.require_cuda("dtw_band", **tensors)
+    Q, n = qs.shape
+    m = mask.shape[1] if mask.dim() == 2 else -1
+    if idx is not None:
+        if (idx.device != qs.device or idx.dtype != torch.int64
+                or idx.shape != (Q, m) or not idx.is_contiguous()
+                or xs.dim() != 2):
+            raise ValueError("dtw_band: idx must be a contiguous int64 "
+                             "[Q, m] table of rows of xs [T, n] on the "
+                             "same device")
+    elif xs.shape[:-1] not in ((m,), (Q, m)):
+        raise ValueError(f"dtw_band: xs {tuple(xs.shape)} does not match "
+                         f"mask {tuple(mask.shape)}")
+    if (mask.device != qs.device or mask.dtype != torch.bool
+            or mask.shape != (Q, m) or not mask.is_contiguous()
+            or xs.shape[-1] != n or cutoff2.shape != (Q,)):
+        raise ValueError(f"dtw_band: shape mismatch qs {tuple(qs.shape)}, "
+                         f"xs {tuple(xs.shape)}, mask {tuple(mask.shape)} "
+                         f"{mask.dtype}, cutoff2 {tuple(cutoff2.shape)}")
+    if r < 0:
+        raise ValueError(f"dtw_band: band radius {r} < 0")
+    out = torch.empty((Q, m), dtype=torch.float32, device=qs.device)
+    if Q == 0 or m == 0:
+        return out
+    with torch.cuda.device(qs.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _build.lib().dumpy_dtw_band_f32(
+            qs.data_ptr(), xs.data_ptr(),
+            None if idx is None else idx.data_ptr(), mask.data_ptr(),
+            cutoff2.data_ptr(), out.data_ptr(), Q, m, n, int(r),
+            m if xs.dim() == 3 else 0, stream)
+    _build.check(err, "dtw_band")
+    launches += 1
+    return out

@@ -1,0 +1,49 @@
+"""CUDA kernel: squared LB_Improved, stage 2 of the DTW candidate cascade
+(``csrc/lb_improved.cu``).
+
+Replaces the TPU kernel ``repro/kernels/lb_keogh.py::lb_improved`` (body
+``_improved_kernel``: LB_Keogh² plus LB_Keogh² of the query against the
+envelope of the candidate's projection ``h = clip(x, L, U)``, with a van
+Herk sliding max/min over a ``(block_b, n)`` tile).  As for ``lb_keogh`` the
+port computes the batched ``[Q, m]`` form the search calls
+(``lb_improved2_batch_jnp``).  ``h`` depends on the query and the candidate,
+so the sliding window runs per pair: one warp per pair, its window rows in
+shared memory, max/min over windows of radius ``r`` by log2(r) doubling
+passes (exact).  Bound by operations (~20 per element).
+"""
+from __future__ import annotations
+
+import torch
+
+from . import _build
+
+#: launches of the CUDA kernel (a plain count; callers reset it to 0)
+launches = 0
+
+
+def lb_improved(x: torch.Tensor, qs: torch.Tensor, U: torch.Tensor,
+                L: torch.Tensor, r: int) -> torch.Tensor:
+    """``x [m, n]`` or ``[Q, m, n]``, ``qs/U/L [Q, n]`` f32 on CUDA, band
+    radius ``r`` → ``[Q, m]``."""
+    global launches
+    _build.require_cuda("lb_improved", x=(x, (2, 3)), qs=(qs, 2), U=(U, 2),
+                        L=(L, 2))
+    Q, n = qs.shape
+    m = x.shape[-2]
+    if (U.shape != qs.shape or L.shape != qs.shape or x.shape[-1] != n
+            or (x.dim() == 3 and x.shape[0] != Q)):
+        raise ValueError(f"lb_improved: shape mismatch x {tuple(x.shape)}, "
+                         f"qs {tuple(qs.shape)}")
+    if r < 0:
+        raise ValueError(f"lb_improved: band radius {r} < 0")
+    out = torch.empty((Q, m), dtype=torch.float32, device=x.device)
+    if Q == 0 or m == 0:
+        return out
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _build.lib().dumpy_lb_improved_f32(
+            x.data_ptr(), qs.data_ptr(), U.data_ptr(), L.data_ptr(),
+            out.data_ptr(), Q, m, n, int(r), m if x.dim() == 3 else 0, stream)
+    _build.check(err, "lb_improved")
+    launches += 1
+    return out

@@ -26,20 +26,14 @@ def lb_paa_interval(seg_lo: torch.Tensor, seg_hi: torch.Tensor,
                     ) -> torch.Tensor:
     """``seg_lo/seg_hi [Q, w]``, ``lo/hi [L, w]`` f32 on CUDA → ``[Q, L]``."""
     global launches
-    ts = (("seg_lo", seg_lo), ("seg_hi", seg_hi), ("lo", lo), ("hi", hi))
+    _build.require_cuda("lb_paa_interval", seg_lo=(seg_lo, 2),
+                        seg_hi=(seg_hi, 2), lo=(lo, 2), hi=(hi, 2))
     dev = seg_lo.device
-    for name, t in ts:
-        if not t.is_cuda or t.device != dev:
-            raise ValueError("lb_paa_interval kernel takes CUDA tensors on "
-                             "one device")
-        if t.dtype != torch.float32 or t.dim() != 2 or not t.is_contiguous():
-            raise ValueError(f"lb_paa_interval: {name} must be contiguous "
-                             f"2-D float32, got {tuple(t.shape)} {t.dtype}")
     Q, w = seg_lo.shape
     L = lo.shape[0]
     if seg_hi.shape != (Q, w) or lo.shape[1] != w or hi.shape != (L, w):
         raise ValueError("lb_paa_interval: shape mismatch "
-                         f"{[tuple(t.shape) for _, t in ts]}")
+                         f"{[tuple(t.shape) for t in (seg_lo, seg_hi, lo, hi)]}")
     if w > 32:
         raise ValueError(f"lb_paa_interval: w={w} > 32 exceeds the kernel's "
                          f"shared-memory tile")

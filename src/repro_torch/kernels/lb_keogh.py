@@ -1,0 +1,46 @@
+"""CUDA kernel: squared LB_Keogh, stage 1 of the DTW candidate cascade
+(``csrc/lb_keogh.cu``).
+
+Replaces the TPU kernel ``repro/kernels/lb_keogh.py::lb_keogh`` (body
+``_kernel``: one query envelope against a ``(block_b, n)`` candidate tile).
+The reference's search calls the batched form ``lb_keogh2_batch_jnp``
+(``[Q, m]``, for a shared candidate block or per-query candidate sets), so
+the port's kernel computes that form; the one-query TPU form is Q = 1.  On
+Hopper it is ~7 float32 operations per element of a candidate row that each
+block stages in shared memory once for all of its queries: bound by
+operations at the search's 64 queries per row.  One warp per (query,
+candidate) pair, with a warp reduction of the sum.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import _build
+
+#: launches of the CUDA kernel (a plain count; callers reset it to 0)
+launches = 0
+
+
+def lb_keogh(x: torch.Tensor, U: torch.Tensor, L: torch.Tensor
+             ) -> torch.Tensor:
+    """``x [m, n]`` or ``[Q, m, n]``, ``U/L [Q, n]`` f32 on CUDA →
+    ``[Q, m]``."""
+    global launches
+    _build.require_cuda("lb_keogh", x=(x, (2, 3)), U=(U, 2), L=(L, 2))
+    Q, n = U.shape
+    m = x.shape[-2]
+    if (L.shape != U.shape or x.shape[-1] != n
+            or (x.dim() == 3 and x.shape[0] != Q)):
+        raise ValueError(f"lb_keogh: shape mismatch x {tuple(x.shape)}, "
+                         f"U {tuple(U.shape)}, L {tuple(L.shape)}")
+    out = torch.empty((Q, m), dtype=torch.float32, device=x.device)
+    if Q == 0 or m == 0:
+        return out
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _build.lib().dumpy_lb_keogh_f32(
+            x.data_ptr(), U.data_ptr(), L.data_ptr(), out.data_ptr(), Q, m, n,
+            m if x.dim() == 3 else 0, stream)
+    _build.check(err, "lb_keogh")
+    launches += 1
+    return out

@@ -8,7 +8,10 @@ from __future__ import annotations
 
 import torch
 
+from . import dtw_band as _dtw
+from . import lb_improved as _lbi
 from . import lb_isax as _lb
+from . import lb_keogh as _lbk
 from . import pairwise_l2 as _pl2
 from . import ref
 from . import sax_encode as _se
@@ -42,6 +45,35 @@ def lb_isax(paa_q: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
             n: int) -> torch.Tensor:
     """Squared MINDIST to every leaf pack ``[Q, L]`` (degenerate interval)."""
     return lb_paa_interval(paa_q, paa_q, lo, hi, n)
+
+
+def lb_keogh(x: torch.Tensor, U: torch.Tensor, L: torch.Tensor
+             ) -> torch.Tensor:
+    """Squared LB_Keogh ``[Q, m]`` (DTW cascade stage 1): candidates
+    ``x [m, n]`` shared by the batch or ``[Q, m, n]`` per query."""
+    if x.is_cuda:
+        return _lbk.lb_keogh(x, U, L)
+    return ref.lb_keogh_ref(x, U, L)
+
+
+def lb_improved(x: torch.Tensor, qs: torch.Tensor, U: torch.Tensor,
+                L: torch.Tensor, r: int) -> torch.Tensor:
+    """Squared LB_Improved ``[Q, m]`` (DTW cascade stage 2; dominates
+    ``lb_keogh`` and still lower-bounds DTW²), same layouts."""
+    if x.is_cuda:
+        return _lbi.lb_improved(x, qs, U, L, r)
+    return ref.lb_improved_ref(x, qs, U, L, r)
+
+
+def dtw_band(qs: torch.Tensor, xs: torch.Tensor, mask: torch.Tensor,
+             cutoff2: torch.Tensor, r: int,
+             idx: torch.Tensor | None = None) -> torch.Tensor:
+    """Masked banded DTW² ``[Q, m]`` with cutoff early-abandon (the final
+    cascade stage): candidates ``xs [m, n]``, ``[Q, m, n]``, or rows
+    ``idx [Q, m]`` of ``xs [T, n]``."""
+    if qs.is_cuda:
+        return _dtw.dtw_band(qs, xs, mask, cutoff2, r, idx)
+    return ref.dtw_band_ref(qs, xs, mask, cutoff2, r, idx)
 
 
 def topk_merge(topd: torch.Tensor, topi: torch.Tensor, d2: torch.Tensor,

@@ -25,12 +25,7 @@ launches = 0
 def pairwise_l2(q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """``q [Q, n]``, ``x [X, n]`` f32 on CUDA → squared distances ``[Q, X]``."""
     global launches
-    if not (q.is_cuda and x.is_cuda) or q.device != x.device:
-        raise ValueError("pairwise_l2 kernel takes CUDA tensors on one device")
-    for name, t in (("q", q), ("x", x)):
-        if t.dtype != torch.float32 or t.dim() != 2 or not t.is_contiguous():
-            raise ValueError(f"pairwise_l2: {name} must be contiguous 2-D "
-                             f"float32, got {tuple(t.shape)} {t.dtype}")
+    _build.require_cuda("pairwise_l2", q=(q, 2), x=(x, 2))
     if q.shape[1] != x.shape[1]:
         raise ValueError(f"pairwise_l2: lengths differ ({q.shape[1]} vs "
                          f"{x.shape[1]})")

@@ -10,7 +10,8 @@ from __future__ import annotations
 
 import torch
 
-from ..core.lb import ed2_batch, lb_interval
+from ..core.lb import (dtw2_masked_batch, dtw2_masked_gather, ed2_batch,
+                       lb_improved2_batch, lb_interval, lb_keogh2_batch)
 from ..core.sax import sax_encode_t
 
 
@@ -39,3 +40,30 @@ def lb_isax_ref(paa_q: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
                 n: int) -> torch.Tensor:
     """Squared MINDIST(PAA, region): the degenerate interval."""
     return lb_interval(paa_q, paa_q, lo, hi, n)
+
+
+def lb_keogh_ref(x: torch.Tensor, U: torch.Tensor, L: torch.Tensor
+                 ) -> torch.Tensor:
+    """Squared LB_Keogh: ``x [m, n]`` or ``[Q, m, n]``, ``U/L [Q, n]`` →
+    ``[Q, m] f32`` (the TPU kernel's one-envelope form is Q = 1)."""
+    return lb_keogh2_batch(x, U, L)
+
+
+def lb_improved_ref(x: torch.Tensor, qs: torch.Tensor, U: torch.Tensor,
+                    L: torch.Tensor, r: int) -> torch.Tensor:
+    """Squared LB_Improved: ``x [m, n]`` or ``[Q, m, n]``, ``qs/U/L [Q, n]``
+    → ``[Q, m] f32``."""
+    return lb_improved2_batch(x, qs, U, L, r)
+
+
+def dtw_band_ref(qs: torch.Tensor, xs: torch.Tensor, mask: torch.Tensor,
+                 cutoff2: torch.Tensor, r: int,
+                 idx: torch.Tensor | None = None) -> torch.Tensor:
+    """Masked banded DTW²: candidates ``xs [m, n]`` (shared), ``[Q, m, n]``
+    (per query) or rows ``idx [Q, m]`` of ``xs [T, n]`` → ``[Q, m] f32``,
+    ``+inf`` on masked and abandoned lanes."""
+    if idx is not None:
+        return dtw2_masked_gather(qs, xs[idx], r, mask, cutoff2)
+    if xs.dim() == 3:
+        return dtw2_masked_gather(qs, xs, r, mask, cutoff2)
+    return dtw2_masked_batch(qs, xs, r, mask, cutoff2)

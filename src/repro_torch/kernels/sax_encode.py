@@ -25,11 +25,7 @@ def sax_encode(x: torch.Tensor, w: int, b: int
                ) -> tuple[torch.Tensor, torch.Tensor]:
     """``x [B, n] f32`` on CUDA → ``(paa [B, w] f32, sax [B, w] i32)``."""
     global launches
-    if not x.is_cuda:
-        raise ValueError("sax_encode kernel takes a CUDA tensor")
-    if x.dtype != torch.float32 or x.dim() != 2 or not x.is_contiguous():
-        raise ValueError(f"sax_encode wants contiguous [B, n] float32, got "
-                         f"{tuple(x.shape)} {x.dtype}")
+    _build.require_cuda("sax_encode", x=(x, 2))
     B, n = x.shape
     if n % w:
         raise ValueError(f"n={n} must be divisible by w={w}")

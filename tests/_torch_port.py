@@ -26,6 +26,12 @@ L2_SWEEP = [(1, 1, 64), (17, 333, 96), (128, 128, 128), (5, 1000, 256),
             (130, 50, 320)]
 LB_SWEEP = [(1, 1, 8, 64), (9, 77, 16, 128), (8, 512, 16, 256),
             (3, 1500, 8, 64)]
+# (Q, m, n, r) of the DTW cascade kernels: the search's shapes (n=256,
+# r=25 with a 256-row sub-slab or a 128-lane gather chunk), ragged ones,
+# and the full-width band r + 1 >= n
+DTW_SWEEP = [(1, 1, 64, 6), (5, 77, 64, 6), (64, 256, 256, 25),
+             (64, 128, 256, 25), (3, 40, 17, 3), (4, 33, 64, 63),
+             (2, 9, 32, 40), (7, 50, 96, 0)]
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -58,6 +64,37 @@ def intervals(rng, Q: int, L: int, w: int):
     sl = rng.standard_normal((Q, w)).astype(np.float32)
     sh = sl + np.abs(rng.standard_normal((Q, w))).astype(np.float32)
     return sl, sh, lo, hi
+
+
+def dtw_inputs(rng, Q: int, m: int, n: int, r: int):
+    """Random-walk queries ``[Q, n]``, candidates ``[m, n]`` and per-query
+    candidates ``[Q, m, n]``, with the queries' envelopes ``(U, L)`` from
+    the port's twin; the first and last column of every envelope are set
+    to ``±inf`` (an unbounded edge must give 0, never NaN)."""
+    from repro_torch.core.lb import dtw_envelope_batch
+    qs = np.cumsum(rng.standard_normal((Q, n)), axis=1).astype(np.float32)
+    xs = np.cumsum(rng.standard_normal((m, n)), axis=1).astype(np.float32)
+    cand = np.cumsum(rng.standard_normal((Q, m, n)), axis=2
+                     ).astype(np.float32)
+    U, L = (t.numpy().copy() for t in dtw_envelope_batch(
+        torch.from_numpy(qs), r))
+    U[:, [0, -1]] = np.inf
+    L[:, [0, -1]] = -np.inf
+    return qs, xs, cand, U, L
+
+
+def dtw_mask_cutoff(rng, qs, xs, r: int):
+    """A random lane mask ``[Q, m]`` and per-query cutoffs at the lower
+    quartile of the unmasked DTW² (so some lanes finish and some are
+    abandoned), from the port's twin on the CPU."""
+    from repro_torch.kernels.ref import dtw_band_ref
+    Q, m = qs.shape[0], xs.shape[-2]
+    mask = rng.random((Q, m)) < 0.7
+    t = torch.from_numpy
+    full = dtw_band_ref(t(qs), t(xs), torch.ones((Q, m), dtype=torch.bool),
+                        torch.full((Q,), np.inf), r).numpy()
+    cut = np.quantile(full, 0.25, axis=1).astype(np.float32)
+    return mask, cut
 
 
 def params_pair(w: int = 8, b: int = 8, th: int = 128, fuzzy_f: float = 0.0):

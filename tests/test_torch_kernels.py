@@ -1,6 +1,6 @@
 """The port's kernel twins against the reference's Pallas kernels (run in
 interpret mode, as ``test_kernels.py`` runs them) over the same shape
-sweeps.  The CUDA kernels against their twins, on the card, are in
+sweeps (the DTW cascade: LB twins within rtol 1e-6, the DP bitwise).  The CUDA kernels against their twins, on the card, are in
 ``test_torch_kernels_cuda.py``."""
 import numpy as np
 import jax.numpy as jnp
@@ -8,13 +8,18 @@ import pytest
 import torch
 
 from _torch_port import (L2_SWEEP, LB_SWEEP, SAX_SWEEP, clear_of_breakpoints,
-                         intervals, torch_threads)  # noqa: F401
+                         dtw_inputs, dtw_mask_cutoff, intervals,
+                         torch_threads)  # noqa: F401
 from repro.kernels import ops as r_ops
+from repro.kernels.dtw_band import dtw_band as r_dtw_band
 from repro.kernels.lb_isax import lb_isax as r_lb_isax
 from repro.kernels.lb_isax import lb_paa_interval as r_lb_paa_interval
+from repro.kernels.lb_keogh import lb_improved as r_lb_improved
+from repro.kernels.lb_keogh import lb_keogh as r_lb_keogh
 from repro.kernels.pairwise_l2 import pairwise_l2 as r_pairwise_l2
 from repro.kernels.sax_encode import sax_encode as r_sax_encode
-from repro_torch.kernels import lb_isax, ops, pairwise_l2, ref, sax_encode
+from repro_torch.kernels import (dtw_band, lb_improved, lb_isax, lb_keogh, ops,
+                                 pairwise_l2, ref, sax_encode)
 
 RNG = np.random.default_rng(42)
 
@@ -97,22 +102,85 @@ def test_topk_merge_matches_reference(Q, k, C):
     assert pi.dtype == torch.int32
 
 
+# the Pallas DTW kernels take one query (LB) or a shared block (DP); the
+# port's batched forms are held against them query by query
+DTW_PALLAS = [(1, 1, 64, 6), (3, 130, 64, 6), (2, 40, 17, 3), (2, 20, 32, 40)]
+
+
+@pytest.mark.parametrize("Q,m,n,r", DTW_PALLAS)
+def test_lb_keogh_and_lb_improved_twins_match_pallas(Q, m, n, r):
+    qs, xs, _, U, L = dtw_inputs(RNG, Q, m, n, r)
+    t = torch.from_numpy
+    lbk = ops.lb_keogh(t(xs), t(U), t(L)).numpy()
+    lbi = ops.lb_improved(t(xs), t(qs), t(U), t(L), r).numpy()
+    assert lbk.shape == lbi.shape == (Q, m) and not np.isnan(lbi).any()
+    for q in range(Q):
+        want = np.asarray(r_lb_keogh(jnp.asarray(xs), jnp.asarray(U[q]),
+                                     jnp.asarray(L[q]), interpret=True))
+        np.testing.assert_allclose(lbk[q], want, rtol=1e-6)
+        want = np.asarray(r_lb_improved(
+            jnp.asarray(xs), jnp.asarray(qs[q]), jnp.asarray(U[q]),
+            jnp.asarray(L[q]), r=r, interpret=True))
+        np.testing.assert_allclose(lbi[q], want, rtol=1e-6)
+
+
+@pytest.mark.parametrize("Q,m,n,r", DTW_PALLAS)
+def test_dtw_band_twin_matches_pallas_bitwise(Q, m, n, r):
+    """The twin's band-compacted DP against the Pallas kernel's full-width
+    one: the same cells, so the same values and the same ``+inf`` lanes."""
+    qs, xs, _, _, _ = dtw_inputs(RNG, Q, m, n, r)
+    mask, cut = dtw_mask_cutoff(RNG, qs, xs, r)
+    want = np.asarray(r_dtw_band(jnp.asarray(qs), jnp.asarray(xs),
+                                 jnp.asarray(mask), jnp.asarray(cut), r=r,
+                                 interpret=True))
+    t = torch.from_numpy
+    got = ops.dtw_band(t(qs), t(xs), t(mask), t(cut), r).numpy()
+    np.testing.assert_array_equal(got, want)
+    if m > 1:
+        assert np.isinf(got).any() and np.isfinite(got).any()
+
+
+def test_dtw_band_row_table_is_the_gather():
+    """Rows ``idx [Q, m]`` of a collection give what the gathered
+    ``[Q, m, n]`` candidate sets give."""
+    qs, xs, _, _, _ = dtw_inputs(RNG, 3, 50, 64, 6)
+    idx = RNG.integers(0, 50, (3, 20))
+    mask = RNG.random((3, 20)) < 0.8
+    cut = np.full(3, 2000.0, np.float32)
+    t = torch.from_numpy
+    got = ops.dtw_band(t(qs), t(xs), t(mask), t(cut), 6, idx=t(idx))
+    want = ops.dtw_band(t(qs), t(xs[idx]), t(mask), t(cut), 6)
+    assert torch.equal(got, want)
+
+
 def test_ops_routes_cpu_tensors_to_twins():
     """A CPU tensor goes to the twin and launches nothing; the kernel
     wrappers themselves refuse CPU tensors (no silent fallback)."""
-    counts = (sax_encode.launches, pairwise_l2.launches, lb_isax.launches)
+    mods = (sax_encode, pairwise_l2, lb_isax, lb_keogh, lb_improved,
+            dtw_band)
+    counts = [m.launches for m in mods]
     x = torch.from_numpy(RNG.standard_normal((5, 64)).astype(np.float32))
     paa, sax = ops.sax_encode(x, 8, 8)
     ops.pairwise_l2(x, x)
     ops.lb_isax(paa, paa, paa, 64)
-    assert (sax_encode.launches, pairwise_l2.launches,
-            lb_isax.launches) == counts
+    ops.lb_keogh(x, x, x)
+    ops.lb_improved(x, x, x, x, 3)
+    mask = torch.ones((5, 5), dtype=torch.bool)
+    cut = torch.full((5,), np.inf)
+    ops.dtw_band(x, x, mask, cut, 3)
+    assert [m.launches for m in mods] == counts
     with pytest.raises(ValueError, match="CUDA"):
         sax_encode.sax_encode(x, 8, 8)
     with pytest.raises(ValueError, match="CUDA"):
         pairwise_l2.pairwise_l2(x, x)
     with pytest.raises(ValueError, match="CUDA"):
         lb_isax.lb_paa_interval(paa, paa, paa, paa, 64)
+    with pytest.raises(ValueError, match="CUDA"):
+        lb_keogh.lb_keogh(x, x, x)
+    with pytest.raises(ValueError, match="CUDA"):
+        lb_improved.lb_improved(x, x, x, x, 3)
+    with pytest.raises(ValueError, match="CUDA"):
+        dtw_band.dtw_band(x, x, mask, cut, 3)
 
 
 def test_kernel_library_is_keyed_on_sources_and_flags(monkeypatch):

@@ -1,14 +1,19 @@
 """The CUDA kernels against their plain PyTorch twins, on the card, over the
-shape sweeps of ``test_kernels.py``.  Imports no ``jax``, so it runs where
+shape sweeps of ``test_kernels.py`` (and ``DTW_SWEEP`` for the DTW cascade:
+the LB kernels within rtol 1e-5 — two sums of n nonnegative terms taken in
+other orders — and ``dtw_band`` bitwise, ``+inf`` lanes included).  Imports no ``jax``, so it runs where
 the card is (``python -m pytest -m cuda tests/test_torch_kernels_cuda.py``);
 everywhere else every case skips with a reason."""
 import numpy as np
 import pytest
 import torch
 
-from _torch_port import (L2_SWEEP, LB_SWEEP, SAX_SWEEP, clear_of_breakpoints,
-                         cuda, intervals, torch_threads)  # noqa: F401
-from repro_torch.kernels import ops, ref, sax_encode
+from _torch_port import (DTW_SWEEP, L2_SWEEP, LB_SWEEP, SAX_SWEEP,
+                         clear_of_breakpoints, cuda, dtw_inputs,
+                         dtw_mask_cutoff, intervals,
+                         torch_threads)  # noqa: F401
+from repro_torch.kernels import (dtw_band, lb_improved, lb_keogh, ops, ref,
+                                 sax_encode)
 
 RNG = np.random.default_rng(43)
 
@@ -47,3 +52,56 @@ def test_lb_paa_interval_kernel_matches_twin(cuda, Q, L, w, n):
     want = ref.lb_paa_interval_ref(*t, n)
     assert not torch.isnan(got).any()
     torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+
+
+def _lb_close(got, want):
+    """Both are sums of n nonnegative float32 terms in different orders:
+    each is within (n-1)·2⁻²⁴ of the exact sum, so rtol 1e-5 covers
+    n ≤ 256 with room."""
+    assert not torch.isnan(got).any()
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("Q,m,n,r", DTW_SWEEP)
+@pytest.mark.parametrize("layout", ["shared", "gather"])
+def test_lb_keogh_kernel_matches_twin(cuda, Q, m, n, r, layout):
+    qs, xs, cand, U, L = dtw_inputs(RNG, Q, m, n, r)
+    x = torch.from_numpy(xs if layout == "shared" else cand).to(cuda)
+    U, L = (torch.from_numpy(a).to(cuda) for a in (U, L))
+    before = lb_keogh.launches
+    got = ops.lb_keogh(x, U, L)
+    assert lb_keogh.launches == before + 1
+    _lb_close(got, ref.lb_keogh_ref(x, U, L))
+
+
+@pytest.mark.parametrize("Q,m,n,r", DTW_SWEEP)
+@pytest.mark.parametrize("layout", ["shared", "gather"])
+def test_lb_improved_kernel_matches_twin(cuda, Q, m, n, r, layout):
+    qs, xs, cand, U, L = dtw_inputs(RNG, Q, m, n, r)
+    x = torch.from_numpy(xs if layout == "shared" else cand).to(cuda)
+    q, U, L = (torch.from_numpy(a).to(cuda) for a in (qs, U, L))
+    before = lb_improved.launches
+    got = ops.lb_improved(x, q, U, L, r)
+    assert lb_improved.launches == before + 1
+    _lb_close(got, ref.lb_improved_ref(x, q, U, L, r))
+
+
+@pytest.mark.parametrize("Q,m,n,r", DTW_SWEEP)
+@pytest.mark.parametrize("layout", ["shared", "gather", "rows"])
+def test_dtw_band_kernel_matches_twin_bitwise(cuda, Q, m, n, r, layout):
+    qs, xs, cand, _, _ = dtw_inputs(RNG, Q, m, n, r)
+    mask, cut = dtw_mask_cutoff(RNG, qs, xs if layout != "gather" else cand,
+                                r)
+    t = {a: torch.from_numpy(v).to(cuda) for a, v in
+         dict(qs=qs, xs=xs, cand=cand, mask=mask, cut=cut).items()}
+    idx = None
+    x = t["cand"] if layout == "gather" else t["xs"]
+    if layout == "rows":           # every query's lanes, reversed order
+        idx = torch.arange(m - 1, -1, -1, device=cuda).repeat(Q, 1)
+    before = dtw_band.launches
+    got = ops.dtw_band(t["qs"], x, t["mask"], t["cut"], r, idx=idx)
+    assert dtw_band.launches == before + 1
+    want = ref.dtw_band_ref(t["qs"], x, t["mask"], t["cut"], r, idx=idx)
+    assert torch.equal(torch.isinf(got), torch.isinf(want))
+    assert torch.equal(got, want)
+    assert torch.isinf(got[~t["mask"]]).all()

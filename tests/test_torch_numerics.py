@@ -136,9 +136,122 @@ def test_metric_resolution_matches_reference():
 
 
 def test_query_prep_ed_is_degenerate_and_dtw_waits():
+    """ED prep stays the degenerate interval; DTW prep, which an earlier
+    slice refused, equals ``query_prep_jnp`` exactly (envelopes and their
+    segment summary are max/min, no rounding)."""
     qs = torch.from_numpy(RNG.standard_normal((3, 64)).astype(np.float32))
     paa = sax.paa_t(qs, 8)
     seg_lo, seg_hi, env_lo, env_hi = metric.query_prep(metric.ED, qs, paa)
     assert seg_lo is paa and seg_hi is paa and env_lo is qs and env_hi is qs
-    with pytest.raises(NotImplementedError, match="DTW slice"):
-        metric.query_prep(metric.resolve("dtw", 64), qs, paa)
+    for band in (1, 6, 63, 70):
+        met = metric.resolve("dtw", 64, band)
+        got = metric.query_prep(met, qs, paa)
+        want = r_metric.query_prep_jnp(
+            r_metric.resolve("dtw", 64, band), jnp.asarray(qs.numpy()),
+            jnp.asarray(paa.numpy()))
+        for g, w in zip(got, want):
+            _same(g.numpy(), np.asarray(w))
+
+
+def _walks(*shape):
+    return np.cumsum(RNG.standard_normal(shape), axis=-1).astype(np.float32)
+
+
+def test_dtw_host_copies_bitwise():
+    n, w, r = 64, 8, 6
+    q, x = _walks(n), _walks(n)
+    _same(lb.dtw_np(q, x, r), r_lb.dtw_np(q, x, r))
+    U, L = lb.dtw_envelope_np(q, r)
+    for g, want in zip((U, L), r_lb.dtw_envelope_np(q, r)):
+        _same(g, want)
+    for g, want in zip(lb.envelope_paa_np(U, L, w),
+                       r_lb.envelope_paa_np(U, L, w)):
+        _same(g, want)
+    xs = _walks(30, n)
+    _same(lb.lb_keogh_np(xs, U, L), r_lb.lb_keogh_np(xs, U, L))
+    Us, Ls = lb.envelope_paa_np(U, L, w)
+    lo = RNG.standard_normal((30, w)).astype(np.float32)
+    hi = lo + np.abs(RNG.standard_normal((30, w))).astype(np.float32)
+    _same(lb.mindist_dtw_bounds_np(Us, Ls, lo, hi, n),
+          r_lb.mindist_dtw_bounds_np(Us, Ls, lo, hi, n))
+    paa = sax.paa_np(q, w)
+    met, r_met = metric.resolve("dtw", n, r), r_metric.resolve("dtw", n, r)
+    for g, want in zip(metric.query_prep_np(met, q, paa),
+                       r_metric.query_prep_np(r_met, q, paa)):
+        _same(g, want)
+    # the interval MINDIST over the envelope summary is the DTW bound
+    _same(metric.interval_mindist_np(Ls, Us, lo, hi, n),
+          lb.mindist_dtw_bounds_np(Us, Ls, lo, hi, n))
+
+
+@pytest.mark.parametrize("Q,kk,n,r", [(5, 7, 48, 5), (2, 3, 17, 20)])
+def test_dtw_np_batch_bitwise(Q, kk, n, r):
+    qs, cand = _walks(Q, n), _walks(Q, kk, n)
+    got = lb.dtw_np_batch(qs, cand, r)
+    _same(got, r_lb.dtw_np_batch(qs, cand, r))
+    # the scalar DP agrees to float32 (numpy squares an f32 scalar through
+    # powf and an f32 array by multiplying, so the f64 sums may differ in
+    # their last bit; the search's re-rank returns float32)
+    _same(np.float32(got[1, 2]), np.float32(lb.dtw_np(qs[1], cand[1, 2], r)))
+
+
+@pytest.mark.parametrize("n", [7, 17, 64])
+@pytest.mark.parametrize("r", [0, 1, 3, 6, 70])
+def test_window_minmax_and_envelope_exact(n, r):
+    x = RNG.standard_normal((4, n)).astype(np.float32)
+    t = torch.from_numpy(x)
+    _same(lb._window_max(t, r).numpy(),
+          np.asarray(r_lb._window_max(jnp.asarray(x), r)))
+    _same(lb._window_min(t, r).numpy(),
+          np.asarray(r_lb._window_min(jnp.asarray(x), r)))
+    for g, want in zip(lb.dtw_envelope_batch(t, r),
+                       r_lb.dtw_envelope_batch_jnp(jnp.asarray(x), r)):
+        _same(g.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("Q,m,n,r", [(1, 1, 64, 6), (6, 40, 64, 6),
+                                     (4, 30, 256, 25), (3, 20, 17, 20)])
+@pytest.mark.parametrize("layout", ["shared", "gather"])
+def test_lb_cascade_matches_jnp(Q, m, n, r, layout):
+    """Sums over n in another order than XLA's: rtol 1e-6."""
+    qs = _walks(Q, n)
+    xs = _walks(m, n) if layout == "shared" else _walks(Q, m, n)
+    U, L = r_lb.dtw_envelope_batch_jnp(jnp.asarray(qs), r)
+    Ut, Lt = (torch.from_numpy(np.array(a)) for a in (U, L))
+    want = np.asarray(r_lb.lb_keogh2_batch_jnp(jnp.asarray(xs), U, L))
+    got = lb.lb_keogh2_batch(torch.from_numpy(xs), Ut, Lt).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-6)
+    want = np.asarray(r_lb.lb_improved2_batch_jnp(
+        jnp.asarray(xs), jnp.asarray(qs), U, L, r))
+    got = lb.lb_improved2_batch(torch.from_numpy(xs), torch.from_numpy(qs),
+                                Ut, Lt, r).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-6)
+    assert (got >= lb.lb_keogh2_batch(torch.from_numpy(xs), Ut, Lt).numpy()
+            * (1 - 1e-6)).all()
+
+
+@pytest.mark.parametrize("Q,m,n,r", [(1, 1, 64, 6), (6, 40, 64, 6),
+                                     (4, 30, 256, 25), (3, 20, 17, 20),
+                                     (2, 9, 32, 31)])
+@pytest.mark.parametrize("layout", ["shared", "gather"])
+def test_dtw2_masked_bitwise_jnp(Q, m, n, r, layout):
+    """The anti-diagonal DP, random masks and finite cutoffs: bitwise,
+    ``+inf`` lanes included (``r + 1 >= n`` takes the full-width form)."""
+    qs = _walks(Q, n)
+    xs = _walks(m, n) if layout == "shared" else _walks(Q, m, n)
+    mask = RNG.random((Q, m)) < 0.7
+    r_fn = (r_lb.dtw2_masked_batch_jnp if layout == "shared"
+            else r_lb.dtw2_masked_gather_jnp)
+    fn = lb.dtw2_masked_batch if layout == "shared" else lb.dtw2_masked_gather
+    full = np.asarray(r_fn(jnp.asarray(qs), jnp.asarray(xs), r,
+                           jnp.ones((Q, m), bool),
+                           jnp.full((Q,), np.inf, jnp.float32)))
+    cut = np.quantile(full, 0.4, axis=1).astype(np.float32)
+    want = np.asarray(r_fn(jnp.asarray(qs), jnp.asarray(xs), r,
+                           jnp.asarray(mask), jnp.asarray(cut)))
+    got = fn(torch.from_numpy(qs), torch.from_numpy(xs), r,
+             torch.from_numpy(mask), torch.from_numpy(cut)).numpy()
+    _same(got, want)
+    assert np.isinf(got[~mask]).all()
+    if m > 1:
+        assert np.isfinite(got).any() and np.isinf(got[mask]).any()

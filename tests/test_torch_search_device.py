@@ -1,4 +1,5 @@
-"""The port's exact ED search against the reference's
+"""The port's exact search (ED; DTW in ``test_torch_dtw_search.py``)
+against the reference's
 ``exact_search_device_batch`` and the host ``exact_search``: ids and
 distances bitwise, ``spans_visited`` equal, on plain and fuzzy layouts with
 tombstones, for one and four shards (on the CPU, ``device="cpu"``)."""
@@ -149,7 +150,17 @@ def test_validation_errors_match_reference(plain, bad, exc, msg):
 
 
 def test_dtw_waits_for_its_slice(plain):
-    _, pi = plain
-    with pytest.raises(NotImplementedError, match="DTW slice"):
-        exact_search_device_batch(pi, random_walks(2, 64, seed=1), K,
-                                  metric="dtw", device=CPU)
+    """DTW, which an earlier slice refused, now runs: the port's default
+    DTW search (band 0.1 n, order "cluster") equals the reference's."""
+    ri, pi = plain
+    qs = random_walks(2, 64, seed=1)
+    got = exact_search_device_batch(pi, qs, K, chunk=CHUNK, metric="dtw",
+                                    device=CPU)
+    want = _ref(ri, qs, K, 1, metric="dtw")
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+    ids, d, _ = exact_search_device(pi, qs[0], K, chunk=CHUNK, metric="dtw",
+                                    device=CPU)
+    r_ids, r_d, _ = r_single(ri, qs[0], K, chunk=CHUNK, metric="dtw")
+    np.testing.assert_array_equal(ids, r_ids)
+    np.testing.assert_array_equal(d, r_d)
