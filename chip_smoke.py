@@ -23,7 +23,8 @@ Phases, each printed with its seconds:
    float64 brute force on the card, one batch rerun with ``n_shards=4``
    (bitwise equal), and the launch count of each kernel on this phase;
 6. profile: one more ED batch under ``torch.profiler`` (device time by
-   kernel, the device's busy share of the batch);
+   kernel, and by name for each of the six kernels, the device's busy
+   share of the batch);
 7. DTW main path: 128 held-out queries in 2 batches of 64 through
    ``exact_search_device_batch(metric="dtw")`` (k=10, band 25 = 10% of the
    length, order "cluster") on the same ``DeviceIndex`` (no second layout
@@ -61,6 +62,11 @@ BAND = 25              # default_band(256): the paper's 10% Sakoe-Chiba band
 # LB_Keogh (2 sub, 3 max, mul, add) and LB_Improved (LB_Keogh, the clip,
 # van Herk max/min, the second pass) and per cell of the band DP
 LBK_OPS, LBI_OPS, DTW_CELL_OPS = 7, 20, 5
+# the operations the lb_improved kernel itself does per element (its source
+# note: d = v - clip(v, lo, hi) in place of two gaps, an FMA counting two)
+LBI_KERNEL_OPS = 16
+KERNELS = ("sax_encode", "pairwise_l2", "lb_paa_interval", "lb_keogh",
+           "lb_improved", "dtw_band")
 
 
 def fail(msg: str) -> None:
@@ -361,6 +367,23 @@ def check_dtw_kernels(torch, ops, ref, envelope, qs_main, dev, n_iter):
         print(f"  {name} [{Q},{m},{n}] r={BAND}: kernel {ms:.5f} ms (host "
               f"{host:.4f} ms per call), twin {plain_ms:.5f} ms, bound "
               f"{b_ms:.6f} ms ({b_by})")
+    # lb_improved's bound at its own operation count too, and its time at
+    # the "shared" order's 256-row sub-slab beside both bounds
+    k_ms, k_by = bound(4 * (m * n + 3 * Q * n + Q * m),
+                       LBI_KERNEL_OPS * Q * m * n)
+    print(f"  lb_improved [{Q},{m},{n}]: bound at the kernel's "
+          f"{LBI_KERNEL_OPS} operations an element {k_ms:.6f} ms ({k_by})")
+    n_sub = min(n_iter, db0.shape[0] // 256)
+    args = [(db0[i * 256:(i + 1) * 256], qs_main, U, L, BAND)
+            for i in range(n_sub)]
+    ms, host = time_ms(torch, ops.lb_improved, args)
+    b_ms, b_by = bound(4 * (256 * n + 3 * Q * n + Q * 256),
+                       LBI_OPS * Q * 256 * n)
+    k_ms, k_by = bound(4 * (256 * n + 3 * Q * n + Q * 256),
+                       LBI_KERNEL_OPS * Q * 256 * n)
+    print(f"  lb_improved [{Q},256,{n}] r={BAND}: kernel {ms:.5f} ms (host "
+          f"{host:.4f} ms per call), bound {b_ms:.6f} ms ({b_by}; "
+          f"{k_ms:.6f} ms at {LBI_KERNEL_OPS} operations)")
 
     # dtw_band at the lane walk's chunk: [64, 128] rows of the collection
     out = ops.dtw_band(qs_main, slab, mask, cut, BAND, idx=idx)
@@ -528,6 +551,13 @@ def profile_batch(torch, search, index, qb, **kw) -> None:
         print(f"    {e.key[:60]:60s} calls {e.count:7d} device "
               f"{getattr(e, 'self_device_time_total', 0.0) / 1e3:9.3f} ms "
               f"host {e.self_cpu_time_total / 1e3:9.3f} ms")
+    # each of the port's kernels by name (CUDA symbol ``<name>_kernel``)
+    for name in KERNELS:
+        hits = [e for e in events if f"{name}_kernel" in e.key
+                and getattr(e, "self_device_time_total", 0.0) > 0]
+        dev_ms = sum(e.self_device_time_total for e in hits) / 1e3
+        print(f"    kernel {name:16s} calls {sum(e.count for e in hits):7d}"
+              f" device {dev_ms:9.3f} ms")
 
 
 def main() -> None:

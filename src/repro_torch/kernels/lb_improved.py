@@ -7,9 +7,16 @@ envelope of the candidate's projection ``h = clip(x, L, U)``, with a van
 Herk sliding max/min over a ``(block_b, n)`` tile).  As for ``lb_keogh`` the
 port computes the batched ``[Q, m]`` form the search calls
 (``lb_improved2_batch_jnp``).  ``h`` depends on the query and the candidate,
-so the sliding window runs per pair: one warp per pair, its window rows in
-shared memory, max/min over windows of radius ``r`` by log2(r) doubling
-passes (exact).  Bound by operations (~20 per element).
+so the sliding window runs per pair.  The first design (one warp per pair,
+log2(2r+1) doubling passes over a padded row in shared memory) was bound by
+~42 shared-memory accesses and two warp syncs per element.  This one gives
+each pair a thread (a warp: one query, 32 candidates) that streams its row
+once with van Herk / Gil–Werman blocks of width 2r+1: a running prefix in
+registers and one in-place backward suffix pass per block into a buffer of
+``min(2r+1, n)`` slots a side, 16 operations and 6 buffer accesses per
+element, no sync in the inner loop (exact: max and min do not round).  The
+buffers cap an SM at 16 resident warps at r=25; within that, issue slots
+and the shared-memory pipe bound it.
 """
 from __future__ import annotations
 

@@ -32,6 +32,14 @@ LB_SWEEP = [(1, 1, 8, 64), (9, 77, 16, 128), (8, 512, 16, 256),
 DTW_SWEEP = [(1, 1, 64, 6), (5, 77, 64, 6), (64, 256, 256, 25),
              (64, 128, 256, 25), (3, 40, 17, 3), (4, 33, 64, 63),
              (2, 9, 32, 40), (7, 50, 96, 0)]
+# lb_improved's tiling (a thread per pair: lane = candidate, warp = query,
+# 32 candidates a block): DTW_SWEEP plus Q not a multiple of 32, m not a
+# multiple of the 32-candidate tile, a long row with a wide band, r = 1,
+# and a band so wide that a warp runs fewer than 32 lanes
+LBI_SWEEP = DTW_SWEEP + [(33, 40, 64, 6), (65, 100, 256, 25),
+                         (4, 1, 256, 25), (5, 7, 256, 25),
+                         (2, 2047, 256, 25), (3, 20, 1024, 102),
+                         (6, 45, 128, 1), (2, 5, 1800, 900)]
 
 
 @pytest.fixture(scope="module", autouse=True)

@@ -124,6 +124,118 @@ def test_lb_keogh_and_lb_improved_twins_match_pallas(Q, m, n, r):
         np.testing.assert_allclose(lbi[q], want, rtol=1e-6)
 
 
+def _lbi_stream_model(h: np.ndarray, r: int):
+    """numpy model of one ``lb_improved`` kernel thread's window (its index
+    arithmetic, line for line; one model thread per row of ``h``): head
+    ``j = 0 .. n-1+r`` in chunks of 32, slot ``s = j mod W``, each chunk cut
+    into runs with the same HEAD (``j < n``) / OUT (``j >= r``) / TAIL
+    (``j >= W``) flags up to a block's last slot (taken four positions at a
+    time, every tail read before the head writes), which ``block_end``
+    takes: its head, the in-place backward suffix pass, its output.  The
+    buffer has the kernel's ``min(2r+1, n)`` slots (an index outside fails)
+    and starts as NaN, so a read of a slot not yet written shows as NaN."""
+    rows, n = h.shape
+    r = min(r, n - 1)                   # the launcher's clamp
+    W = 2 * r + 1
+    S = min(W, n)
+    bmax = np.full((S, rows), np.nan, np.float32)
+    bmin = np.full((S, rows), np.nan, np.float32)
+    Uh = np.full((rows, n), np.nan, np.float32)
+    Lh = np.full((rows, n), np.nan, np.float32)
+    written = np.zeros(n, int)
+    st = {"pmax": None, "pmin": None}
+
+    def head(j, s):
+        assert 0 <= s < S
+        bmax[s] = h[:, j]
+        st["pmax"] = np.maximum(st["pmax"], h[:, j])
+        st["pmin"] = np.minimum(st["pmin"], h[:, j])
+
+    def out(j, uh, lh):
+        Uh[:, j - r], Lh[:, j - r] = uh, lh
+        written[j - r] += 1
+
+    def run(jb, je, s, is_head, is_out, is_tail):
+        # four positions at a time (then one): all tail reads of a batch
+        # come before its head writes, as the kernel issues them
+        j = jb
+        while j < je:
+            nb = 4 if j + 4 <= je else 1
+            tails = []
+            for k in range(nb):
+                if is_tail:
+                    assert 0 <= s + k + 1 < S
+                    tails.append((bmax[s + k + 1].copy(),
+                                  bmin[s + k + 1].copy()))
+            for k in range(nb):
+                if is_head:
+                    head(j + k, s + k)
+                if is_out:
+                    uh, lh = st["pmax"], st["pmin"]
+                    if is_tail:
+                        uh = np.maximum(uh, tails[k][0])
+                        lh = np.minimum(lh, tails[k][1])
+                    out(j + k, uh, lh)
+            j, s = j + nb, s + nb
+
+    def block_end(j):
+        if j < n:
+            head(j, W - 1)
+        k = min(W - 1, n - 1 - (j - (W - 1)))
+        assert 0 <= k < S
+        rmax = np.full(rows, -np.inf, np.float32)
+        rmin = np.full(rows, np.inf, np.float32)
+        for p in range(k, -1, -1):
+            rmax = np.maximum(rmax, bmax[p])
+            rmin = np.minimum(rmin, bmax[p])
+            bmax[p], bmin[p] = rmax, rmin
+        out(j, np.maximum(st["pmax"], rmax), np.minimum(st["pmin"], rmin))
+
+    jmax = n - 1 + r
+    s = 0
+    for j0 in range(0, jmax + 1, 32):
+        jend = min(j0 + 32, jmax + 1)
+        j = j0
+        while j < jend:
+            if s == 0:
+                st["pmax"] = np.full(rows, -np.inf, np.float32)
+                st["pmin"] = np.full(rows, np.inf, np.float32)
+            if s == W - 1:
+                block_end(j)
+                s, j = 0, j + 1
+                continue
+            e = min(jend, j + (W - 1 - s))
+            if j < n:
+                e = min(e, n)
+            if j < r:
+                e = min(e, r)
+            if j < W:
+                e = min(e, W)
+            assert e > j
+            run(j, e, s, j < n, j >= r, j >= W)
+            s, j = s + e - j, e
+    assert (written == 1).all()
+    return Uh, Lh
+
+
+LBI_STREAM = sorted({(n, r) for n in (1, 2, 5, 17, 32, 33, 64, 97)
+                     for r in (0, 1, 3, 16, 25, n - 1, n, n + 7) if r >= 0})
+
+
+@pytest.mark.parametrize("n,r", LBI_STREAM)
+def test_lb_improved_stream_model_matches_window_twin(n, r):
+    """The kernel's streamed block / suffix / prefix index arithmetic gives
+    the twin's sliding max and min bit for bit (r = 0, r >= n and odd n
+    included; rounded values give ties)."""
+    h = np.round(RNG.standard_normal((6, n)) * 4).astype(np.float32) / 4
+    Uh, Lh = _lbi_stream_model(h, r)
+    from repro_torch.core.lb import _window_max, _window_min
+    np.testing.assert_array_equal(Uh, _window_max(torch.from_numpy(h),
+                                                  r).numpy())
+    np.testing.assert_array_equal(Lh, _window_min(torch.from_numpy(h),
+                                                  r).numpy())
+
+
 @pytest.mark.parametrize("Q,m,n,r", DTW_PALLAS)
 def test_dtw_band_twin_matches_pallas_bitwise(Q, m, n, r):
     """The twin's band-compacted DP against the Pallas kernel's full-width

@@ -1,5 +1,6 @@
 """The CUDA kernels against their plain PyTorch twins, on the card, over the
-shape sweeps of ``test_kernels.py`` (and ``DTW_SWEEP`` for the DTW cascade:
+shape sweeps of ``test_kernels.py`` (and ``DTW_SWEEP`` for the DTW cascade,
+``LBI_SWEEP`` for ``lb_improved``'s tiling:
 the LB kernels within rtol 1e-5 — two sums of n nonnegative terms taken in
 other orders — and ``dtw_band`` bitwise, ``+inf`` lanes included).  Imports no ``jax``, so it runs where
 the card is (``python -m pytest -m cuda tests/test_torch_kernels_cuda.py``);
@@ -8,8 +9,8 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port import (DTW_SWEEP, L2_SWEEP, LB_SWEEP, SAX_SWEEP,
-                         clear_of_breakpoints, cuda, dtw_inputs,
+from _torch_port import (DTW_SWEEP, L2_SWEEP, LB_SWEEP, LBI_SWEEP,
+                         SAX_SWEEP, clear_of_breakpoints, cuda, dtw_inputs,
                          dtw_mask_cutoff, intervals,
                          torch_threads)  # noqa: F401
 from repro_torch.kernels import (dtw_band, lb_improved, lb_keogh, ops, ref,
@@ -74,7 +75,7 @@ def test_lb_keogh_kernel_matches_twin(cuda, Q, m, n, r, layout):
     _lb_close(got, ref.lb_keogh_ref(x, U, L))
 
 
-@pytest.mark.parametrize("Q,m,n,r", DTW_SWEEP)
+@pytest.mark.parametrize("Q,m,n,r", LBI_SWEEP)
 @pytest.mark.parametrize("layout", ["shared", "gather"])
 def test_lb_improved_kernel_matches_twin(cuda, Q, m, n, r, layout):
     qs, xs, cand, U, L = dtw_inputs(RNG, Q, m, n, r)
