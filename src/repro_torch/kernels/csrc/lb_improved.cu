@@ -91,19 +91,15 @@ struct Chunk {
     const float4* w;             // w[jj] = (U[j0+jj], L[j0+jj], q[j0+jj-r], -)
 };
 
-// v's distance to [lo, hi] (lo <= hi), signed: v - clip(v, lo, hi).  Its
-// square is that of max(max(v - hi, 0), max(lo - v, 0)) bit for bit: the
-// clip returns hi or lo exactly, and v - lo = -(lo - v) in IEEE
-__device__ __forceinline__ float gap(float v, float c) {
-    return __fsub_rn(v, c);
-}
-
 // NB positions from chunk offset jj of one block, none of them its last
 // (slots s .. s+NB-1 < W-1, hoff = s * st): HEAD j < n, OUT j >= r, TAIL
 // j >= W (the output's suffix lies in the previous block, slot s + 1).
 // Every load of the NB positions (the tail slots s+1 .. s+NB too, which
-// the head writes only later) is issued before the first store.
-template <int NB, bool HEAD, bool OUT, bool TAIL, int ST>
+// the head writes only later) is issued before the first store.  d1 and d2
+// are v - clip(v, lo, hi): the square of max(max(v - hi, 0), max(lo - v,
+// 0)) bit for bit, as the clip returns hi or lo exactly and v - lo is
+// -(lo - v) in IEEE arithmetic.
+template <int NB, bool HEAD, bool OUT, bool TAIL>
 __device__ __forceinline__ void batch(Pair& p, int jj, int& hoff,
                                       const Chunk& ck, int st) {
     float tmax[NB], tmin[NB], xv[NB];
@@ -121,7 +117,7 @@ __device__ __forceinline__ void batch(Pair& p, int jj, int& hoff,
     for (int k = 0; k < NB; ++k) {
         if (HEAD) {
             const float h = fminf(fmaxf(xv[k], w[k].y), w[k].x);
-            const float d1 = gap(xv[k], h);
+            const float d1 = __fsub_rn(xv[k], h);
             p.c1 = __fmaf_rn(d1, d1, p.c1);
             p.bmax[hoff + k * st] = h;
             p.pmax = fmaxf(p.pmax, h);
@@ -130,7 +126,8 @@ __device__ __forceinline__ void batch(Pair& p, int jj, int& hoff,
         if (OUT) {
             float uh = p.pmax, lh = p.pmin;
             if (TAIL) { uh = fmaxf(uh, tmax[k]); lh = fminf(lh, tmin[k]); }
-            const float d2 = gap(w[k].z, fminf(fmaxf(w[k].z, lh), uh));
+            const float d2 = __fsub_rn(w[k].z,
+                                       fminf(fmaxf(w[k].z, lh), uh));
             p.c2 = __fmaf_rn(d2, d2, p.c2);
         }
     }
@@ -146,16 +143,16 @@ __device__ __forceinline__ void run(Pair& p, int jb, int je, int j0,
     int jj = jb - j0;
     const int end = je - j0;
     for (; jj + RB <= end; jj += RB)
-        batch<RB, HEAD, OUT, TAIL, ST>(p, jj, hoff, ck, st);
+        batch<RB, HEAD, OUT, TAIL>(p, jj, hoff, ck, st);
     if (jj + 4 <= end) {
-        batch<4, HEAD, OUT, TAIL, ST>(p, jj, hoff, ck, st);
+        batch<4, HEAD, OUT, TAIL>(p, jj, hoff, ck, st);
         jj += 4;
     }
     if (jj + 2 <= end) {
-        batch<2, HEAD, OUT, TAIL, ST>(p, jj, hoff, ck, st);
+        batch<2, HEAD, OUT, TAIL>(p, jj, hoff, ck, st);
         jj += 2;
     }
-    if (jj < end) batch<1, HEAD, OUT, TAIL, ST>(p, jj, hoff, ck, st);
+    if (jj < end) batch<1, HEAD, OUT, TAIL>(p, jj, hoff, ck, st);
 }
 
 // the last position j of a block (slot W-1): the head, then the backward
@@ -168,15 +165,9 @@ __device__ __forceinline__ void block_end(Pair& p, int j, int j0, int n,
     const int st = ST ? ST : st_rt;
     const float INF = __int_as_float(0x7f800000);
     const int jj = j - j0;
-    const float4 w = ck.w[jj];
     if (j < n) {
-        const float xv = ck.xt[jj * TP];
-        const float h = fminf(fmaxf(xv, w.y), w.x);
-        const float d1 = gap(xv, h);
-        p.c1 = __fmaf_rn(d1, d1, p.c1);
-        p.bmax[(W - 1) * st] = h;
-        p.pmax = fmaxf(p.pmax, h);
-        p.pmin = fminf(p.pmin, h);
+        int hoff = (W - 1) * st;
+        batch<1, true, false, false>(p, jj, hoff, ck, st);
     }
     int k = min(W - 1, n - 1 - (j - (W - 1)));
     float rmax = -INF, rmin = INF;
@@ -201,7 +192,8 @@ __device__ __forceinline__ void block_end(Pair& p, int j, int j0, int n,
     }
     // j >= W - 1 >= r: the output always exists
     const float uh = fmaxf(p.pmax, rmax), lh = fminf(p.pmin, rmin);
-    const float d2 = gap(w.z, fminf(fmaxf(w.z, lh), uh));
+    const float qv = ck.w[jj].z;
+    const float d2 = __fsub_rn(qv, fminf(fmaxf(qv, lh), uh));
     p.c2 = __fmaf_rn(d2, d2, p.c2);
 }
 
@@ -358,9 +350,12 @@ extern "C" int dumpy_lb_improved_f32(const void* x, const void* qs,
         return (int)cudaMemsetAsync(out, 0, (size_t)Q * m * sizeof(float),
                                     st);
     if (r > n - 1) r = n - 1;         // the window already spans the row
-    int dev = 0, sms = 132;
+    static int sm_count[64];          // per device, read once
+    int dev = 0;
     cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    int& sms = sm_count[dev & 63];
+    if (sms == 0)
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     const int S = 2 * r + 1 < n ? 2 * r + 1 : n;
     const bool shared_x = x_qstride == 0;
     auto bytes = [&](int nw, int lanes) {
