@@ -15,9 +15,10 @@ Phases, each printed with its seconds:
    of the leaf-aligned ``DeviceIndex`` (chunk 2048, one shard);
 4. kernels: every kernel against its plain PyTorch twin on the card, at the
    main paths' shapes (taken from this index and these queries) and at
-   ragged ones, with the stated tolerances (``dtw_band`` bitwise); each
-   kernel's time next to its bound, its twin's time and, where one PyTorch
-   call computes the same function, that call's time;
+   ragged ones, with the stated tolerances (``dtw_band`` bitwise, also on
+   a band past the shared-memory frontier's cap); each kernel's time next
+   to its bound, its twin's time and, where one PyTorch call computes the
+   same function, that call's time;
 5. ED main path: 256 held-out queries in 4 batches of 64 through
    ``exact_search_device_batch`` (k=10), every result held against a
    float64 brute force on the card, one batch rerun with ``n_shards=4``
@@ -32,7 +33,11 @@ Phases, each printed with its seconds:
    the card (LB_Keogh over every live row, then a banded DP over the rows
    it cannot rule out), one batch rerun with ``order="perq"``,
    ``order="shared"`` and ``n_shards=4`` (each bitwise equal), the cascade
-   counters and the launch count of each kernel on this phase;
+   counters and the launch count of each kernel on this phase; then
+   ``dtw_band`` at the lane walk's real calls (one "cluster" group of 16
+   queries x 128 lanes, with the walk's mask and cutoff, recorded from a
+   rerun of batch 0): bitwise against its twin, its time, and its bound
+   from the cells each lane ran before it was abandoned;
 8. DTW profile: one more DTW batch under ``torch.profiler``.
 """
 from __future__ import annotations
@@ -62,6 +67,10 @@ BAND = 25              # default_band(256): the paper's 10% Sakoe-Chiba band
 # LB_Keogh (2 sub, 3 max, mul, add) and LB_Improved (LB_Keogh, the clip,
 # van Herk max/min, the second pass) and per cell of the band DP
 LBK_OPS, LBI_OPS, DTW_CELL_OPS = 7, 20, 5
+# the floor of one step of the DP's chain of 2n-1 dependent anti-diagonals:
+# a dependent min and add, 4 cycles of f32 latency each
+CHAIN_STEP_CYCLES = 8
+DTW_WIDE = (2, 5, 2600, 2500)   # (Q, m, n, r): a band no shared frontier holds
 # the operations the lb_improved kernel itself does per element (its source
 # note: d = v - clip(v, lo, hi) in place of two gaps, an FMA counting two)
 LBI_KERNEL_OPS = 16
@@ -85,6 +94,18 @@ def nvidia_smi() -> str:
     if out.returncode != 0:
         fail(f"nvidia-smi failed: {out.stderr.strip()}")
     return out.stdout.strip().splitlines()[0]
+
+
+def sm_clock_hz() -> float:
+    """The card's top SM clock (``nvidia-smi``), for the DP's chain
+    floor."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60)
+    if out.returncode != 0:
+        fail(f"nvidia-smi failed: {out.stderr.strip()}")
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
 
 
 def bound(bytes_moved: float, ops: float) -> tuple[float, str]:
@@ -258,7 +279,40 @@ def dtw_cells(n: int, r: int) -> int:
     return n * (2 * r + 1) - r * (r + 1)
 
 
-def check_dtw_kernels(torch, ops, ref, envelope, qs_main, dev, n_iter):
+def dtw_call_work(torch, gather, q, x, mask, cut, r, idx, clock_hz):
+    """The twin's answer to one ``dtw_band`` call and what that call must
+    do: ``(twin out, bound ms, bound_by, chain floor ms)``.
+    The bound counts each input read once (the query rows, the candidate
+    rows of the lanes on, idx, mask, cutoff) and the output written once,
+    against ``DTW_CELL_OPS`` operations for each in-band cell a lane
+    computed before the twin abandoned it (the twin counts each lane's
+    diagonals).  The chain floor is the longest lane's diagonals at
+    ``CHAIN_STEP_CYCLES`` each; the kernel cannot beat it without a
+    shorter chain, whatever its parallelism."""
+    Q, n = q.shape
+    m = mask.shape[1]
+    xs = x[idx] if idx is not None else (x if x.dim() == 3
+                                         else x.expand(Q, -1, -1))
+    want, steps = gather(q, xs, r, mask, cut, return_steps=True)
+    rr = min(r, n - 1)
+    i = torch.arange(n, device=q.device)
+    j = torch.arange(2 * n - 1, device=q.device)[:, None] - i
+    per_diag = ((j >= 0) & (j < n) & ((i - j).abs() <= rr)).sum(1)
+    cum = torch.cat([per_diag.new_zeros(1), per_diag.cumsum(0)])
+    cells = int(cum[steps].sum())
+    if idx is not None:
+        rows = int(torch.unique(idx[mask]).numel())
+    else:
+        rows = int(mask.sum()) if x.dim() == 3 else int(mask.any(0).sum())
+    moved = (4 * (Q * n + rows * n + Q + Q * m) + Q * m
+             + (8 * Q * m if idx is not None else 0))
+    b_ms, b_by = bound(moved, DTW_CELL_OPS * cells)
+    chain = int(steps.max()) * CHAIN_STEP_CYCLES / clock_hz * 1e3
+    return want, b_ms, b_by, chain
+
+
+def check_dtw_kernels(torch, ops, ref, envelope, gather, qs_main, dev,
+                      n_iter, clock_hz):
     """Phase 4, DTW half: ``lb_keogh`` and ``lb_improved`` within rtol 1e-5
     of their twins (two sums of n nonnegative float32 terms in different
     orders, each within (n-1)·2^-24 of the exact sum), ``dtw_band`` bitwise
@@ -298,6 +352,12 @@ def check_dtw_kernels(torch, ops, ref, envelope, qs_main, dev, n_iter):
                                            device="cuda"), r)
         rmask = torch.rand((5, 77), generator=gen, device="cuda") < 0.7
         ragged.append((r, rU, rL, rmask, full.quantile(0.25, dim=1)))
+    # a band past the shared-memory frontier's cap: the frontier in scratch
+    wQ, wm, wn, wr = DTW_WIDE
+    wq, wx, wc = walks(wQ, wn), walks(wm, wn), walks(wQ, wm, wn)
+    won = torch.ones((wQ, wm), dtype=torch.bool, device="cuda")
+    winf = torch.full((wQ,), float("inf"), device="cuda")
+    wcut = ref.dtw_band_ref(wq, wx, won, winf, wr).quantile(0.5, dim=1)
 
     # -- lb_keogh, lb_improved ------------------------------------------------
     lb_cases = [(slab, qs_main, U, L, BAND), (sub, qs_main, U, L, BAND),
@@ -327,6 +387,8 @@ def check_dtw_kernels(torch, ops, ref, envelope, qs_main, dev, n_iter):
     for r, _, _, rmask, rcut in ragged:
         dp_cases += [("shared", rq, rx, rmask, rcut, r, None),
                      ("gather", rq, rc, rmask, rcut * 2, r, None)]
+    dp_cases += [("shared", wq, wx, won, wcut, wr, None),
+                 ("gather", wq, wc, won, wcut, wr, None)]
     for layout, q, x, mk, ct, r, ix in dp_cases:
         got = ops.dtw_band(q, x, mk, ct, r, idx=ix)
         want = ref.dtw_band_ref(q, x, mk, ct, r, idx=ix)
@@ -385,35 +447,32 @@ def check_dtw_kernels(torch, ops, ref, envelope, qs_main, dev, n_iter):
           f"{host:.4f} ms per call), bound {b_ms:.6f} ms ({b_by}; "
           f"{k_ms:.6f} ms at {LBI_KERNEL_OPS} operations)")
 
-    # dtw_band at the lane walk's chunk: [64, 128] rows of the collection
-    out = ops.dtw_band(qs_main, slab, mask, cut, BAND, idx=idx)
-    done = int(torch.isfinite(out).sum())
-    rows_read = int(torch.unique(idx).numel())
-    args = [(qs_main, slab, mask, cut, BAND, idx)] * n_iter
-    ms, host = time_ms(torch, ops.dtw_band, args)
-    plain_ms = wall_ms(torch, ref.dtw_band_ref, args[:5])
-    # the cells of the lanes that run to the end (abandoned lanes counted
-    # as 0: a lower bound of this run's work)
-    b_ms, b_by = bound(4 * (Q * n + rows_read * n + 2 * Q * 128) + Q * 128,
-                       DTW_CELL_OPS * done * dtw_cells(n, BAND))
+    # dtw_band at the lane walk's chunk: [64, 128] rows of the collection,
+    # with the cutoff at each query's 10th best and with none; the row of
+    # the kernel table is set from the walk's own calls (phase 7)
+    for label, ct in (("with cutoff", cut), ("without cutoff", inf_cut)):
+        args = [(qs_main, slab, mask, ct, BAND, idx)] * n_iter
+        ms, host = time_ms(torch, ops.dtw_band, args)
+        plain_ms = wall_ms(torch, ref.dtw_band_ref, args[:5])
+        want, b_ms, b_by, chain = dtw_call_work(torch, gather, *args[0],
+                                                clock_hz)
+        print(f"  dtw_band rows [{Q},128] n={n} r={BAND} {label}: "
+              f"{int(mask.sum())} lanes on, "
+              f"{int(torch.isfinite(want).sum())} finished, kernel "
+              f"{ms:.5f} ms (host {host:.4f} ms per call), twin "
+              f"{plain_ms:.5f} ms (wall), "
+              f"bound {b_ms:.6f} ms ({b_by}), chain floor {chain:.6f} ms")
+    # the wide path past the cap, no cutoff: every lane runs every cell
+    args = [(wq, wx, won, winf, wr, None)] * 5
+    ms, _ = time_ms(torch, ops.dtw_band, args, warmup=1)
+    _, b_ms, b_by, chain = dtw_call_work(torch, gather, *args[0], clock_hz)
+    print(f"  dtw_band wide path shared [{wQ},{wm}] n={wn} r={wr} without "
+          f"cutoff ({dtw_cells(wn, wr)} cells a lane): kernel {ms:.5f} ms, "
+          f"bound {b_ms:.6f} ms ({b_by}), chain floor {chain:.6f} ms")
     rows.append(dict(name="dtw_band", route="cuda",
                      source="src/repro_torch/kernels/csrc/dtw_band.cu",
                      replaces="src/repro/kernels/dtw_band.py:94",
-                     max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
-                     bound_ms=b_ms, bound_by=b_by, library_ms=None))
-    print(f"  dtw_band rows [{Q},128] n={n} r={BAND}: {int(mask.sum())} lanes"
-          f" on, {done} finished: kernel {ms:.5f} ms (host {host:.4f} ms "
-          f"per call), twin {plain_ms:.5f} ms (wall), bound {b_ms:.6f} ms "
-          f"({b_by})")
-    # the same lanes with no cutoff: every lane on runs all its cells
-    on_lanes = int(mask.sum())
-    args = [(qs_main, slab, mask, inf_cut, BAND, idx)] * n_iter
-    ms2, _ = time_ms(torch, ops.dtw_band, args)
-    b2, by2 = bound(4 * (Q * n + rows_read * n + 2 * Q * 128) + Q * 128,
-                    DTW_CELL_OPS * on_lanes * dtw_cells(n, BAND))
-    print(f"  dtw_band rows [{Q},128] without cutoff ({on_lanes} lanes run "
-          f"{dtw_cells(n, BAND)} cells each): kernel {ms2:.5f} ms, bound "
-          f"{b2:.6f} ms ({by2})")
+                     max_abs_err=0.0))
     return rows
 
 
@@ -499,6 +558,70 @@ def brute_force(torch, dev, q32, k):
     return v.sqrt(), torch.gather(i, 1, j)
 
 
+def walk_calls(ops, sd, index, qb) -> list:
+    """The arguments of every ``dtw_band`` call that the lane walk
+    (``search_device._lane_walk``) makes in one DTW batch of ``qb``."""
+    calls, real, walk = [], ops.dtw_band, sd._lane_walk
+    inside = [False]
+
+    def record(qs, xs, mask, cutoff2, r, idx=None):
+        if inside[0]:
+            calls.append((qs, xs, mask, cutoff2, r, idx))
+        return real(qs, xs, mask, cutoff2, r, idx)
+
+    def walking(*a):
+        inside[0] = True
+        try:
+            return walk(*a)
+        finally:
+            inside[0] = False
+
+    ops.dtw_band, sd._lane_walk = record, walking
+    try:
+        sd.exact_search_device_batch(index, qb, K, chunk=CHUNK, metric="dtw",
+                                     band=BAND)
+    finally:
+        ops.dtw_band, sd._lane_walk = real, walk
+    return calls
+
+
+def check_walk_dtw(torch, ops, gather, calls, clock_hz, n_sample=32):
+    """``dtw_band`` at ``n_sample`` of the walk's calls, evenly spaced:
+    bitwise against the twin (+inf lanes included), the kernel's device
+    time per call (the sample queued 4 times), the twin's wall time, and
+    the mean bound and chain floor of the same calls.  Returns the kernel
+    table fields."""
+    step = max(len(calls) // n_sample, 1)
+    sample = calls[::step][:n_sample]
+    plain, bounds, chains = [], [], []
+    for a in sample:
+        got = ops.dtw_band(*a)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want, b_ms, b_by, chain = dtw_call_work(torch, gather, *a, clock_hz)
+        torch.cuda.synchronize()
+        plain.append((time.perf_counter() - t0) * 1e3)
+        if not (torch.equal(torch.isinf(got), torch.isinf(want))
+                and torch.equal(got, want)):
+            fail(f"dtw_band differs from its twin at a walk call "
+                 f"{tuple(a[2].shape)}")
+        bounds.append((b_ms, b_by))
+        chains.append(chain)
+    ms, host = time_ms(torch, ops.dtw_band, sample * 4)
+    b_ms = sum(b for b, _ in bounds) / len(bounds)
+    by = max(("bytes", "operations"),
+             key=lambda k: sum(1 for _, b in bounds if b == k))
+    on = sum(int(a[2].sum()) for a in sample) / len(sample)
+    print(f"  dtw_band at {len(sample)} of the walk's {len(calls)} calls "
+          f"(rows {tuple(sample[0][2].shape)}, {on:.1f} lanes on a call): "
+          f"bitwise equal to the twin; kernel {ms:.5f} ms (host "
+          f"{host:.4f} ms per call), twin {sum(plain) / len(plain):.5f} ms "
+          f"(wall, with its cell count), bound {b_ms:.6f} ms ({by} in "
+          f"most), chain floor {sum(chains) / len(chains):.6f} ms")
+    return dict(ms=ms, plain_ms=sum(plain) / len(plain), bound_ms=b_ms,
+                bound_by=by, library_ms=None)
+
+
 def check_exact(np, ids, d, bd, bi, true_dist, k) -> int:
     """Hold one batch's result against the float64 check (``bd, bi``).
     Distances agree to rtol 1e-5; an id may differ from the check's only
@@ -551,9 +674,11 @@ def profile_batch(torch, search, index, qb, **kw) -> None:
         print(f"    {e.key[:60]:60s} calls {e.count:7d} device "
               f"{getattr(e, 'self_device_time_total', 0.0) / 1e3:9.3f} ms "
               f"host {e.self_cpu_time_total / 1e3:9.3f} ms")
-    # each of the port's kernels by name (CUDA symbol ``<name>_kernel``)
+    # each of the port's kernels by name (CUDA symbols ``<name>_kernel``
+    # and ``<name>_<variant>_kernel``)
     for name in KERNELS:
-        hits = [e for e in events if f"{name}_kernel" in e.key
+        hits = [e for e in events if f"{name}_" in e.key
+                and "_kernel" in e.key
                 and getattr(e, "self_device_time_total", 0.0) > 0]
         dev_ms = sum(e.self_device_time_total for e in hits) / 1e3
         print(f"    kernel {name:16s} calls {sum(e.count for e in hits):7d}"
@@ -577,8 +702,10 @@ def main() -> None:
     import numpy as np
     from repro_torch.core.build import DumpyParams
     from repro_torch.core.index import DumpyIndex
-    from repro_torch.core.lb import dtw_envelope_batch, dtw_np
+    from repro_torch.core.lb import (dtw2_masked_gather, dtw_envelope_batch,
+                                     dtw_np)
     from repro_torch.core.sax import SaxParams, breakpoints
+    from repro_torch.core import search_device
     from repro_torch.core.search_device import exact_search_device_batch
     from repro_torch.core.split import SplitParams
     from repro_torch.data.series import query_workload, random_walks
@@ -631,8 +758,10 @@ def main() -> None:
     qs_main = torch.from_numpy(qs[:BATCH]).cuda()
     rows = check_kernels(torch, np, ops, ref, breakpoints, qs_main, dev,
                          n_iter=50)
-    rows += check_dtw_kernels(torch, ops, ref, dtw_envelope_batch, qs_main,
-                              dev, n_iter=50)
+    clock_hz = sm_clock_hz()
+    rows += check_dtw_kernels(torch, ops, ref, dtw_envelope_batch,
+                              dtw2_masked_gather, qs_main, dev, n_iter=50,
+                              clock_hz=clock_hz)
     phase("kernels vs twins", t0)
 
     # ---- 5. main path ------------------------------------------------------
@@ -756,6 +885,11 @@ def main() -> None:
         fail("the DTW phase built a second DeviceIndex layout")
     print(f"  no DeviceIndex built by the DTW phase (layouts cached: "
           f"{sorted(k[:2] for k in index._device_cache)})")
+    t1 = time.perf_counter()
+    calls = walk_calls(ops, search_device, index, dtw_batches[0])
+    walk = check_walk_dtw(torch, ops, dtw2_masked_gather, calls, clock_hz)
+    next(r for r in rows if r["name"] == "dtw_band").update(walk)
+    print(f"  ({time.perf_counter() - t1:.3f} s)")
     phase("DTW main path", t0)
 
     # ---- 8. DTW: one profiled batch --------------------------------------------

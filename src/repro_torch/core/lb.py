@@ -257,8 +257,8 @@ def dtw_final_slot(n: int, r: int) -> int:
 
 
 def _dtw2_masked_scan(qs: torch.Tensor, xs: torch.Tensor, r: int,
-                      mask: torch.Tensor, cutoff2: torch.Tensor
-                      ) -> torch.Tensor:
+                      mask: torch.Tensor, cutoff2: torch.Tensor,
+                      return_steps: bool = False):
     """Anti-diagonal banded DTW² with lane masking and cutoff early-abandon
     (``repro.core.lb._dtw2_masked_scan`` and its full-width fallback
     ``_dtw2_masked_scan_full``, vmapped over queries): ``qs [Q, n]``,
@@ -275,7 +275,11 @@ def _dtw2_masked_scan(qs: torch.Tensor, xs: torch.Tensor, r: int,
     multiply-add, and the f64 form rounds the same way (the square is exact
     in f64; the two roundings differ only when the f64 sum lands exactly on
     an f32 rounding tie).  The ``dtw_band`` kernel does the same f64
-    arithmetic, so kernel and twin agree bit for bit."""
+    arithmetic, so kernel and twin agree bit for bit.
+
+    ``return_steps=True`` also returns ``int64 [Q, m]``: the diagonals each
+    lane computed before it died (0 on masked lanes, ``2n - 1`` on lanes
+    that finish), the work this run's data needs."""
     Q, m, n = xs.shape
     full = r + 1 >= n
     Wb = n if full else r + 1
@@ -287,6 +291,7 @@ def _dtw2_masked_scan(qs: torch.Tensor, xs: torch.Tensor, r: int,
     dm1 = dm2.clone()
     alive = mask.clone()
     ct = cutoff2[:, None]
+    steps = torch.zeros((Q, m), dtype=torch.int64, device=dev)
 
     def base(d):
         return 0 if full else _dtw_base(d, r, n)
@@ -294,6 +299,8 @@ def _dtw2_masked_scan(qs: torch.Tensor, xs: torch.Tensor, r: int,
     for d in range(2 * n - 1):
         if not bool(alive.any()):
             break
+        if return_steps:
+            steps += alive
         b = base(d)
         s1 = b - base(d - 1)
         s2 = b - base(d - 2)
@@ -315,7 +322,8 @@ def _dtw2_masked_scan(qs: torch.Tensor, xs: torch.Tensor, r: int,
         lane_min = torch.minimum(out.amin(dim=2), dm1.amin(dim=2))
         alive = alive & (lane_min <= ct)
         dm2, dm1 = dm1, out
-    return torch.where(alive, dm1[:, :, dtw_final_slot(n, r)], inf)
+    out = torch.where(alive, dm1[:, :, dtw_final_slot(n, r)], inf)
+    return (out, steps) if return_steps else out
 
 
 def dtw2_masked_batch(qs: torch.Tensor, xs: torch.Tensor, r: int,
@@ -330,8 +338,9 @@ def dtw2_masked_batch(qs: torch.Tensor, xs: torch.Tensor, r: int,
 
 
 def dtw2_masked_gather(qs: torch.Tensor, cand: torch.Tensor, r: int,
-                       mask: torch.Tensor, cutoff2: torch.Tensor
-                       ) -> torch.Tensor:
+                       mask: torch.Tensor, cutoff2: torch.Tensor,
+                       return_steps: bool = False):
     """Masked banded DTW² with per-query candidate sets ``cand [Q, m, n]``
-    (``repro.core.lb.dtw2_masked_gather_jnp``)."""
-    return _dtw2_masked_scan(qs, cand, r, mask, cutoff2)
+    (``repro.core.lb.dtw2_masked_gather_jnp``); ``return_steps`` as in
+    :func:`_dtw2_masked_scan`."""
+    return _dtw2_masked_scan(qs, cand, r, mask, cutoff2, return_steps)

@@ -36,7 +36,10 @@ _SIGNATURES = {
     "dumpy_lb_paa_interval_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
     "dumpy_lb_keogh_f32": [_P, _P, _P, _P, _I, _I, _I, _LL, _P],
     "dumpy_lb_improved_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _LL, _P],
-    "dumpy_dtw_band_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _LL, _P],
+    "dumpy_dtw_band_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _LL,
+                           _P],
+    "dumpy_dtw_band_scratch_floats": [_I, _I, _I, _I,
+                                      ctypes.POINTER(_LL)],
 }
 
 _lock = threading.Lock()

@@ -323,14 +323,15 @@ lb_improved_kernel(const float* __restrict__ x, const float* __restrict__ qs,
 template <bool SHARED_X, bool FULL>
 int launch(const float* x, const float* qs, const float* U, const float* L,
            float* out, int Q, int m, int n, int r, long long x_qstride,
-           int nw, int lanes, long long smem, cudaStream_t stream) {
-    static bool attr_set = false;
-    if (!attr_set) {
+           int nw, int lanes, long long smem, int dev, cudaStream_t stream) {
+    // the attribute belongs to the current device: raised once per device
+    static bool attr_set[64];
+    if (!attr_set[dev & 63]) {
         const cudaError_t e = cudaFuncSetAttribute(
             lb_improved_kernel<SHARED_X, FULL>,
             cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
         if (e != cudaSuccess) return (int)e;
-        attr_set = true;
+        attr_set[dev & 63] = true;
     }
     dim3 grid((m + lanes - 1) / lanes, (Q + nw - 1) / nw);
     lb_improved_kernel<SHARED_X, FULL><<<grid, nw * 32, (size_t)smem,
@@ -385,12 +386,12 @@ extern "C" int dumpy_lb_improved_f32(const void* x, const void* qs,
     if (shared_x)
         return lanes == 32
             ? launch<true, true>(xf, qf, uf, lf, of, Q, m, n, r, 0, nw, lanes,
-                                 smem, st)
+                                 smem, dev, st)
             : launch<true, false>(xf, qf, uf, lf, of, Q, m, n, r, 0, nw,
-                                  lanes, smem, st);
+                                  lanes, smem, dev, st);
     return lanes == 32
         ? launch<false, true>(xf, qf, uf, lf, of, Q, m, n, r, x_qstride, nw,
-                              lanes, smem, st)
+                              lanes, smem, dev, st)
         : launch<false, false>(xf, qf, uf, lf, of, Q, m, n, r, x_qstride,
-                               nw, lanes, smem, st);
+                               nw, lanes, smem, dev, st);
 }

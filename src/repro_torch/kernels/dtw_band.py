@@ -7,13 +7,19 @@ Replaces the TPU kernel ``repro/kernels/dtw_band.py::dtw_band`` (body
 search reaches that kernel for the shared slab and runs the same DP as
 ``dtw2_masked_gather_jnp`` for per-query candidate sets; this one kernel
 serves both, and a third form: rows ``idx [Q, m]`` of a collection, which
-spares the search a ``[Q, m, n]`` gather.  The DP is the band-compacted
-anti-diagonal scan of ``core.lb._dtw2_masked_scan`` cell for cell, so the
-result equals the plain version bit for bit, ``+inf`` lanes included.  One
-warp per (query, candidate) lane; masked lanes do no work.  Bound by the
-latency of 2n-1 dependent diagonal steps per lane.
+spares the search a ``[Q, m, n]`` gather.  The result equals the plain
+version ``core.lb._dtw2_masked_scan`` bit for bit, ``+inf`` lanes included,
+for any band radius (cut to ``n - 1``: the same cells).  One warp per
+(query, candidate) lane; masked lanes do no work.  Bound by the latency of
+2n-1 dependent diagonal steps per lane: where ``2r + 1 <= 64`` (the
+search's r = 25) each thread holds one band offset of the last two
+diagonals in registers and trades one value a diagonal with a neighbour;
+wider bands keep a band-compacted frontier in shared memory, or in a
+scratch buffer allocated here where it does not fit.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -50,18 +56,26 @@ def dtw_band(qs: torch.Tensor, xs: torch.Tensor, mask: torch.Tensor,
         raise ValueError(f"dtw_band: shape mismatch qs {tuple(qs.shape)}, "
                          f"xs {tuple(xs.shape)}, mask {tuple(mask.shape)} "
                          f"{mask.dtype}, cutoff2 {tuple(cutoff2.shape)}")
-    if r < 0:
-        raise ValueError(f"dtw_band: band radius {r} < 0")
+    if r < 0 or n < 1:
+        raise ValueError(f"dtw_band: band radius {r} < 0 or length {n} < 1")
     out = torch.empty((Q, m), dtype=torch.float32, device=qs.device)
     if Q == 0 or m == 0:
         return out
+    r = min(int(r), n - 1)                 # the same cells
+    lib = _build.lib()
     with torch.cuda.device(qs.device):
+        floats = ctypes.c_longlong(0)   # the wide path's frontier scratch
+        _build.check(lib.dumpy_dtw_band_scratch_floats(
+            Q, m, n, r, ctypes.byref(floats)), "dtw_band")
+        scratch = (torch.empty(floats.value, dtype=torch.float32,
+                               device=qs.device) if floats.value else None)
         stream = torch.cuda.current_stream().cuda_stream
-        err = _build.lib().dumpy_dtw_band_f32(
+        err = lib.dumpy_dtw_band_f32(
             qs.data_ptr(), xs.data_ptr(),
             None if idx is None else idx.data_ptr(), mask.data_ptr(),
-            cutoff2.data_ptr(), out.data_ptr(), Q, m, n, int(r),
-            m if xs.dim() == 3 else 0, stream)
+            cutoff2.data_ptr(), out.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), Q, m, n,
+            r, m if xs.dim() == 3 else 0, stream)
     _build.check(err, "dtw_band")
     launches += 1
     return out

@@ -32,6 +32,15 @@ LB_SWEEP = [(1, 1, 8, 64), (9, 77, 16, 128), (8, 512, 16, 256),
 DTW_SWEEP = [(1, 1, 64, 6), (5, 77, 64, 6), (64, 256, 256, 25),
              (64, 128, 256, 25), (3, 40, 17, 3), (4, 33, 64, 63),
              (2, 9, 32, 40), (7, 50, 96, 0)]
+# cuda-only DTW cases, outside the Pallas sweep (its interpret run at long
+# n takes minutes on a CPU): (Q, m, n, r, share of lanes on): both sides
+# of dtw_band's register/wide split (2r+1 <= 64), a lane-walk call (16
+# queries x 128 lanes, ~45% on), a band past the first CUDA kernel's
+# shared-memory cap (r >= 2418; the frontier in device scratch), and a
+# call with every lane masked off
+DTW_CUDA_EDGES = [(3, 40, 96, 31, 0.7), (3, 40, 96, 32, 0.7),
+                  (16, 128, 256, 25, 0.45), (2, 5, 2600, 2500, 0.7),
+                  (4, 33, 64, 6, 0.0)]
 # lb_improved's tiling (a thread per pair: lane = candidate, warp = query,
 # 32 candidates a block): DTW_SWEEP plus Q not a multiple of 32, m not a
 # multiple of the 32-candidate tile, a long row with a wide band, r = 1,
@@ -91,13 +100,14 @@ def dtw_inputs(rng, Q: int, m: int, n: int, r: int):
     return qs, xs, cand, U, L
 
 
-def dtw_mask_cutoff(rng, qs, xs, r: int):
-    """A random lane mask ``[Q, m]`` and per-query cutoffs at the lower
-    quartile of the unmasked DTW² (so some lanes finish and some are
-    abandoned), from the port's twin on the CPU."""
+def dtw_mask_cutoff(rng, qs, xs, r: int, on: float = 0.7):
+    """A random lane mask ``[Q, m]`` (a share ``on`` of lanes on) and
+    per-query cutoffs at the lower quartile of the unmasked DTW² (so some
+    lanes finish and some are abandoned), from the port's twin on the
+    CPU."""
     from repro_torch.kernels.ref import dtw_band_ref
     Q, m = qs.shape[0], xs.shape[-2]
-    mask = rng.random((Q, m)) < 0.7
+    mask = rng.random((Q, m)) < on
     t = torch.from_numpy
     full = dtw_band_ref(t(qs), t(xs), torch.ones((Q, m), dtype=torch.bool),
                         torch.full((Q,), np.inf), r).numpy()

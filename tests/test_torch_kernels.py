@@ -7,7 +7,8 @@ import jax.numpy as jnp
 import pytest
 import torch
 
-from _torch_port import (L2_SWEEP, LB_SWEEP, SAX_SWEEP, clear_of_breakpoints,
+from _torch_port import (DTW_SWEEP, L2_SWEEP, LB_SWEEP, SAX_SWEEP,
+                         clear_of_breakpoints,
                          dtw_inputs, dtw_mask_cutoff, intervals,
                          torch_threads)  # noqa: F401
 from repro.kernels import ops as r_ops
@@ -234,6 +235,112 @@ def test_lb_improved_stream_model_matches_window_twin(n, r):
                                                   r).numpy())
     np.testing.assert_array_equal(Lh, _window_min(torch.from_numpy(h),
                                                   r).numpy())
+
+
+def _dtw_reg_model(qs: np.ndarray, xs: np.ndarray, r: int,
+                   cut: np.ndarray) -> np.ndarray:
+    """A numpy walk of what ``dtw_band.cu``'s register path does, its 32
+    threads a lane side by side, lanes ``qs [L, n]`` against ``xs [L, n]``
+    with ``cut [L]``: thread t computes band offset 2t + p of diagonal d
+    (p = (d + r) & 1), keeps its cells of d-1 (``c1``) and d-2 (``c2``),
+    takes one neighbour's ``c1`` (thread t - 1 + 2p, ``+inf`` past the
+    edge), tests the two-diagonal min every 8 diagonals and on the last,
+    and reads the result off thread (r - (r & 1)) / 2."""
+    L, n = qs.shape
+    r = min(r, n - 1)
+    assert 2 * r + 1 <= 64
+    inf = np.float32(np.inf)
+    qT, xT = np.ascontiguousarray(qs.T), np.ascontiguousarray(xs.T)
+    t = np.arange(32)
+    tfin = (r - (r & 1)) // 2
+    # registers [thread, lane]
+    c1 = np.full((32, L), inf, np.float32)
+    c2 = np.where(t == tfin, np.float32(0), inf)[:, None].repeat(L, 1)
+    alive = np.ones(L, bool)
+    last = 2 * n - 2
+    for d in range(last + 1):
+        p = (d + r) & 1
+        k = 2 * t + p
+        i, j = (d - k + r) >> 1, (d + k - r) >> 1
+        valid = (k <= 2 * r) & (i >= 0) & (i < n) & (j >= 0) & (j < n)
+        c = (xT[np.clip(j, 0, n - 1)] - qT[np.clip(i, 0, n - 1)]
+             ).astype(np.float64)
+        src = t - 1 + 2 * p
+        nb = c1[src & 31]
+        nb[(src < 0) | (src > 31)] = inf
+        best = np.minimum(np.minimum(c1, c2), nb)
+        v = (c * c + best).astype(np.float32)
+        v[~valid] = inf
+        lmin = np.minimum(v, c1)
+        c2, c1 = c1, v
+        if d % 8 == 7 or d == last:
+            # the warp's min over the cells' bit patterns
+            mn = lmin.view(np.uint32).min(axis=0).view(np.float32)
+            alive &= mn <= cut
+    return np.where(alive, c1[tfin], inf)
+
+
+DTW_REG = [c for c in DTW_SWEEP if 2 * min(c[3], c[2] - 1) + 1 <= 64] + [
+    (1, 6, 256, 25), (2, 3, 1, 4)]
+
+
+@pytest.mark.parametrize("Q,m,n,r", DTW_REG)
+@pytest.mark.parametrize("cutoff", ["inf", "median"])
+def test_dtw_band_register_model_matches_twin(Q, m, n, r, cutoff):
+    """The register path's cell-to-thread map, neighbour exchange,
+    abandonment tests and final thread give the twin's DP bit for bit,
+    ``+inf`` lanes included (n = 1, r = 0 and r >= n among the cases)."""
+    qs, xs, _, _, _ = dtw_inputs(RNG, Q, m, n, r)
+    t = torch.from_numpy
+    on = np.ones((Q, m), bool)
+    full = ops.dtw_band(t(qs), t(xs), t(on), t(np.full(Q, np.inf,
+                                                       np.float32)), r)
+    cut = (np.full(Q, np.inf, np.float32) if cutoff == "inf" else
+           np.median(full.numpy(), axis=1).astype(np.float32))
+    want = full if cutoff == "inf" else ops.dtw_band(t(qs), t(xs), t(on),
+                                                     t(cut), r)
+    got = _dtw_reg_model(np.repeat(qs, m, axis=0), np.tile(xs, (Q, 1)), r,
+                         np.repeat(cut, m))
+    np.testing.assert_array_equal(got.reshape(Q, m), want.numpy())
+    if cutoff == "median" and m > 1:
+        assert np.isinf(got).any() and np.isfinite(got).any()
+
+
+def test_dtw_band_takes_any_band_radius():
+    """r >= n and r past the shared-memory cap of the first CUDA kernel
+    (r >= 2418) give the full-band DTW, as r = n - 1 does."""
+    qs, xs, _, _, _ = dtw_inputs(RNG, 3, 20, 40, 39)
+    mask = RNG.random((3, 20)) < 0.7
+    cut = np.full(3, np.inf, np.float32)
+    t = torch.from_numpy
+    want = ops.dtw_band(t(qs), t(xs), t(mask), t(cut), 39)
+    for r in (40, 100, 2418, 5000):
+        got = ops.dtw_band(t(qs), t(xs), t(mask), t(cut), r)
+        assert torch.equal(got, want)
+    assert torch.isfinite(want[t(mask)]).all()
+    assert torch.isinf(want[~t(mask)]).all()
+
+
+def test_dtw_twin_counts_the_diagonals_each_lane_ran():
+    """``return_steps``: 0 on masked lanes, 2n - 1 on lanes that finish,
+    at least one on abandoned ones; the distances are unchanged."""
+    from repro_torch.core.lb import dtw2_masked_gather
+    Q, m, n, r = 4, 30, 64, 6
+    rng = np.random.default_rng(7)
+    qs, xs, _, _, _ = dtw_inputs(rng, Q, m, n, r)
+    mask, cut = dtw_mask_cutoff(rng, qs, xs, r)
+    t = torch.from_numpy
+    cand = t(xs)[None].expand(Q, -1, -1)
+    out, steps = dtw2_masked_gather(t(qs), cand, r, t(mask), t(cut),
+                                    return_steps=True)
+    assert torch.equal(out, dtw2_masked_gather(t(qs), cand, r, t(mask),
+                                               t(cut)))
+    steps, out = steps.numpy(), out.numpy()
+    assert (steps[~mask] == 0).all()
+    assert (steps[np.isfinite(out)] == 2 * n - 1).all()
+    dead = mask & np.isinf(out)
+    assert dead.any() and (steps[dead] >= 1).all()
+    assert (steps[dead] < 2 * n - 1).any()
 
 
 @pytest.mark.parametrize("Q,m,n,r", DTW_PALLAS)

@@ -1,6 +1,7 @@
 """The CUDA kernels against their plain PyTorch twins, on the card, over the
 shape sweeps of ``test_kernels.py`` (and ``DTW_SWEEP`` for the DTW cascade,
-``LBI_SWEEP`` for ``lb_improved``'s tiling:
+``LBI_SWEEP`` for ``lb_improved``'s tiling, ``DTW_CUDA_EDGES`` for
+``dtw_band``'s two paths and their edges:
 the LB kernels within rtol 1e-5 — two sums of n nonnegative terms taken in
 other orders — and ``dtw_band`` bitwise, ``+inf`` lanes included).  Imports no ``jax``, so it runs where
 the card is (``python -m pytest -m cuda tests/test_torch_kernels_cuda.py``);
@@ -9,8 +10,9 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port import (DTW_SWEEP, L2_SWEEP, LB_SWEEP, LBI_SWEEP,
-                         SAX_SWEEP, clear_of_breakpoints, cuda, dtw_inputs,
+from _torch_port import (DTW_CUDA_EDGES, DTW_SWEEP, L2_SWEEP, LB_SWEEP,
+                         LBI_SWEEP, SAX_SWEEP, clear_of_breakpoints, cuda,
+                         dtw_inputs,
                          dtw_mask_cutoff, intervals,
                          torch_threads)  # noqa: F401
 from repro_torch.kernels import (dtw_band, lb_improved, lb_keogh, ops, ref,
@@ -87,18 +89,17 @@ def test_lb_improved_kernel_matches_twin(cuda, Q, m, n, r, layout):
     _lb_close(got, ref.lb_improved_ref(x, q, U, L, r))
 
 
-@pytest.mark.parametrize("Q,m,n,r", DTW_SWEEP)
-@pytest.mark.parametrize("layout", ["shared", "gather", "rows"])
-def test_dtw_band_kernel_matches_twin_bitwise(cuda, Q, m, n, r, layout):
+def _dtw_band_case(cuda, Q, m, n, r, layout, on=0.7, rows=None):
     qs, xs, cand, _, _ = dtw_inputs(RNG, Q, m, n, r)
     mask, cut = dtw_mask_cutoff(RNG, qs, xs if layout != "gather" else cand,
-                                r)
+                                r, on)
     t = {a: torch.from_numpy(v).to(cuda) for a, v in
          dict(qs=qs, xs=xs, cand=cand, mask=mask, cut=cut).items()}
     idx = None
     x = t["cand"] if layout == "gather" else t["xs"]
-    if layout == "rows":           # every query's lanes, reversed order
-        idx = torch.arange(m - 1, -1, -1, device=cuda).repeat(Q, 1)
+    if layout == "rows":   # the given rows, or each query's lanes reversed
+        idx = (torch.arange(m - 1, -1, -1, device=cuda).repeat(Q, 1)
+               if rows is None else torch.from_numpy(rows).to(cuda))
     before = dtw_band.launches
     got = ops.dtw_band(t["qs"], x, t["mask"], t["cut"], r, idx=idx)
     assert dtw_band.launches == before + 1
@@ -106,3 +107,18 @@ def test_dtw_band_kernel_matches_twin_bitwise(cuda, Q, m, n, r, layout):
     assert torch.equal(torch.isinf(got), torch.isinf(want))
     assert torch.equal(got, want)
     assert torch.isinf(got[~t["mask"]]).all()
+
+
+@pytest.mark.parametrize("Q,m,n,r", DTW_SWEEP)
+@pytest.mark.parametrize("layout", ["shared", "gather", "rows"])
+def test_dtw_band_kernel_matches_twin_bitwise(cuda, Q, m, n, r, layout):
+    _dtw_band_case(cuda, Q, m, n, r, layout)
+
+
+@pytest.mark.parametrize("Q,m,n,r,on", DTW_CUDA_EDGES)
+@pytest.mark.parametrize("layout", ["shared", "gather", "rows"])
+def test_dtw_band_kernel_edges_bitwise(cuda, Q, m, n, r, on, layout):
+    """Both paths at their split, a lane-walk call whose rows repeat, a
+    band past the old cap, and an all-masked call."""
+    _dtw_band_case(cuda, Q, m, n, r, layout, on,
+                   rows=RNG.integers(0, m, (Q, m)))
