@@ -9,14 +9,17 @@ Phases, each printed with its seconds:
 1. environment: the card's name and power limit (``nvidia-smi``), torch and
    CUDA versions;
 2. build: the six CUDA kernels compile from ``src/repro_torch/kernels/csrc``
-   into ``build/kernels/`` (one ``nvcc`` per source, in parallel);
+   into ``build/kernels/`` (one ``nvcc`` per source, in parallel), with
+   ``ptxas``'s registers and shared memory for ``pairwise_l2``;
 3. data and index: the paper's *Rand* collection (``random_walks``), the
    host build with the paper's defaults (w=16, b=8, th=10 000), the upload
    of the leaf-aligned ``DeviceIndex`` (chunk 2048, one shard);
 4. kernels: every kernel against its plain PyTorch twin on the card, at the
    main paths' shapes (taken from this index and these queries) and at
    ragged ones, with the stated tolerances (``dtw_band`` bitwise, also on
-   a band past the shared-memory frontier's cap); each kernel's time next
+   a band past the shared-memory frontier's cap; ``pairwise_l2`` also at
+   its edges, unaligned operands included, and bitwise equal for the same
+   pair at other positions and in a second call); each kernel's time next
    to its bound, its twin's time and, where one PyTorch call computes the
    same function, that call's time;
 5. ED main path: 256 held-out queries in 4 batches of 64 through
@@ -76,6 +79,11 @@ DTW_WIDE = (2, 5, 2600, 2500)   # (Q, m, n, r): a band no shared frontier holds
 LBI_KERNEL_OPS = 16
 KERNELS = ("sax_encode", "pairwise_l2", "lb_paa_interval", "lb_keogh",
            "lb_improved", "dtw_band")
+# pairwise_l2's edges (Q, X, n), each also with operands whose data_ptr is
+# not 16-byte aligned: lengths not a multiple of 4 (the 4-byte copy
+# instance), the search's 256, a row long enough for many turns of the ring
+L2_EDGES = [(Q, X, n) for n in (1, 3, 97, 256, 2600)
+            for Q, X in ((1, 1), (17, 333), (64, 2048), (65, 31), (130, 333))]
 
 
 def fail(msg: str) -> None:
@@ -138,6 +146,85 @@ def time_ms(torch, fn, args_list, warmup: int = 3) -> tuple[float, float]:
         fail(f"queueing {len(args_list)} calls took {host * len(args_list)}"
              f" ms, longer than the stream was held: device time unclear")
     return start.elapsed_time(end) / len(args_list), host
+
+
+def unaligned(torch, t):
+    """A copy of ``t`` one float into a buffer: its ``data_ptr`` is not
+    16-byte aligned."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    v = buf[1:].view(t.shape)
+    v.copy_(t)
+    return v
+
+
+def ptxas_report(log: str, source: str) -> list[str]:
+    """``ptxas -v``'s lines for each kernel instance of ``source`` in the
+    build log: the instance's mangled name, then its registers and static
+    shared memory."""
+    head = f"== {source}\n"
+    if head not in log:
+        return []
+    sec = log.split(head, 1)[1].split("\n== ", 1)[0]
+    lines, name = [], "?"
+    for line in sec.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1] if "'" in line else line.strip()
+        elif "Used" in line and "registers" in line:
+            lines.append(f"{name}: {line.split(':', 1)[1].strip()}")
+    return lines
+
+
+def check_pairwise_l2_edges(torch, ops, ref, qs_main, db0, gen) -> float:
+    """``pairwise_l2`` at ``L2_EDGES`` in both layouts against its twin, then
+    the same pair at other positions bitwise: the main slab's query rows
+    rotated, the slab taken 37 rows earlier, unaligned copies of both
+    operands (the 4-byte copy instance), and a second call.  Fails the run
+    on a miss; returns the largest |err| of the edges."""
+    err, worst = 0.0, 0.0
+    for Q, X, n in L2_EDGES:
+        for layout in ("aligned", "offset"):
+            q = torch.randn(Q, n, generator=gen, device="cuda")
+            x = torch.randn(X, n, generator=gen, device="cuda")
+            if layout == "offset":
+                q, x = unaligned(torch, q), unaligned(torch, x)
+            got = ops.pairwise_l2(q, x)
+            want = ref.pairwise_l2_ref(q, x)
+            torch.cuda.synchronize()
+            scale = (q * q).sum(1)[:, None] + (x * x).sum(1)[None, :]
+            rel = float(((got - want).abs() / scale).max())
+            if (torch.isnan(got).any()
+                    or not bool(((got - want).abs() <= 1e-5 * scale).all())):
+                fail(f"pairwise_l2 disagrees with its twin at edge "
+                     f"[{Q},{X},{n}] {layout}: max rel {rel:.3e}")
+            err = max(err, float((got - want).abs().max()))
+            worst = max(worst, rel)
+    print(f"  pairwise_l2 edges: {2 * len(L2_EDGES)} cases (Q in 1..130, X "
+          f"in 1..2048, n in 1, 3, 97, 256, 2600, aligned and offset) "
+          f"within 1e-5 (|q|^2 + |x|^2) of the twin; max |err| {err:.3e}, "
+          f"max rel {worst:.3e}")
+    s0 = 5 * CHUNK
+    base = ops.pairwise_l2(qs_main, db0[s0:s0 + CHUNK])
+    checks = {
+        "second call": (ops.pairwise_l2(qs_main, db0[s0:s0 + CHUNK]),
+                        base),
+        "query rows rotated by 5": (
+            ops.pairwise_l2(torch.roll(qs_main, 5, 0),
+                            db0[s0:s0 + CHUNK]),
+            torch.roll(base, 5, 0)),
+        "slab 37 rows earlier": (
+            ops.pairwise_l2(qs_main, db0[s0 - 37:s0 - 37 + CHUNK])[:, 37:],
+            base[:, :CHUNK - 37]),
+        "unaligned operands": (
+            ops.pairwise_l2(unaligned(torch, qs_main),
+                            unaligned(torch, db0[s0:s0 + CHUNK])), base)}
+    torch.cuda.synchronize()
+    for what, (got, want) in checks.items():
+        if not torch.equal(got, want):
+            fail(f"pairwise_l2 is not position-invariant: {what} changes "
+                 f"{int((got != want).sum())} values")
+    print(f"  pairwise_l2 [64,2048,256] bitwise equal across: "
+          f"{', '.join(checks)}")
+    return err
 
 
 def check_kernels(torch, np, ops, ref, breakpoints, qs_main, dev, n_iter):
@@ -203,6 +290,8 @@ def check_kernels(torch, np, ops, ref, breakpoints, qs_main, dev, n_iter):
         err = max(err, float((got - want).abs().max()))
         print(f"  pairwise_l2 [{q.shape[0]},{x.shape[0]},{q.shape[1]}]: max "
               f"|err| {float((got - want).abs().max()):.3e}")
+    err = max(err, check_pairwise_l2_edges(torch, ops, ref, qs_main, db0,
+                                           gen))
     # a fresh slab per call, as the span loop reads it: cold in L2
     n_slabs = min(n_iter, db0.shape[0] // CHUNK)
     slabs = [(qs_main, db0[i * CHUNK:(i + 1) * CHUNK]) for i in range(n_slabs)]
@@ -729,6 +818,11 @@ def main() -> None:
     for line in log.splitlines():
         if "registers" in line or "spill" in line or line.startswith("=="):
             print(f"  {line.strip()}")
+    report = ptxas_report(log, "pairwise_l2.cu")
+    smem = _build.lib().dumpy_pairwise_l2_smem_bytes()
+    for line in report or ["library not rebuilt in this run: no report"]:
+        print(f"  pairwise_l2 ptxas: {line}; dynamic shared memory {smem} "
+              f"bytes a block")
     print(f"  library {so.relative_to(ROOT)}")
     phase("build kernels", t0)
 

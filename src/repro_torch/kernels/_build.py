@@ -33,6 +33,7 @@ _LL = ctypes.c_longlong
 _SIGNATURES = {
     "dumpy_sax_encode_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "dumpy_pairwise_l2_f32": [_P, _P, _P, _I, _I, _I, _P],
+    "dumpy_pairwise_l2_smem_bytes": [],
     "dumpy_lb_paa_interval_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
     "dumpy_lb_keogh_f32": [_P, _P, _P, _P, _I, _I, _I, _LL, _P],
     "dumpy_lb_improved_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _LL, _P],

@@ -5,12 +5,20 @@ Replaces the TPU kernel ``repro/kernels/pairwise_l2.py::pairwise_l2`` (body
 the last contraction step; the reference search runs its XLA twin
 ``repro.core.lb.ed2_batch_jnp`` as the ED candidate slab.  At the main
 path's shape (Q=64, X=chunk=2048, n=256) the work is ``2·Q·X·n`` = 67 MFLOP
-over ~2.6 MB, so on Hopper it is bound by float32 FMA throughput outside
-the tensor cores (67 TFLOP/s), not by memory.  The design keeps float32
-throughout (TF32 would reorder true neighbours, see the source), tiles
-32×64×16 in shared memory with a 4×4 register tile per thread, sums the row
-norms from the same tiles in the same pass, and masks ragged rows and
-columns in the kernel instead of padding in device memory.
+over ~2.6 MB: about a microsecond of float32 FMA outside the tensor cores
+(67 TFLOP/s), so a call's time is latency and how much of the card it
+fills.  The design keeps float32 throughout (TF32 would reorder true
+neighbours, see the source) and gives each block a 32×32 output tile: 128
+blocks of 8 warps at the main shape.  Chunks of 32 columns are staged into
+an 8-chunk ring of shared memory with ``cp.async``; the contraction is cut
+into 4 fixed column classes (column ``c`` in class ``(c // 4) % 4``), each
+summed by two warps in 4×4 register tiles from 16-byte shared reads, with
+the row norms spread over all threads; the classes are added in a fixed
+order, so each distance depends on its two rows alone, never on where they
+sit.  ``n % 4 == 0`` with 16-byte-aligned operands takes 16-byte copies;
+any other length or alignment takes 4-byte copies in the same kernel (the
+same sums, the same bits).  Ragged rows and columns are zero-filled by the
+copies and masked at the store; nothing is padded in device memory.
 """
 from __future__ import annotations
 

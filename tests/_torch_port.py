@@ -24,6 +24,12 @@ SAX_SWEEP = [(B, n, w, b) for B in (1, 7, 256, 300)
              for b in (4, 8)]
 L2_SWEEP = [(1, 1, 64), (17, 333, 96), (128, 128, 128), (5, 1000, 256),
             (130, 50, 320)]
+# cuda-only pairwise_l2 cases (Q, X, n): lengths not a multiple of 4 (the
+# 4-byte copy instance), the search's 256, and one long enough for many
+# turns of the 8-chunk ring; ragged tiles of Q and X with each length
+L2_CUDA_EDGES = [(Q, X, n) for n in (1, 3, 97, 256, 2600)
+                 for Q, X in ((1, 1), (17, 333), (64, 2048), (65, 31),
+                              (130, 333))]
 LB_SWEEP = [(1, 1, 8, 64), (9, 77, 16, 128), (8, 512, 16, 256),
             (3, 1500, 8, 64)]
 # (Q, m, n, r) of the DTW cascade kernels: the search's shapes (n=256,

@@ -47,6 +47,173 @@ def test_pairwise_l2_twin_matches_pallas(Q, X, n):
     np.testing.assert_allclose(got, want, atol=1e-2, rtol=1e-4)
 
 
+def _fma32(a, b, c):
+    """One float32 FMA, modelled as ``fl32(fl64(a)·fl64(b) + fl64(c))`` (the
+    product of two float32 is exact in float64)."""
+    return (a.astype(np.float64) * b.astype(np.float64)
+            + c.astype(np.float64)).astype(np.float32)
+
+
+# pairwise_l2.cu's tiling: 32x32 tiles of 256 threads, 32-column chunks in a
+# ring of 8, column classes (c // 4) % 4 summed by two warps each, 4x4
+# register tiles, padded strides of the staged rows and the partial tiles
+L2_TQ, L2_TX, L2_KC, L2_LDK, L2_NS, L2_CLASSES, L2_PLD = 32, 32, 32, 36, 8, 4, 40
+
+
+def _l2_tile_model(q: np.ndarray, x: np.ndarray, vec: bool) -> np.ndarray:
+    """A numpy walk of ``pairwise_l2.cu``, block by block, its 256 threads
+    side by side: the copy map of either instance (16-byte copies by 16
+    threads a row, or 4-byte copies by 64) into the ring slot of each
+    chunk (zero-filled past Q, X and n; a never-copied element stays NaN),
+    each warp's column class, register rows and norm row, one FMA a column,
+    the partial tiles and norms added in class order through the padded
+    epilogue buffers (each written once), and the store map (each output
+    written once)."""
+    Q, n = q.shape
+    X = x.shape[0]
+    assert not vec or n % 4 == 0          # the launcher's choice
+    rows = L2_TQ + L2_TX
+    tid = np.arange(256)
+    warp, lane = tid >> 5, tid & 31
+    cls, w = warp >> 1, warp & 1
+    tq, tx = lane >> 3, lane & 7
+    qrow = 16 * w[:, None] + tq[:, None] + 4 * np.arange(4)    # [256, i]
+    xrow = L2_TQ + tx[:, None] + 8 * np.arange(4)              # [256, j]
+    nrow = 32 * w + lane
+    chunks = -(-n // L2_KC)
+    out = np.full((Q, X), np.nan, np.float32)
+    stored = np.zeros((Q, X), int)
+    for q0 in range(0, Q, L2_TQ):
+        for x0 in range(0, X, L2_TX):
+            ring = np.full((L2_NS, rows, L2_LDK), np.nan, np.float32)
+            holds = [-1] * L2_NS
+
+            def load(c):
+                slot, k0 = ring[c % L2_NS], c * L2_KC
+                holds[c % L2_NS] = c
+                slot[:, :L2_KC] = np.nan
+                per_row, width = (L2_KC // 4, 4) if vec else (L2_KC, 1)
+                for k in range(rows * per_row // 256):
+                    idx = tid + 256 * k
+                    r, col = idx // per_row, (idx % per_row) * width
+                    isq = r < L2_TQ
+                    gr = np.where(isq, q0 + r, x0 + r - L2_TQ)
+                    # a copy tests its row and its first column
+                    inq = isq & (gr < Q) & (k0 + col < n)
+                    inx = ~isq & (gr < X) & (k0 + col < n)
+                    for e in range(width):
+                        val = np.zeros(256, np.float32)
+                        val[inq] = q[gr[inq], k0 + col[inq] + e]
+                        val[inx] = x[gr[inx], k0 + col[inx] + e]
+                        assert np.isnan(slot[r, col + e]).all()  # once each
+                        slot[r, col + e] = val
+
+            for c in range(min(L2_NS - 1, chunks)):
+                load(c)
+            acc = np.zeros((256, 4, 4), np.float32)
+            norm = np.zeros(256, np.float32)
+            for c in range(chunks):
+                if c + L2_NS - 1 < chunks:
+                    load(c + L2_NS - 1)
+                assert holds[c % L2_NS] == c
+                st = ring[c % L2_NS]
+                for g in range(L2_KC // 4 // L2_CLASSES):
+                    col = 4 * (cls + L2_CLASSES * g)                # [256]
+                    for e in range(4):
+                        a = st[qrow, (col + e)[:, None]]            # [256, i]
+                        b = st[xrow, (col + e)[:, None]]            # [256, j]
+                        acc = _fma32(a[:, :, None], b[:, None, :], acc)
+                        v = st[nrow, col + e]
+                        norm = _fma32(v, v, norm)
+            part = np.full((L2_CLASSES, L2_TQ, L2_PLD), np.nan, np.float32)
+            norms = np.full((L2_CLASSES, rows), np.nan, np.float32)
+            hit = np.zeros(part.shape, int)
+            for i in range(4):
+                for j in range(4):
+                    part[cls, qrow[:, i], xrow[:, j] - L2_TQ] = acc[:, i, j]
+                    hit[cls, qrow[:, i], xrow[:, j] - L2_TQ] += 1
+            norms[cls, nrow] = norm
+            assert (hit[:, :, :L2_TX] == 1).all()
+            assert not np.isnan(norms).any()
+            for k in range(L2_TQ // 8):
+                r, cc = warp + 8 * k, lane
+                gr, gc = q0 + r, x0 + cc
+                dot, qn, xn = part[0, r, cc], norms[0, r], norms[0, L2_TQ + cc]
+                for s in range(1, L2_CLASSES):
+                    dot = (dot + part[s, r, cc]).astype(np.float32)
+                    qn = (qn + norms[s, r]).astype(np.float32)
+                    xn = (xn + norms[s, L2_TQ + cc]).astype(np.float32)
+                d = ((qn + xn).astype(np.float32)
+                     - (np.float32(2) * dot).astype(np.float32))
+                keep = (gr < Q) & (gc < X)
+                out[gr[keep], gc[keep]] = np.maximum(d.astype(np.float32),
+                                                     0)[keep]
+                stored[gr[keep], gc[keep]] += 1
+    assert (stored == 1).all()
+    return out
+
+
+def _l2_pair_value(q: np.ndarray, x: np.ndarray) -> np.ndarray:
+    """What the kernel must give as a function of ``(q_i, x_j)`` alone:
+    each column class ``(c // 4) % 4`` sums its columns in increasing
+    order, one FMA a column; classes and the norms are added in class
+    order, then ``max((|q|² + |x|²) - 2·dot, 0)``."""
+    n = q.shape[1]
+    dot = np.zeros((L2_CLASSES, q.shape[0], x.shape[0]), np.float32)
+    qn = np.zeros((L2_CLASSES, q.shape[0]), np.float32)
+    xn = np.zeros((L2_CLASSES, x.shape[0]), np.float32)
+    for c in range(n):
+        s = (c // 4) % L2_CLASSES
+        dot[s] = _fma32(q[:, c, None], x[None, :, c], dot[s])
+        qn[s] = _fma32(q[:, c], q[:, c], qn[s])
+        xn[s] = _fma32(x[:, c], x[:, c], xn[s])
+    d, a, b = dot[0], qn[0], xn[0]
+    for s in range(1, L2_CLASSES):
+        d = (d + dot[s]).astype(np.float32)
+        a = (a + qn[s]).astype(np.float32)
+        b = (b + xn[s]).astype(np.float32)
+    return np.maximum(((a[:, None] + b[None, :]).astype(np.float32)
+                       - (np.float32(2) * d)).astype(np.float32), 0)
+
+
+# (Q, X, n): ragged tiles and lengths, several chunks, a length past the ring
+L2_TILE = [(1, 1, 1), (17, 31, 3), (33, 40, 97), (5, 70, 64), (40, 33, 130),
+           (2, 3, 300), (32, 32, 256)]
+
+
+@pytest.mark.parametrize("Q,X,n", L2_TILE)
+def test_pairwise_l2_tile_model_matches_pair_value_and_twin(Q, X, n):
+    """The kernel's tile walk, in both copy instances, gives each pair's
+    fixed-order value bit for bit, within 1e-5·(|q|² + |x|²) of the twin."""
+    q = RNG.standard_normal((Q, n)).astype(np.float32)
+    x = RNG.standard_normal((X, n)).astype(np.float32)
+    want = _l2_pair_value(q, x)
+    for vec in ((True, False) if n % 4 == 0 else (False,)):
+        np.testing.assert_array_equal(_l2_tile_model(q, x, vec), want)
+    twin = ops.pairwise_l2(torch.from_numpy(q), torch.from_numpy(x)).numpy()
+    scale = (q * q).sum(1)[:, None] + (x * x).sum(1)[None, :]
+    assert (np.abs(want - twin) <= 1e-5 * scale).all()
+
+
+@pytest.mark.parametrize("Q,X,n,lead_q,lead_x", [
+    (17, 31, 3, 5, 37), (33, 40, 97, 31, 1), (5, 70, 64, 1, 2047 % 64),
+    (40, 33, 130, 32, 3)])
+def test_pairwise_l2_tile_model_is_position_invariant(Q, X, n, lead_q,
+                                                      lead_x):
+    """The same rows shifted within their tiles and slab (other rows ahead
+    of and behind them) give the same bits."""
+    q = RNG.standard_normal((Q, n)).astype(np.float32)
+    x = RNG.standard_normal((X, n)).astype(np.float32)
+    vec = n % 4 == 0
+    base = _l2_tile_model(q, x, vec)
+    q2 = np.concatenate([RNG.standard_normal((lead_q, n)), q,
+                         RNG.standard_normal((3, n))]).astype(np.float32)
+    x2 = np.concatenate([RNG.standard_normal((lead_x, n)), x,
+                         RNG.standard_normal((7, n))]).astype(np.float32)
+    got = _l2_tile_model(q2, x2, vec)[lead_q:lead_q + Q, lead_x:lead_x + X]
+    np.testing.assert_array_equal(got, base)
+
+
 @pytest.mark.parametrize("Q,L,w,n", LB_SWEEP)
 def test_lb_isax_twin_matches_pallas(Q, L, w, n):
     _, _, lo, hi = intervals(RNG, Q, L, w)

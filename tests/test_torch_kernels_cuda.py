@@ -1,7 +1,8 @@
 """The CUDA kernels against their plain PyTorch twins, on the card, over the
 shape sweeps of ``test_kernels.py`` (and ``DTW_SWEEP`` for the DTW cascade,
 ``LBI_SWEEP`` for ``lb_improved``'s tiling, ``DTW_CUDA_EDGES`` for
-``dtw_band``'s two paths and their edges:
+``dtw_band``'s two paths and their edges, ``L2_CUDA_EDGES`` for
+``pairwise_l2``'s copy instances, ragged tiles and long rows):
 the LB kernels within rtol 1e-5 — two sums of n nonnegative terms taken in
 other orders — and ``dtw_band`` bitwise, ``+inf`` lanes included).  Imports no ``jax``, so it runs where
 the card is (``python -m pytest -m cuda tests/test_torch_kernels_cuda.py``);
@@ -10,13 +11,14 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port import (DTW_CUDA_EDGES, DTW_SWEEP, L2_SWEEP, LB_SWEEP,
+from _torch_port import (DTW_CUDA_EDGES, DTW_SWEEP, L2_CUDA_EDGES,
+                         L2_SWEEP, LB_SWEEP,
                          LBI_SWEEP, SAX_SWEEP, clear_of_breakpoints, cuda,
                          dtw_inputs,
                          dtw_mask_cutoff, intervals,
                          torch_threads)  # noqa: F401
-from repro_torch.kernels import (dtw_band, lb_improved, lb_keogh, ops, ref,
-                                 sax_encode)
+from repro_torch.kernels import (dtw_band, lb_improved, lb_keogh, ops,
+                                 pairwise_l2, ref, sax_encode)
 
 RNG = np.random.default_rng(43)
 
@@ -35,15 +37,75 @@ def test_sax_encode_kernel_matches_twin(cuda, B, n, w, b):
     assert torch.equal(sax.cpu()[clear], sax_r.cpu()[clear])
 
 
+def _rows(a, cuda, offset=False):
+    """``a`` on the card; with ``offset`` a view one float into a buffer,
+    so its ``data_ptr`` is not 16-byte aligned."""
+    if not offset:
+        return torch.from_numpy(a).to(cuda)
+    buf = torch.empty(a.size + 1, dtype=torch.float32, device=cuda)
+    v = buf[1:].view(a.shape)
+    v.copy_(torch.from_numpy(a))
+    assert v.data_ptr() % 16 != 0
+    return v
+
+
+def _l2_close(q, x, got):
+    """Within 1e-5·(|q_i|² + |x_j|²) of the twin: both round a sum of n
+    products, each within n·2⁻²⁴ of its exact value in units of that
+    scale (the twin's matmul in another order)."""
+    want = ref.pairwise_l2_ref(q, x)
+    scale = (q * q).sum(1)[:, None] + (x * x).sum(1)[None, :]
+    assert got.shape == want.shape and not torch.isnan(got).any()
+    assert bool(((got - want).abs() <= 1e-5 * scale).all())
+
+
 @pytest.mark.parametrize("Q,X,n", L2_SWEEP)
 def test_pairwise_l2_kernel_matches_twin(cuda, Q, X, n):
     torch.backends.cuda.matmul.allow_tf32 = False
     q = torch.from_numpy(RNG.standard_normal((Q, n)).astype(np.float32)).to(cuda)
     x = torch.from_numpy(RNG.standard_normal((X, n)).astype(np.float32)).to(cuda)
+    _l2_close(q, x, ops.pairwise_l2(q, x))
+
+
+@pytest.mark.parametrize("Q,X,n", L2_CUDA_EDGES)
+@pytest.mark.parametrize("layout", ["aligned", "offset"])
+def test_pairwise_l2_kernel_edges(cuda, Q, X, n, layout):
+    """Ragged tiles, lengths not a multiple of 4, a long row, and operands
+    whose ``data_ptr`` is not 16-byte aligned (the 4-byte copy instance)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q = _rows(RNG.standard_normal((Q, n)).astype(np.float32), cuda,
+              layout == "offset")
+    x = _rows(RNG.standard_normal((X, n)).astype(np.float32), cuda,
+              layout == "offset")
+    before = pairwise_l2.launches
     got = ops.pairwise_l2(q, x)
-    want = ref.pairwise_l2_ref(q, x)
-    scale = (q * q).sum(1)[:, None] + (x * x).sum(1)[None, :]
-    assert bool(((got - want).abs() <= 1e-5 * scale).all())
+    assert pairwise_l2.launches == before + 1
+    _l2_close(q, x, got)
+
+
+@pytest.mark.parametrize("n", [97, 256])
+def test_pairwise_l2_kernel_is_position_invariant_bitwise(cuda, n):
+    """One (q_i, x_j) pair gives the same bits wherever its rows sit: other
+    rows ahead of them (another tile position), another slab offset in a
+    collection, an unaligned copy of the operands (the other copy
+    instance at n = 256), and a second call."""
+    Q, X = 20, 300
+    db = torch.from_numpy(RNG.standard_normal((4096, n)).astype(np.float32)
+                          ).to(cuda)
+    q = torch.from_numpy(RNG.standard_normal((Q, n)).astype(np.float32)
+                         ).to(cuda)
+    base = ops.pairwise_l2(q, db[1000:1000 + X])
+    assert torch.equal(ops.pairwise_l2(q, db[1000:1000 + X]), base)
+    for lead_q, s0 in ((5, 963), (31, 999), (1, 0), (13, 1000 - 2047 % 300)):
+        pad = torch.from_numpy(RNG.standard_normal((lead_q, n)).astype(
+            np.float32)).to(cuda)
+        q2 = torch.cat([pad, q, pad[:2]])
+        got = ops.pairwise_l2(q2, db[s0:1000 + X + 7])
+        c = 1000 - s0
+        assert torch.equal(got[lead_q:lead_q + Q, c:c + X], base)
+    got = ops.pairwise_l2(_rows(q.cpu().numpy(), cuda, True),
+                          _rows(db[1000:1000 + X].cpu().numpy(), cuda, True))
+    assert torch.equal(got, base)
 
 
 @pytest.mark.parametrize("Q,L,w,n", LB_SWEEP)
