@@ -17,11 +17,13 @@ Phases, each printed with its seconds:
 4. kernels: every kernel against its plain PyTorch twin on the card, at the
    main paths' shapes (taken from this index and these queries) and at
    ragged ones, with the stated tolerances (``dtw_band`` bitwise, also on
-   a band past the shared-memory frontier's cap; ``pairwise_l2`` also at
-   its edges, unaligned operands included, and bitwise equal for the same
-   pair at other positions and in a second call); each kernel's time next
-   to its bound, its twin's time and, where one PyTorch call computes the
-   same function, that call's time;
+   a band past the shared-memory frontier's cap; ``pairwise_l2`` and
+   ``lb_keogh`` also at their edges, unaligned operands and a row of 60 000
+   included, and bitwise equal for the same pair at other positions, in a
+   second call and, for ``lb_keogh``, in the per-query layout); each
+   kernel's time next to its bound, its twin's time and, where one PyTorch
+   call computes the same function, that call's time (``lb_keogh`` also
+   beside its issue bound, and at the sub-slab and gathered chunk);
 5. ED main path: 256 held-out queries in 4 batches of 64 through
    ``exact_search_device_batch`` (k=10), every result held against a
    float64 brute force on the card, one batch rerun with ``n_shards=4``
@@ -77,6 +79,13 @@ DTW_WIDE = (2, 5, 2600, 2500)   # (Q, m, n, r): a band no shared frontier holds
 # the operations the lb_improved kernel itself does per element (its source
 # note: d = v - clip(v, lo, hi) in place of two gaps, an FMA counting two)
 LBI_KERNEL_OPS = 16
+# the instructions the lb_keogh kernel issues per element (its source note:
+# two FADD, two FMNMX, one FFMA), at 128 lanes a clock on each SM
+LBK_KERNEL_INSTR, LANES_PER_SM = 5, 128
+# lb_keogh's edges (Q, m, n), each in both layouts, aligned and one float
+# off 16-byte alignment: ragged tiles, a length not a multiple of 4, many
+# turns of the ring, and a row longer than a block's shared memory holds
+LBK_EDGES = [(33, 31, 97), (65, 97, 2600), (1, 3, 60000)]
 KERNELS = ("sax_encode", "pairwise_l2", "lb_paa_interval", "lb_keogh",
            "lb_improved", "dtw_band")
 # pairwise_l2's edges (Q, X, n), each also with operands whose data_ptr is
@@ -223,6 +232,60 @@ def check_pairwise_l2_edges(torch, ops, ref, qs_main, db0, gen) -> float:
             fail(f"pairwise_l2 is not position-invariant: {what} changes "
                  f"{int((got != want).sum())} values")
     print(f"  pairwise_l2 [64,2048,256] bitwise equal across: "
+          f"{', '.join(checks)}")
+    return err
+
+
+def check_lb_keogh_edges(torch, ops, ref, envelope, db0, U, L, idx,
+                         gathered, gen) -> float:
+    """``lb_keogh`` at ``LBK_EDGES`` in both layouts and alignments within
+    rtol 1e-5 of its twin, then the main slab's values bitwise at other
+    positions: the query rows rotated, the slab 37 rows later, unaligned
+    copies of the operands (the 4-byte copy instance), a second call, and
+    the lane walk's gathered [64, 128, 256] chunk (the per-query layout)
+    against the same pairs of the shared slab.  Fails the run on a miss;
+    returns the largest |err| of the edges."""
+    err = 0.0
+    for Q, m, n in LBK_EDGES:
+        qs = torch.randn(Q, n, generator=gen, device="cuda").cumsum(1)
+        eU, eL = (t.clone() for t in envelope(qs, max(n // 10, 1)))
+        eU[:, [0, -1]], eL[:, [0, -1]] = float("inf"), -float("inf")
+        for layout in ("shared", "gather"):
+            shape = (m, n) if layout == "shared" else (Q, m, n)
+            x = torch.randn(*shape, generator=gen, device="cuda").cumsum(-1)
+            for a in ((x, eU, eL),
+                      tuple(unaligned(torch, t) for t in (x, eU, eL))):
+                got, want = ops.lb_keogh(*a), ref.lb_keogh_ref(*a)
+                torch.cuda.synchronize()
+                if torch.isnan(got).any():
+                    fail(f"lb_keogh produced NaN at edge [{Q},{m},{n}] "
+                         f"{layout}")
+                torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+                err = max(err, float((got - want).abs().max()))
+    print(f"  lb_keogh edges: {4 * len(LBK_EDGES)} cases ([Q, m, n] in "
+          f"{LBK_EDGES}, shared and per query, aligned and offset) within "
+          f"rtol 1e-5 of the twin; max |err| {err:.3e}")
+    slab = db0[:CHUNK]
+    base = ops.lb_keogh(slab, U, L)
+    checks = {
+        "second call": (ops.lb_keogh(slab, U, L), base),
+        "query rows rotated by 5": (
+            ops.lb_keogh(slab, torch.roll(U, 5, 0), torch.roll(L, 5, 0)),
+            torch.roll(base, 5, 0)),
+        "slab 37 rows later": (
+            ops.lb_keogh(db0[37:37 + CHUNK], U, L)[:, :CHUNK - 37],
+            base[:, 37:]),
+        "unaligned operands": (
+            ops.lb_keogh(*(unaligned(torch, t) for t in (slab, U, L))),
+            base),
+        "gathered [64,128,256] chunk (per query)": (
+            ops.lb_keogh(gathered, U, L), torch.gather(base, 1, idx))}
+    torch.cuda.synchronize()
+    for what, (got, want) in checks.items():
+        if not torch.equal(got, want):
+            fail(f"lb_keogh is not position-invariant: {what} changes "
+                 f"{int((got != want).sum())} values")
+    print(f"  lb_keogh [64,2048,256] bitwise equal across: "
           f"{', '.join(checks)}")
     return err
 
@@ -468,6 +531,8 @@ def check_dtw_kernels(torch, ops, ref, envelope, gather, qs_main, dev,
             print(f"  {name} x{tuple(x.shape)} Q={q.shape[0]} r={r}: max "
                   f"|err| {float((got - want).abs().max()):.3e}, max rel "
                   f"{e:.3e}")
+    errs["lb_keogh"] = max(errs["lb_keogh"], check_lb_keogh_edges(
+        torch, ops, ref, envelope, db0, U, L, idx, gathered, gen))
 
     # -- dtw_band: bitwise, +inf lanes included -------------------------------
     dp_cases = [("rows", qs_main, slab, mask, cut, BAND, idx),
@@ -518,13 +583,46 @@ def check_dtw_kernels(torch, ops, ref, envelope, gather, qs_main, dev,
         print(f"  {name} [{Q},{m},{n}] r={BAND}: kernel {ms:.5f} ms (host "
               f"{host:.4f} ms per call), twin {plain_ms:.5f} ms, bound "
               f"{b_ms:.6f} ms ({b_by})")
+    # lb_keogh's issue bound (the kernel's instructions an element at 128
+    # lanes a clock on every SM), and its time at the "shared" order's
+    # 256-row sub-slab and at the lane walk's gathered [64, 128, 256] chunk
+    # (the per-query layout, a fresh chunk per call)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def issue_ms(elements):
+        return (LBK_KERNEL_INSTR * elements
+                / (LANES_PER_SM * sms * clock_hz) * 1e3)
+
+    print(f"  lb_keogh [{Q},{m},{n}]: issue bound at {LBK_KERNEL_INSTR} "
+          f"instructions an element, {sms} SMs at {clock_hz / 1e9:.3f} GHz:"
+          f" {issue_ms(Q * m * n):.6f} ms")
+    n_sub = min(n_iter, db0.shape[0] // 256)
+    gathers = [db0[i * CHUNK:(i + 1) * CHUNK][idx].contiguous()
+               for i in range(min(n_iter, db0.shape[0] // CHUNK))]
+    for label, args, moved in (
+            ("shared order's sub-slab [64,256,256]",
+             [(db0[i * 256:(i + 1) * 256], U, L) for i in range(n_sub)],
+             4 * (256 * n + 2 * Q * n + Q * 256)),
+            ("gathered chunk [64,128,256], per query",
+             [(g, U, L) for g in gathers],
+             4 * (Q * 128 * n + 2 * Q * n + Q * 128))):
+        x = args[0][0]
+        el = Q * x.shape[-2] * n
+        ms, host = time_ms(torch, ops.lb_keogh, args)
+        plain, _ = time_ms(torch, ref.lb_keogh_ref, args)
+        b_ms, b_by = bound(moved, LBK_OPS * el)
+        print(f"  lb_keogh at the {label}: kernel {ms:.5f} ms (host "
+              f"{host:.4f} ms per call), twin {plain:.5f} ms, bound "
+              f"{b_ms:.6f} ms ({b_by}), byte bound "
+              f"{moved / HBM_BYTES_PER_S * 1e3:.6f} ms, issue bound "
+              f"{issue_ms(el):.6f} ms")
+    del gathers
     # lb_improved's bound at its own operation count too, and its time at
     # the "shared" order's 256-row sub-slab beside both bounds
     k_ms, k_by = bound(4 * (m * n + 3 * Q * n + Q * m),
                        LBI_KERNEL_OPS * Q * m * n)
     print(f"  lb_improved [{Q},{m},{n}]: bound at the kernel's "
           f"{LBI_KERNEL_OPS} operations an element {k_ms:.6f} ms ({k_by})")
-    n_sub = min(n_iter, db0.shape[0] // 256)
     args = [(db0[i * 256:(i + 1) * 256], qs_main, U, L, BAND)
             for i in range(n_sub)]
     ms, host = time_ms(torch, ops.lb_improved, args)
@@ -823,6 +921,12 @@ def main() -> None:
     for line in report or ["library not rebuilt in this run: no report"]:
         print(f"  pairwise_l2 ptxas: {line}; dynamic shared memory {smem} "
               f"bytes a block")
+    smem = [_build.lib().dumpy_lb_keogh_smem_bytes(p) for p in (0, 1, 2)]
+    for line in (ptxas_report(log, "lb_keogh.cu")
+                 or ["library not rebuilt in this run: no report"]):
+        print(f"  lb_keogh ptxas: {line}; dynamic shared memory {smem[0]} "
+              f"/ {smem[1]} (shared layout, 32- / 8-query tiles) / "
+              f"{smem[2]} (per query) bytes a block")
     print(f"  library {so.relative_to(ROOT)}")
     phase("build kernels", t0)
 

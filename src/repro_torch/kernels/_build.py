@@ -36,6 +36,7 @@ _SIGNATURES = {
     "dumpy_pairwise_l2_smem_bytes": [],
     "dumpy_lb_paa_interval_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
     "dumpy_lb_keogh_f32": [_P, _P, _P, _P, _I, _I, _I, _LL, _P],
+    "dumpy_lb_keogh_smem_bytes": [_I],
     "dumpy_lb_improved_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _LL, _P],
     "dumpy_dtw_band_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _LL,
                            _P],

@@ -6,10 +6,14 @@ Replaces the TPU kernel ``repro/kernels/lb_keogh.py::lb_keogh`` (body
 The reference's search calls the batched form ``lb_keogh2_batch_jnp``
 (``[Q, m]``, for a shared candidate block or per-query candidate sets), so
 the port's kernel computes that form; the one-query TPU form is Q = 1.  On
-Hopper it is ~7 float32 operations per element of a candidate row that each
-block stages in shared memory once for all of its queries: bound by
-operations at the search's 64 queries per row.  One warp per (query,
-candidate) pair, with a warp reduction of the sum.
+Hopper an element costs five instructions, so the shared layout is bound by
+instruction issue: tiles of 32 queries × 32 candidates, each thread a 4 × 4
+register tile over envelopes and rows staged in 32-column chunks, any row
+length.  The per-query layout takes one query × 64 candidates a block and
+is bound by bytes.  Every value is summed in one fixed order (four column
+classes, each in increasing column order, added in class order), so a
+(query, row) pair gives the same bits wherever it sits and in either
+layout.
 """
 from __future__ import annotations
 

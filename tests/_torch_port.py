@@ -30,6 +30,14 @@ L2_SWEEP = [(1, 1, 64), (17, 333, 96), (128, 128, 128), (5, 1000, 256),
 L2_CUDA_EDGES = [(Q, X, n) for n in (1, 3, 97, 256, 2600)
                  for Q, X in ((1, 1), (17, 333), (64, 2048), (65, 31),
                               (130, 333))]
+# cuda-only lb_keogh cases (Q, m, n): Q and m on both sides of the 32-row
+# tile (and of the per-query layout's 64-row tile), lengths not a multiple
+# of 4 (the 4-byte copy instance), the search's 256, a row long enough for
+# many turns of the 8-chunk ring, and one longer than the first kernel could
+# stage in shared memory (n > 58 112)
+LBK_CUDA_EDGES = [(Q, m, n) for n in (1, 3, 97, 256, 2600)
+                  for Q, m in ((1, 1), (31, 33), (33, 31), (64, 2048),
+                               (65, 97))] + [(1, 3, 60000)]
 LB_SWEEP = [(1, 1, 8, 64), (9, 77, 16, 128), (8, 512, 16, 256),
             (3, 1500, 8, 64)]
 # (Q, m, n, r) of the DTW cascade kernels: the search's shapes (n=256,

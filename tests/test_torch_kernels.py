@@ -292,6 +292,228 @@ def test_lb_keogh_and_lb_improved_twins_match_pallas(Q, m, n, r):
         np.testing.assert_allclose(lbi[q], want, rtol=1e-6)
 
 
+# lb_keogh.cu's tiling: 32-column chunks in a ring of 8 with 7 requested
+# ahead, column classes (c // 4) % 4 summed by two warps each, padded staged
+# rows; the shared layout's 32 (or 8) x 32 tiles with 4x4 (1x4) register
+# tiles (partial-tile stride 40), the per-query layout's 1x64 tiles with one
+# pair a thread (stride 64); the launcher takes 32-query tiles while they
+# make a block for every two of the card's SMs (132 on an H100)
+LBK_KC, LBK_LDK, LBK_NS, LBK_AHEAD, LBK_CLASSES, LBK_SMS = 32, 36, 8, 7, 4, 132
+
+
+def _lbk_tile_model(x: np.ndarray, U: np.ndarray, L: np.ndarray,
+                    vec: bool, tq: int | None = None) -> np.ndarray:
+    """A numpy walk of ``lb_keogh.cu``, every block and its 256 threads side
+    by side, in the layout ``x`` has (``[m, n]`` shared, ``[Q, m, n]`` per
+    query; the shared layout's tile of ``tq`` queries, by default the
+    launcher's choice): the copy map of either instance (16-byte copies by
+    8 threads a row, or 4-byte copies by 32) of the tile's U rows, L rows
+    and candidate rows into the ring slot of each chunk (zero-filled past
+    Q, m and n; a never-copied element stays NaN and would show), each
+    warp's column class and register rows, ``max(max(v - u, lo - v), 0)``
+    and one FMA a column, the partial tiles added in class order through
+    the padded epilogue buffer (each slot written once), and the store map
+    (each output written once)."""
+    Q, n = U.shape
+    perq = x.ndim == 3
+    m = x.shape[-2]
+    assert not vec or n % 4 == 0          # the launcher's choice
+    if tq is None and not perq:
+        tq = 32 if 2 * -(-m // 32) * -(-Q // 32) >= LBK_SMS else 8
+    TQ, TX, XR, RQ, RX, PLD = ((1, 64, 64, 1, 1, 64) if perq
+                               else (tq, 32, 32, tq // 8, 4, 40))
+    rows, KC, NS, AHEAD = 2 * TQ + XR, LBK_KC, LBK_NS, LBK_AHEAD
+    tid = np.arange(256)
+    warp, lane = tid >> 5, tid & 31
+    cls, w = warp >> 1, warp & 1
+    if perq:
+        qrow = np.zeros((256, 1), int)
+        xrow = (32 * w + lane)[:, None]
+    else:
+        qrow = ((TQ // 2) * w[:, None] + (lane >> 3)[:, None]
+                + 4 * np.arange(RQ))
+        xrow = (lane & 7)[:, None] + 8 * np.arange(4)
+    tiles_x = -(-m // TX)
+    blk = np.arange(tiles_x * -(-Q // TQ))
+    q0, x0 = (blk // tiles_x) * TQ, (blk % tiles_x) * TX      # [B]
+    B = len(blk)
+    chunks = -(-n // KC)
+    ring = np.full((NS, B, rows, LBK_LDK), np.nan, np.float32)
+    holds = [-1] * NS
+
+    def load(c):
+        slot, k0 = ring[c % NS], c * KC
+        holds[c % NS] = c
+        slot[:, :, :KC] = np.nan
+        per_row, width = (KC // 4, 4) if vec else (KC, 1)
+        copies = rows * per_row
+        for k in range(-(-copies // 256)):
+            idx = tid + 256 * k
+            idx = idx[idx < copies]
+            r, col = idx // per_row, (idx % per_row) * width     # [T]
+            isx = r >= 2 * TQ
+            q = q0[:, None] + np.where(r < TQ, r, r - TQ)         # [B, T]
+            lx = x0[:, None] + r - 2 * TQ
+            # a copy tests its row and its first column
+            inn = np.where(isx, lx < m, q < Q) & (k0 + col < n)
+            qc, lc = np.clip(q, 0, Q - 1), np.clip(lx, 0, m - 1)
+            for e in range(width):
+                cc = k0 + col + e
+                assert (cc[None, :].repeat(B, 0)[inn] < n).all()
+                ccc = np.minimum(cc, n - 1)
+                xv = (x[q0[:, None], lc, ccc] if perq else x[lc, ccc])
+                val = np.where(isx, xv, np.where(r < TQ, U[qc, ccc],
+                                                 L[qc, ccc]))
+                val = np.where(inn, val, 0).astype(np.float32)
+                assert np.isnan(slot[:, r, col + e]).all()    # once each
+                slot[:, r, col + e] = val
+
+    for c in range(min(AHEAD, chunks)):
+        load(c)
+    acc = np.zeros((B, 256, RQ, RX), np.float32)
+    for c in range(chunks):
+        if c + AHEAD < chunks:
+            assert holds[(c + AHEAD) % NS] < c      # a consumed slot
+            load(c + AHEAD)
+        assert holds[c % NS] == c
+        st = ring[c % NS]
+        for g in range(KC // 4 // LBK_CLASSES):
+            col = 4 * (cls + LBK_CLASSES * g)                   # [256]
+            for e in range(4):
+                ce = (col + e)[:, None]
+                u = st[:, qrow, ce][:, :, :, None]              # [B, 256, i, 1]
+                lo = st[:, TQ + qrow, ce][:, :, :, None]
+                v = st[:, 2 * TQ + xrow, ce][:, :, None, :]     # [B, 256, 1, j]
+                d = np.maximum(np.maximum(v - u, lo - v), np.float32(0))
+                acc = _fma32(d, d, acc)
+    part = np.full((B, LBK_CLASSES, TQ, PLD), np.nan, np.float32)
+    hit = np.zeros(part.shape[1:], int)
+    for i in range(RQ):
+        for j in range(RX):
+            part[:, cls, qrow[:, i], xrow[:, j]] = acc[:, :, i, j]
+            hit[cls, qrow[:, i], xrow[:, j]] += 1
+    assert (hit[:, :, :TX] == 1).all()
+    out = np.full((Q, m), np.nan, np.float32)
+    stored = np.zeros((Q, m), int)
+    for k in range(-(-TQ * TX // 256)):
+        o = tid + 256 * k
+        o = o[o < TQ * TX]
+        r, cc = o // TX, o % TX
+        s = part[:, 0, r, cc]
+        for k2 in range(1, LBK_CLASSES):
+            s = (s + part[:, k2, r, cc]).astype(np.float32)
+        gq, gl = q0[:, None] + r, x0[:, None] + cc
+        keep = (gq < Q) & (gl < m)
+        out[gq[keep], gl[keep]] = s[keep]
+        np.add.at(stored, (gq[keep], gl[keep]), 1)
+    assert (stored == 1).all()
+    return out
+
+
+def _lbk_pair_value(x: np.ndarray, U: np.ndarray, L: np.ndarray
+                    ) -> np.ndarray:
+    """What the kernel must give as a function of ``(x_l, U_q, L_q, n)``
+    alone, in the twin's form ``d = max(max(x - U, 0), max(L - x, 0))``:
+    each column class ``(c // 4) % 4`` sums ``d²`` over its columns in
+    increasing order, one FMA a column from 0, and the classes are added
+    in class order.  ``x [m, n]`` or ``[Q, m, n]``."""
+    xb = x if x.ndim == 3 else x[None]
+    n = U.shape[1]
+    acc = np.zeros((LBK_CLASSES, U.shape[0], xb.shape[1]), np.float32)
+    for c in range(n):
+        s = (c // 4) % LBK_CLASSES
+        v = xb[:, :, c]
+        d = np.maximum(np.maximum(v - U[:, c, None], np.float32(0)),
+                       np.maximum(L[:, c, None] - v, np.float32(0)))
+        acc[s] = _fma32(d, d, acc[s])
+    out = acc[0]
+    for s in range(1, LBK_CLASSES):
+        out = (out + acc[s]).astype(np.float32)
+    return out
+
+
+def _lbk_inputs(Q: int, m: int, n: int, swap: bool = False):
+    """Random-walk candidates ``[m, n]`` and the envelopes ``(U, L)`` of Q
+    random-walk queries (band n // 10) from the port's twin, with the first
+    and last column of each envelope infinite; with ``swap`` a run of
+    columns has L > U."""
+    from repro_torch.core.lb import dtw_envelope_batch
+    qs = np.cumsum(RNG.standard_normal((Q, n)), axis=1).astype(np.float32)
+    xs = np.cumsum(RNG.standard_normal((m, n)), axis=1).astype(np.float32)
+    U, L = (t.numpy().copy() for t in dtw_envelope_batch(
+        torch.from_numpy(qs), max(n // 10, 1)))
+    U[:, [0, -1]] = np.inf
+    L[:, [0, -1]] = -np.inf
+    if swap:
+        c = slice(n // 3, n // 3 + max(n // 4, 1))
+        U[:, c], L[:, c] = L[:, c] - 1, U[:, c] + 1
+    return xs, U, L
+
+
+# (Q, m, n, L > U somewhere): Q in {1, 31, 33, 64} and m in {1, 31, 33,
+# 2048} around the 32-row tile, n in {1, 3, 97, 256, 2600}: a column, a
+# length not a multiple of 4 (the 4-byte copy instance), several chunks,
+# the search's shape, and many turns of the ring
+LBK_TILE = [(1, 1, 1, False), (31, 33, 3, False), (33, 31, 97, True),
+            (64, 2048, 256, False), (1, 33, 2600, False),
+            (33, 1, 256, False), (64, 31, 3, False), (31, 2048, 97, False)]
+
+
+@pytest.mark.parametrize("Q,m,n,swap", LBK_TILE)
+def test_lbk_tile_model_matches_pair_value_twin_and_pallas(Q, m, n, swap):
+    """The kernel's tile walk, in both copy instances, both layouts and
+    both shared-layout tiles (the launcher's choice and the other), gives
+    each pair's fixed-order value bit for bit; the per-query layout
+    over a gather of the rows gives the shared layout's bits for the same
+    (row, query) pairs; all within 1e-5 of the twin and of the Pallas
+    kernel (interpret mode, query 0)."""
+    xs, U, L = _lbk_inputs(Q, m, n, swap)
+    want = _lbk_pair_value(xs, U, L)
+    vecs = (True, False) if n % 4 == 0 else (False,)
+    for vec in vecs:
+        np.testing.assert_array_equal(_lbk_tile_model(xs, U, L, vec), want)
+    other = 8 if 2 * -(-m // 32) * -(-Q // 32) >= LBK_SMS else 32
+    np.testing.assert_array_equal(
+        _lbk_tile_model(xs, U, L, vecs[0], tq=other), want)
+    # per query: each query's candidates a random draw of the rows
+    mg = min(m, 97)
+    idx = RNG.integers(0, m, (Q, mg))
+    for vec in vecs:
+        got = _lbk_tile_model(xs[idx], U, L, vec)
+        np.testing.assert_array_equal(got, np.take_along_axis(want, idx, 1))
+    twin = ops.lb_keogh(torch.from_numpy(xs), torch.from_numpy(U),
+                        torch.from_numpy(L)).numpy()
+    assert not np.isnan(want).any()
+    np.testing.assert_allclose(want, twin, rtol=1e-5, atol=1e-5)
+    pallas = np.asarray(r_lb_keogh(jnp.asarray(xs), jnp.asarray(U[0]),
+                                   jnp.asarray(L[0]), interpret=True))
+    np.testing.assert_allclose(want[0], pallas, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("Q,m,n,lead_q,lead_x", [
+    (31, 33, 3, 5, 37), (33, 40, 97, 31, 1), (5, 70, 64, 1, 2047 % 64),
+    (40, 33, 130, 32, 3)])
+def test_lbk_tile_model_is_position_invariant(Q, m, n, lead_q, lead_x):
+    """The same rows and envelopes shifted within their tiles and slab
+    (other rows ahead of and behind them) give the same bits, in both
+    layouts and both shared-layout tiles."""
+    xs, U, L = _lbk_inputs(Q, m, n)
+    vec = n % 4 == 0
+    base = _lbk_tile_model(xs, U, L, vec)
+    xo, Uo, Lo = _lbk_inputs(lead_q + 3, lead_x + 7, n)
+    U2 = np.concatenate([Uo[:lead_q], U, Uo[lead_q:]])
+    L2 = np.concatenate([Lo[:lead_q], L, Lo[lead_q:]])
+    x2 = np.concatenate([xo[:lead_x], xs, xo[lead_x:]])
+    for tq in (32, 8):
+        got = _lbk_tile_model(x2, U2, L2, vec, tq=tq)
+        np.testing.assert_array_equal(
+            got[lead_q:lead_q + Q, lead_x:lead_x + m], base)
+    got = _lbk_tile_model(np.broadcast_to(x2, (Q + lead_q + 3,) + x2.shape),
+                          U2, L2, vec)
+    np.testing.assert_array_equal(
+        got[lead_q:lead_q + Q, lead_x:lead_x + m], base)
+
+
 def _lbi_stream_model(h: np.ndarray, r: int):
     """numpy model of one ``lb_improved`` kernel thread's window (its index
     arithmetic, line for line; one model thread per row of ``h``): head

@@ -2,7 +2,8 @@
 shape sweeps of ``test_kernels.py`` (and ``DTW_SWEEP`` for the DTW cascade,
 ``LBI_SWEEP`` for ``lb_improved``'s tiling, ``DTW_CUDA_EDGES`` for
 ``dtw_band``'s two paths and their edges, ``L2_CUDA_EDGES`` for
-``pairwise_l2``'s copy instances, ragged tiles and long rows):
+``pairwise_l2``'s copy instances, ragged tiles and long rows,
+``LBK_CUDA_EDGES`` for ``lb_keogh``'s):
 the LB kernels within rtol 1e-5 — two sums of n nonnegative terms taken in
 other orders — and ``dtw_band`` bitwise, ``+inf`` lanes included).  Imports no ``jax``, so it runs where
 the card is (``python -m pytest -m cuda tests/test_torch_kernels_cuda.py``);
@@ -12,7 +13,7 @@ import pytest
 import torch
 
 from _torch_port import (DTW_CUDA_EDGES, DTW_SWEEP, L2_CUDA_EDGES,
-                         L2_SWEEP, LB_SWEEP,
+                         L2_SWEEP, LB_SWEEP, LBK_CUDA_EDGES,
                          LBI_SWEEP, SAX_SWEEP, clear_of_breakpoints, cuda,
                          dtw_inputs,
                          dtw_mask_cutoff, intervals,
@@ -37,16 +38,20 @@ def test_sax_encode_kernel_matches_twin(cuda, B, n, w, b):
     assert torch.equal(sax.cpu()[clear], sax_r.cpu()[clear])
 
 
-def _rows(a, cuda, offset=False):
-    """``a`` on the card; with ``offset`` a view one float into a buffer,
-    so its ``data_ptr`` is not 16-byte aligned."""
-    if not offset:
-        return torch.from_numpy(a).to(cuda)
-    buf = torch.empty(a.size + 1, dtype=torch.float32, device=cuda)
-    v = buf[1:].view(a.shape)
-    v.copy_(torch.from_numpy(a))
+def _offset(t):
+    """A copy of ``t`` one float into a buffer: its ``data_ptr`` is not
+    16-byte aligned."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    v = buf[1:].view(t.shape)
+    v.copy_(t)
     assert v.data_ptr() % 16 != 0
     return v
+
+
+def _rows(a, cuda, offset=False):
+    """``a`` on the card; with ``offset`` an unaligned copy."""
+    t = torch.from_numpy(a).to(cuda)
+    return _offset(t) if offset else t
 
 
 def _l2_close(q, x, got):
@@ -137,6 +142,83 @@ def test_lb_keogh_kernel_matches_twin(cuda, Q, m, n, r, layout):
     got = ops.lb_keogh(x, U, L)
     assert lb_keogh.launches == before + 1
     _lb_close(got, ref.lb_keogh_ref(x, U, L))
+
+
+def _walks(gen, *shape):
+    """Random walks along the last axis, made on the card."""
+    return torch.randn(*shape, generator=gen, device="cuda").cumsum(-1)
+
+
+def _envelopes(qs):
+    """The envelopes ``(U, L)`` of ``qs`` at band n // 10 from the twin,
+    their first and last column infinite."""
+    from repro_torch.core.lb import dtw_envelope_batch
+    U, L = (t.clone() for t in dtw_envelope_batch(
+        qs, max(qs.shape[1] // 10, 1)))
+    U[:, [0, -1]] = float("inf")
+    L[:, [0, -1]] = -float("inf")
+    return U, L
+
+
+@pytest.mark.parametrize("Q,m,n", LBK_CUDA_EDGES)
+@pytest.mark.parametrize("layout", ["shared", "gather"])
+@pytest.mark.parametrize("align", ["aligned", "offset"])
+def test_lb_keogh_kernel_edges(cuda, Q, m, n, layout, align):
+    """Ragged tiles, lengths not a multiple of 4, long rows (one past what
+    the first kernel could stage), and operands whose ``data_ptr`` is not
+    16-byte aligned (the 4-byte copy instance), in both layouts."""
+    gen = torch.Generator(device="cuda").manual_seed(Q * 7919 + m * 31 + n)
+    U, L = _envelopes(_walks(gen, Q, n))
+    x = _walks(gen, *((m, n) if layout == "shared" else (Q, m, n)))
+    if align == "offset":
+        x, U, L = _offset(x), _offset(U), _offset(L)
+    before = lb_keogh.launches
+    got = ops.lb_keogh(x, U, L)
+    assert lb_keogh.launches == before + 1
+    _lb_close(got, ref.lb_keogh_ref(x, U, L))
+
+
+@pytest.mark.parametrize("n", [97, 256])
+def test_lb_keogh_kernel_is_position_invariant_bitwise(cuda, n):
+    """One (row, query) pair gives the same bits wherever it sits: other
+    queries ahead of it (another tile position), another slab offset in a
+    collection, unaligned copies of the operands (the other copy instance
+    at n = 256), the per-query layout over a gather of the rows, and a
+    second call."""
+    gen = torch.Generator(device="cuda").manual_seed(n)
+    Q, m = 20, 300
+    db = _walks(gen, 4096, n)
+    U, L = _envelopes(_walks(gen, Q + 40, n))
+    Ua, Ub, La, Lb = U[:Q], U[Q:], L[:Q], L[Q:]
+    base = ops.lb_keogh(db[1000:1000 + m], Ua, La)
+    assert torch.equal(ops.lb_keogh(db[1000:1000 + m], Ua, La), base)
+    for lead_q, s0 in ((5, 963), (31, 999), (1, 0), (13, 1000 - 2047 % 300)):
+        U2 = torch.cat([Ub[:lead_q], Ua, Ub[lead_q:lead_q + 2]])
+        L2 = torch.cat([Lb[:lead_q], La, Lb[lead_q:lead_q + 2]])
+        got = ops.lb_keogh(db[s0:1000 + m + 7], U2, L2)
+        c = 1000 - s0
+        assert torch.equal(got[lead_q:lead_q + Q, c:c + m], base)
+    got = ops.lb_keogh(_offset(db[1000:1000 + m]), _offset(Ua), _offset(La))
+    assert torch.equal(got, base)
+    idx = torch.randint(0, m, (Q, 77), generator=gen, device="cuda")
+    rows = db[1000:1000 + m][idx].contiguous()
+    want = torch.gather(base, 1, idx)
+    assert torch.equal(ops.lb_keogh(rows, Ua, La), want)
+    assert torch.equal(ops.lb_keogh(_offset(rows), _offset(Ua),
+                                    _offset(La)), want)
+
+
+def test_lb_keogh_kernel_empty_rows(cuda):
+    """n = 0 gives zeros (the sum of no terms); Q = 0 or m = 0 an empty
+    result."""
+    z = torch.empty
+    got = ops.lb_keogh(z((5, 0), device="cuda"), z((3, 0), device="cuda"),
+                       z((3, 0), device="cuda"))
+    assert torch.equal(got, torch.zeros((3, 5), device="cuda"))
+    assert ops.lb_keogh(z((0, 8), device="cuda"), z((3, 8), device="cuda"),
+                        z((3, 8), device="cuda")).shape == (3, 0)
+    assert ops.lb_keogh(z((5, 8), device="cuda"), z((0, 8), device="cuda"),
+                        z((0, 8), device="cuda")).shape == (0, 5)
 
 
 @pytest.mark.parametrize("Q,m,n,r", LBI_SWEEP)
