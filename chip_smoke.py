@@ -14,9 +14,14 @@ Phases, each printed with its seconds:
 3. data and index: the paper's *Rand* collection (``random_walks``), the
    host build with the paper's defaults (w=16, b=8, th=10 000), the upload
    of the leaf-aligned ``DeviceIndex`` (chunk 2048, one shard);
-4. kernels: every kernel against its plain PyTorch twin on the card, at the
+4. kernels: the launch floor (the device time of a one-element ``add_``);
+   every kernel against its plain PyTorch twin on the card, at the
    main paths' shapes (taken from this index and these queries) and at
-   ragged ones, with the stated tolerances (``dtw_band`` bitwise, also on
+   ragged ones, with the stated tolerances (``sax_encode`` and
+   ``lb_paa_interval`` also bitwise against their in-order sums, at their
+   edges, unaligned, at other positions and at scale: the whole resident
+   shard, and 256 queries against the shard-0 leaf table repeated 25
+   times; ``dtw_band`` bitwise, also on
    a band past the shared-memory frontier's cap; ``pairwise_l2`` and
    ``lb_keogh`` also at their edges, unaligned operands and a row of 60 000
    included, and bitwise equal for the same pair at other positions, in a
@@ -93,6 +98,20 @@ KERNELS = ("sax_encode", "pairwise_l2", "lb_paa_interval", "lb_keogh",
 # instance), the search's 256, a row long enough for many turns of the ring
 L2_EDGES = [(Q, X, n) for n in (1, 3, 97, 256, 2600)
             for Q, X in ((1, 1), (17, 333), (64, 2048), (65, 31), (130, 333))]
+# sax_encode's edges (B, n, w, b), each also one float off alignment: a
+# length not a multiple of 4 (segments of 341), segments not a multiple
+# of 4, 100 000 rows of the collection's width, one row, b = 1, and
+# segments of 15 000 floats (streamed through many staged chunks)
+SAX_EDGES = [(7, 1023, 3, 4), (300, 96, 12, 8), (100_000, 256, 16, 8),
+             (1, 256, 16, 1), (3, 60_000, 4, 8)]
+# lb_paa_interval's edges (Q, L, w), each also one float off alignment:
+# the generic instance's widths (1, 3, 17, 33, 64; w = 64 past the first
+# kernel's 32), ragged query and leaf tiles, the compiled widths 8 and 16
+LBPAA_EDGES = [(1, 1, 1), (5, 333, 3), (9, 77, 64), (33, 1500, 33),
+               (64, 757, 17), (130, 1500, 8), (3, 700, 16)]
+# the leaf table at scale: the shard-0 table repeated, 757 x 25 = 18 925
+# leaves, as a 100 M-series collection at th = 10 000 has
+LB_SCALE = 25
 
 
 def fail(msg: str) -> None:
@@ -290,22 +309,139 @@ def check_lb_keogh_edges(torch, ops, ref, envelope, db0, U, L, idx,
     return err
 
 
-def check_kernels(torch, np, ops, ref, breakpoints, qs_main, dev, n_iter):
+def launch_floor(torch, n_iter: int) -> float:
+    """The launch floor: device ms of the smallest launch (a one-element
+    in-place ``add_``) under the timer every kernel is timed with."""
+    one = torch.zeros(1, device="cuda")
+    ms, _ = time_ms(torch, lambda t: t.add_(1.0), [(one,)] * n_iter)
+    return ms
+
+
+def sax_bitwise(torch, ops, ref, x, w, b, what):
+    """``sax_encode`` on ``x``: PAA bitwise equal to the in-order sum of
+    ``ref.sax_encode_in_order`` (NaN in the same places), every symbol
+    equal to ``searchsorted(bp, paa, right=True)`` over the same float32
+    table.  Fails the run on a miss; returns ``(paa, sax)``."""
+    paa, sax = ops.sax_encode(x, w, b)
+    want, sym = ref.sax_encode_in_order(x, w, b)
+    torch.cuda.synchronize()
+    nan = torch.isnan(want)
+    if not (torch.equal(torch.isnan(paa), nan)
+            and torch.equal(paa[~nan], want[~nan])):
+        fail(f"sax_encode PAA differs from the in-order sum at {what}: "
+             f"{int((paa != want).sum())} values")
+    if not torch.equal(sax.long(), sym):
+        fail(f"sax_encode symbols differ from searchsorted at {what}: "
+             f"{int((sax.long() != sym).sum())} symbols")
+    return paa, sax
+
+
+def lbpaa_bitwise(torch, ops, ref, a, what):
+    """``lb_paa_interval(*a)`` bitwise equal to
+    ``ref.lb_paa_interval_in_order``, never NaN.  Fails the run on a miss;
+    returns the kernel's bounds."""
+    got = ops.lb_paa_interval(*a)
+    want = ref.lb_paa_interval_in_order(*a)
+    torch.cuda.synchronize()
+    if torch.isnan(got).any() or not torch.equal(got, want):
+        fail(f"lb_paa_interval differs from the in-order sum at {what} "
+             f"[{a[0].shape[0]},{a[2].shape[0]},{a[0].shape[1]}]: "
+             f"{int((got != want).sum())} values")
+    return got
+
+
+def check_sax_edges(torch, ops, ref, gen) -> None:
+    """``sax_encode`` at ``SAX_EDGES`` bitwise (:func:`sax_bitwise`), each
+    also one float off 16-byte alignment (the 4-byte copy instance) and
+    with its rows rotated by 5, both equal to the aligned call's bits
+    moved with the rows, and in a second call."""
+    for B, n, w, b in SAX_EDGES:
+        x = torch.randn(B, n, generator=gen, device="cuda")
+        what = f"[{B},{n}] w={w} b={b}"
+        base = sax_bitwise(torch, ops, ref, x, w, b, what)
+        for label, xx, k in (("offset", unaligned(torch, x), 0),
+                             ("rows rotated by 5", torch.roll(x, 5, 0), 5),
+                             ("second call", x, 0)):
+            got = sax_bitwise(torch, ops, ref, xx, w, b,
+                              f"{what} {label}")
+            if not all(torch.equal(g, torch.roll(t, k, 0))
+                       for g, t in zip(got, base)):
+                fail(f"sax_encode at {what}: {label} changes the bits")
+    print(f"  sax_encode edges [B, n, w, b] in {SAX_EDGES}: bitwise equal "
+          f"to the in-order sum and searchsorted, aligned and offset; the "
+          f"same rows rotated and in a second call give the same bits")
+
+
+def check_lbpaa_edges(torch, ops, ref, lo, hi, dprep, n, gen) -> None:
+    """``lb_paa_interval`` at ``LBPAA_EDGES`` (each with a ``+inf`` pad
+    leaf last) bitwise (:func:`lbpaa_bitwise`) and within rtol = atol =
+    1e-6 of its twin, aligned and one float off 16-byte alignment; then the
+    DTW intervals against the shard-0 table at other positions: queries
+    rotated by 5, the table 37 rows later, unaligned copies, a second
+    call."""
+    def intervals(rows, w):
+        a = torch.randn(rows, w, generator=gen, device="cuda")
+        return a, a + torch.randn(rows, w, generator=gen, device="cuda").abs()
+
+    for Q, L, w in LBPAA_EDGES:
+        sl, sh = intervals(Q, w)
+        rl, rh = intervals(L, w)
+        rl[-1], rh[-1] = float("inf"), float("inf")
+        for a in ((sl, sh, rl, rh, 4 * w + 1),
+                  tuple(unaligned(torch, t) for t in (sl, sh, rl, rh))
+                  + (4 * w + 1,)):
+            got = lbpaa_bitwise(torch, ops, ref, a, "edge")
+            torch.testing.assert_close(got, ref.lb_paa_interval_ref(*a),
+                                       rtol=1e-6, atol=1e-6)
+    print(f"  lb_paa_interval edges [Q, L, w] in {LBPAA_EDGES}: bitwise "
+          f"equal to the in-order sum and within 1e-6 of the twin, aligned "
+          f"and offset, +inf pad leaf +inf")
+    base = ops.lb_paa_interval(dprep[0], dprep[1], lo, hi, n)
+    pre_lo, pre_hi = intervals(37, lo.shape[1])
+    checks = {
+        "second call": (ops.lb_paa_interval(dprep[0], dprep[1], lo, hi, n),
+                        base),
+        "query rows rotated by 5": (
+            ops.lb_paa_interval(torch.roll(dprep[0], 5, 0),
+                                torch.roll(dprep[1], 5, 0), lo, hi, n),
+            torch.roll(base, 5, 0)),
+        "table 37 rows later": (
+            ops.lb_paa_interval(dprep[0], dprep[1],
+                                torch.cat([pre_lo, lo]),
+                                torch.cat([pre_hi, hi]), n)[:, 37:], base),
+        "unaligned operands": (
+            ops.lb_paa_interval(*(unaligned(torch, t) for t in
+                                  (dprep[0], dprep[1], lo, hi)), n), base)}
+    torch.cuda.synchronize()
+    for what, (got, want) in checks.items():
+        if not torch.equal(got, want):
+            fail(f"lb_paa_interval is not position-invariant: {what} "
+                 f"changes {int((got != want).sum())} values")
+    print(f"  lb_paa_interval DTW [{base.shape[0]},{base.shape[1]},"
+          f"{lo.shape[1]}] bitwise equal across: {', '.join(checks)}")
+
+
+def check_kernels(torch, ops, ref, breakpoints, query_prep, dtw_metric,
+                  qs_all, dev, n_iter, floor):
     """Phase 4: every kernel against its twin; returns the kernel table
-    rows without ``launches``."""
+    rows without ``launches``.  ``sax_encode`` and ``lb_paa_interval`` are
+    timed before their edge cases run."""
+    qs_main = qs_all[:BATCH]
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
     gen = torch.Generator(device="cuda").manual_seed(1)
     rows = []
 
-    # -- sax_encode: PAA within 1e-6; symbols equal away from breakpoints --
+    # -- sax_encode: PAA within 1e-6 of the twin and bitwise equal to the
+    # in-order sum; every symbol equal to searchsorted over the same table --
     err, differ = 0.0, 0
     cases = [(qs_main, 16, 8),
              (qs_main[:1].contiguous(), 16, 8),
              (torch.randn(300, 96, generator=gen, device="cuda"), 12, 8)]
     for x, w, b in cases:
-        paa, sax = ops.sax_encode(x, w, b)
+        paa, sax = sax_bitwise(torch, ops, ref, x, w, b,
+                               f"{tuple(x.shape)} w={w}")
         paa_r, sax_r = ref.sax_encode_ref(x, w, b)
         torch.cuda.synchronize()
         torch.testing.assert_close(paa, paa_r, rtol=1e-6, atol=1e-6)
@@ -317,9 +453,10 @@ def check_kernels(torch, np, ops, ref, breakpoints, qs_main, dev, n_iter):
                  f"{tuple(x.shape)} w={w}")
         differ += int((sax != sax_r).sum())
         err = max(err, float((paa - paa_r).abs().max()))
-        print(f"  sax_encode {tuple(x.shape)} w={w} b={b}: paa max |err| "
+        print(f"  sax_encode {tuple(x.shape)} w={w} b={b}: bitwise equal to "
+              f"the in-order sum and to searchsorted; twin paa max |err| "
               f"{float((paa - paa_r).abs().max()):.3e}, symbols differing "
-              f"{int((sax != sax_r).sum())}")
+              f"from the twin's {int((sax != sax_r).sum())}")
     B, n = qs_main.shape
     xs = [(qs_main, 16, 8)] * n_iter
     ms, host = time_ms(torch, ops.sax_encode, xs)
@@ -332,11 +469,24 @@ def check_kernels(torch, np, ops, ref, breakpoints, qs_main, dev, n_iter):
                      max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
                      bound_by=b_by, library_ms=None))
     print(f"  sax_encode [64,256]: kernel {ms:.5f} ms (host {host:.4f} ms "
-          f"per call), twin {plain:.5f} ms, bound {b_ms:.6f} ms ({b_by}); "
-          f"symbols differing in all cases {differ}")
+          f"per call; launch floor + {(ms - floor) * 1e3:.3f} us), twin "
+          f"{plain:.5f} ms, bound {b_ms:.6f} ms ({b_by}); symbols "
+          f"differing from the twin's in all cases {differ}")
+    # at scale: the whole resident shard, the collection a device build
+    # encodes (bitwise too)
+    db0 = dev.db[0]
+    Bs = db0.shape[0]
+    sax_bitwise(torch, ops, ref, db0, 16, 8,
+                f"dev.db[0] {tuple(db0.shape)}")
+    ms_s, host_s = time_ms(torch, ops.sax_encode, [(db0, 16, 8)] * 5)
+    bs_ms, bs_by = bound(4 * (Bs * n + 2 * Bs * 16 + 255),
+                         Bs * n + Bs * 16 + Bs * 16 * 8)
+    print(f"  sax_encode at scale dev.db[0] [{Bs},{n}] w=16 b=8: bitwise "
+          f"equal; kernel {ms_s:.5f} ms (host {host_s:.4f} ms per call), "
+          f"bound {bs_ms:.6f} ms ({bs_by}), {100 * bs_ms / ms_s:.1f}% of "
+          f"the bound, {4 * Bs * n / ms_s / 1e6:.1f} GB/s read")
 
     # -- pairwise_l2: |err| <= 1e-5 (|q|^2 + |x|^2) --------------------------
-    db0 = dev.db[0]
     err = 0.0
     cases = [(qs_main, db0[:CHUNK]),
              (torch.randn(17, 96, generator=gen, device="cuda"),
@@ -374,41 +524,63 @@ def check_kernels(torch, np, ops, ref, breakpoints, qs_main, dev, n_iter):
           f"torch.cdist(q, x).square() {lib:.5f} ms, bound {b_ms:.6f} ms "
           f"({b_by})")
 
-    # -- lb_paa_interval: rtol = atol = 1e-6, +inf pad leaf stays +inf -----
+    # -- lb_paa_interval: rtol = atol = 1e-6 of the twin, bitwise equal to
+    # the in-order sum; the +inf pad leaf stays +inf ------------------------
     paa, _ = ops.sax_encode(qs_main, 16, 8)
+    dprep = query_prep(dtw_metric, qs_main, paa)
     lo, hi = dev.leaf_lo[0], dev.leaf_hi[0]
     rlo = torch.randn(77, 16, generator=gen, device="cuda")
     rhi = rlo + torch.randn(77, 16, generator=gen, device="cuda").abs()
     slo = torch.randn(9, 16, generator=gen, device="cuda")
     shi = slo + torch.randn(9, 16, generator=gen, device="cuda").abs()
     err = 0.0
-    for a in ((paa, paa, lo, hi, n), (slo, shi, rlo, rhi, 128)):
-        got = ops.lb_paa_interval(*a)
+    for a in ((paa, paa, lo, hi, n), (dprep[0], dprep[1], lo, hi, n),
+              (slo, shi, rlo, rhi, 128)):
+        got = lbpaa_bitwise(torch, ops, ref, a, "main")
         want = ref.lb_paa_interval_ref(*a)
         torch.cuda.synchronize()
-        if torch.isnan(got).any():
-            fail("lb_paa_interval produced NaN")
         torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
         fin = torch.isfinite(want)
         e = float((got[fin] - want[fin]).abs().max())
         err = max(err, e)
         print(f"  lb_paa_interval [{a[0].shape[0]},{a[2].shape[0]},"
-              f"{a[0].shape[1]}]: max |err| {e:.3e}, +inf entries "
-              f"{int((~fin).sum())}")
+              f"{a[0].shape[1]}]: bitwise equal to the in-order sum; twin "
+              f"max |err| {e:.3e}, +inf entries {int((~fin).sum())}")
     L = lo.shape[0]
-    args = [(paa, paa, lo, hi, n)] * n_iter
-    ms, host = time_ms(torch, ops.lb_paa_interval, args)
-    plain, _ = time_ms(torch, ref.lb_paa_interval_ref, args)
     b_ms, b_by = bound(4 * (2 * B * 16 + 2 * L * 16 + B * L),
                        7 * B * L * 16 + B * L)
-    rows.append(dict(name="lb_paa_interval", route="cuda",
-                     source="src/repro_torch/kernels/csrc/lb_paa_interval.cu",
-                     replaces="src/repro/kernels/lb_isax.py:61",
-                     max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
-                     bound_by=b_by, library_ms=None))
-    print(f"  lb_paa_interval [64,{L},16]: kernel {ms:.5f} ms (host "
-          f"{host:.4f} ms per call), twin {plain:.5f} ms, bound {b_ms:.6f} "
-          f"ms ({b_by})")
+    for label, a in (("ED", (paa, paa, lo, hi, n)),
+                     ("DTW shared", (dprep[0], dprep[1], lo, hi, n))):
+        args = [a] * n_iter
+        ms, host = time_ms(torch, ops.lb_paa_interval, args)
+        plain, _ = time_ms(torch, ref.lb_paa_interval_ref, args)
+        if label == "ED":
+            rows.append(dict(
+                name="lb_paa_interval", route="cuda",
+                source="src/repro_torch/kernels/csrc/lb_paa_interval.cu",
+                replaces="src/repro/kernels/lb_isax.py:61", max_abs_err=err,
+                ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None))
+        print(f"  lb_paa_interval [64,{L},16] {label}: kernel {ms:.5f} ms "
+              f"(host {host:.4f} ms per call; launch floor + "
+              f"{(ms - floor) * 1e3:.3f} us), twin {plain:.5f} ms, bound "
+              f"{b_ms:.6f} ms ({b_by})")
+    # at scale: the 256 held-out queries against the leaf table of a
+    # 100 M-series collection, the shard-0 table repeated 25 times
+    paa_all, _ = ops.sax_encode(qs_all, 16, 8)
+    big = (paa_all, paa_all, lo.repeat(LB_SCALE, 1), hi.repeat(LB_SCALE, 1),
+           n)
+    lbpaa_bitwise(torch, ops, ref, big, "at scale")
+    Qs, Ls = paa_all.shape[0], big[2].shape[0]
+    ms_s, host_s = time_ms(torch, ops.lb_paa_interval, [big] * n_iter)
+    bs_ms, bs_by = bound(4 * (2 * Qs * 16 + 2 * Ls * 16 + Qs * Ls),
+                         7 * Qs * Ls * 16 + Qs * Ls)
+    print(f"  lb_paa_interval at scale [{Qs},{Ls},16]: bitwise equal; "
+          f"kernel {ms_s:.5f} ms (host {host_s:.4f} ms per call), bound "
+          f"{bs_ms:.6f} ms ({bs_by}), {100 * bs_ms / ms_s:.1f}% of the "
+          f"bound")
+    check_sax_edges(torch, ops, ref, gen)
+    check_lbpaa_edges(torch, ops, ref, lo, hi, dprep, n, gen)
     return rows
 
 
@@ -891,6 +1063,7 @@ def main() -> None:
     from repro_torch.core.index import DumpyIndex
     from repro_torch.core.lb import (dtw2_masked_gather, dtw_envelope_batch,
                                      dtw_np)
+    from repro_torch.core.metric import query_prep, resolve
     from repro_torch.core.sax import SaxParams, breakpoints
     from repro_torch.core import search_device
     from repro_torch.core.search_device import exact_search_device_batch
@@ -927,6 +1100,10 @@ def main() -> None:
         print(f"  lb_keogh ptxas: {line}; dynamic shared memory {smem[0]} "
               f"/ {smem[1]} (shared layout, 32- / 8-query tiles) / "
               f"{smem[2]} (per query) bytes a block")
+    for src in ("lb_paa_interval.cu", "sax_encode.cu"):
+        for line in (ptxas_report(log, src)
+                     or ["library not rebuilt in this run: no report"]):
+            print(f"  {src[:-3]} ptxas: {line}")
     print(f"  library {so.relative_to(ROOT)}")
     phase("build kernels", t0)
 
@@ -953,9 +1130,13 @@ def main() -> None:
 
     # ---- 4. kernels against their twins ------------------------------------
     t0 = time.perf_counter()
-    qs_main = torch.from_numpy(qs[:BATCH]).cuda()
-    rows = check_kernels(torch, np, ops, ref, breakpoints, qs_main, dev,
-                         n_iter=50)
+    qs_all = torch.from_numpy(qs).cuda()
+    qs_main = qs_all[:BATCH]
+    floor = launch_floor(torch, n_iter=50)
+    print(f"  launch floor (one-element add_, same timer): {floor:.5f} ms")
+    rows = check_kernels(torch, ops, ref, breakpoints, query_prep,
+                         resolve("dtw", LENGTH, BAND), qs_all, dev,
+                         n_iter=50, floor=floor)
     clock_hz = sm_clock_hz()
     rows += check_dtw_kernels(torch, ops, ref, dtw_envelope_batch,
                               dtw2_masked_gather, qs_main, dev, n_iter=50,
@@ -1099,8 +1280,10 @@ def main() -> None:
     for r in rows:
         r["launches"] = (launches if r["name"] in ed_kernels
                          else dtw_launches)[r["name"]]
+        r["floor_ms"] = floor
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "floor_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

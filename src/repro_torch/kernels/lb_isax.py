@@ -4,12 +4,15 @@
 Replaces the TPU kernel ``repro/kernels/lb_isax.py::lb_paa_interval`` (body
 ``_kernel``; ``lb_isax`` is its degenerate ED case), which broadcasts a
 ``(TQ, TL, w)`` block in VMEM and pads node rows with ``3e9``.  On Hopper it
-is an elementwise pass plus a reduction over ``w`` (≤ 16 here): bound by
-the bytes of the ``[L, w]`` tables in and the ``[Q, L]`` bounds out.  Each
-block stages 128 leaves (coalesced, conflict-free stride) and the intervals
-of 8 queries in shared memory, each thread owns one leaf, and ragged edges
-are masked in the kernel.  The per-leaf sum runs over ``j`` in order, as
-the reference does, and the ``+inf`` pad leaf stays ``+inf``.
+is six instructions an element (the product is rounded before the add) over
+``[Q, L, w]``: below one launch at the search's ``[64, 757, 16]``, bound by
+its arithmetic at a large collection's leaf table.  Each thread keeps a
+leaf's rows in registers and sums four queries' intervals against them at
+once, read from shared memory as broadcasts; the grid is sized to fill the
+card's SMs; any ``w`` runs (8 and 16 compiled, others in streamed chunks of
+16 columns).  Each bound is summed over ``j`` in order, exactly as an
+in-order loop of separate operations, and the ``+inf`` pad leaf stays
+``+inf``.
 """
 from __future__ import annotations
 
@@ -34,9 +37,6 @@ def lb_paa_interval(seg_lo: torch.Tensor, seg_hi: torch.Tensor,
     if seg_hi.shape != (Q, w) or lo.shape[1] != w or hi.shape != (L, w):
         raise ValueError("lb_paa_interval: shape mismatch "
                          f"{[tuple(t.shape) for t in (seg_lo, seg_hi, lo, hi)]}")
-    if w > 32:
-        raise ValueError(f"lb_paa_interval: w={w} > 32 exceeds the kernel's "
-                         f"shared-memory tile")
     out = torch.empty((Q, L), dtype=torch.float32, device=dev)
     if Q == 0 or L == 0:
         return out

@@ -12,7 +12,7 @@ import torch
 
 from ..core.lb import (dtw2_masked_batch, dtw2_masked_gather, ed2_batch,
                        lb_improved2_batch, lb_interval, lb_keogh2_batch)
-from ..core.sax import sax_encode_t
+from ..core.sax import breakpoints_t, sax_encode_t
 
 
 def sax_encode_ref(x: torch.Tensor, w: int, b: int
@@ -21,6 +21,26 @@ def sax_encode_ref(x: torch.Tensor, w: int, b: int
     ``x [B, n] -> (paa [B, w] f32, sax [B, w] i32)``."""
     paa, sax = sax_encode_t(x, w, b)
     return paa, sax.to(torch.int32)
+
+
+def sax_encode_in_order(x: torch.Tensor, w: int, b: int
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The CUDA kernel's exact operation order, for bitwise checks on the
+    card: each segment summed in order from +0 (one rounding an add), then
+    divided by its length; the symbol ``searchsorted(bp, paa, right=True)``
+    over the float32 breakpoints.  ``x [B, n] -> (paa [B, w] f32, sax
+    [B, w] i64)``."""
+    B, n = x.shape
+    seg = n // w
+    v = x.view(B, w, seg)
+    s = torch.zeros((B, w), dtype=torch.float32, device=x.device)
+    for i in range(seg):
+        s = s + v[:, :, i]
+    # a tensor divisor: on CUDA PyTorch applies a CPU scalar divisor as a
+    # product with its reciprocal
+    paa = s / torch.tensor(float(seg), device=x.device)
+    bp = breakpoints_t(b, torch.float32, x.device)
+    return paa, torch.searchsorted(bp, paa, right=True)
 
 
 def pairwise_l2_ref(q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -34,6 +54,22 @@ def lb_paa_interval_ref(seg_lo: torch.Tensor, seg_hi: torch.Tensor,
     """Squared interval MINDIST: ``seg_lo/seg_hi [Q, w]``, ``lo/hi [L, w]``
     → ``[Q, L] f32`` (scaled by n/w)."""
     return lb_interval(seg_lo, seg_hi, lo, hi, n)
+
+
+def lb_paa_interval_in_order(seg_lo: torch.Tensor, seg_hi: torch.Tensor,
+                             lo: torch.Tensor, hi: torch.Tensor, n: int
+                             ) -> torch.Tensor:
+    """The CUDA kernel's exact operation order, for bitwise checks on the
+    card: over j in order ``acc = acc + d*d`` (separate operations, so no
+    contraction into an FMA), then ``(n / w) * acc``."""
+    w = seg_lo.shape[1]
+    acc = torch.zeros((seg_lo.shape[0], lo.shape[0]), device=lo.device)
+    for j in range(w):
+        below = torch.clamp_min(lo[None, :, j] - seg_hi[:, j, None], 0.0)
+        above = torch.clamp_min(seg_lo[:, j, None] - hi[None, :, j], 0.0)
+        d = torch.maximum(below, above)
+        acc = acc + d * d
+    return (n / w) * acc
 
 
 def lb_isax_ref(paa_q: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,

@@ -3,12 +3,16 @@
 Replaces the TPU kernel ``repro/kernels/sax_encode.py::sax_encode`` (body
 ``_kernel``), which computes PAA as a matmul with the segment-averaging
 matrix on the MXU and counts breakpoints with 128-lane broadcast compares.
-On Hopper the work is tiny and memory-bound: one pass over ``x [B, n]``
-(``B·n·4`` bytes) against ``B·n`` adds and ``B·w·log2(c)`` compares.  The
-kernel gives each thread one (row, segment): it sums the segment in order,
-divides by its length (the segment mean that ``sax_encode_t`` computes),
-and binary-searches the ``c - 1`` breakpoints staged in shared memory.  At
-the query-encoding shape (``[64, 256]``) it is bound by launch latency.
+On Hopper it is one pass over ``x [B, n]`` (``B·n·4`` bytes) for ``B·n``
+adds: below one launch at the query batch (``[64, 256]``), bound by device
+memory over a collection.  The rows are a run of ``B·w`` segments; a block
+stages 256 of them at a time in shared memory with asynchronous copies
+(16-byte where the segment length is a multiple of 4 and ``x`` is aligned,
+else 4-byte), three tiles ahead, and one wave of blocks walks the tiles.
+Each thread sums one segment in order, divides by its length (the segment
+mean that ``sax_encode_t`` computes, bitwise equal to an in-order sum), and
+counts the breakpoints not above it as ``torch.searchsorted(...,
+right=True)`` does.
 """
 from __future__ import annotations
 

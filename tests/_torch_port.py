@@ -40,6 +40,22 @@ LBK_CUDA_EDGES = [(Q, m, n) for n in (1, 3, 97, 256, 2600)
                                (65, 97))] + [(1, 3, 60000)]
 LB_SWEEP = [(1, 1, 8, 64), (9, 77, 16, 128), (8, 512, 16, 256),
             (3, 1500, 8, 64)]
+# cuda-only lb_paa_interval cases (Q, L, w): the generic instance's widths
+# (1, 3, 17, 33, 64; 64 past the first kernel's limit of 32), the compiled
+# 8 and 16 with ragged query groups and leaf tiles, the search's
+# [64, 757, 16], a 100 M-series collection's table [256, 18 925, 16], and
+# empty Q or L
+LBPAA_CUDA_EDGES = [(1, 1, 1), (5, 333, 3), (9, 77, 64), (3, 700, 64),
+                    (33, 1500, 33), (64, 757, 17), (130, 1500, 8),
+                    (5, 1, 16), (64, 757, 16), (256, 18925, 16),
+                    (0, 50, 16), (7, 0, 16), (0, 0, 64)]
+# cuda-only sax_encode cases (B, n, w, b): a length not a multiple of 4
+# (segments of 341, the 4-byte copy instance), segments not a multiple of
+# 4, segments of 15 000 floats (many staged chunks), b = 1, 100 000 rows
+# (many tiles a block), and no rows
+SAX_CUDA_EDGES = [(7, 1023, 3, 4), (300, 96, 12, 8), (5, 60000, 4, 8),
+                  (1, 256, 16, 1), (33, 64, 8, 8), (100_000, 256, 16, 8),
+                  (0, 256, 16, 8)]
 # (Q, m, n, r) of the DTW cascade kernels: the search's shapes (n=256,
 # r=25 with a 256-row sub-slab or a 128-lane gather chunk), ragged ones,
 # and the full-width band r + 1 >= n

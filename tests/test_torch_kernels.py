@@ -19,6 +19,7 @@ from repro.kernels.lb_keogh import lb_improved as r_lb_improved
 from repro.kernels.lb_keogh import lb_keogh as r_lb_keogh
 from repro.kernels.pairwise_l2 import pairwise_l2 as r_pairwise_l2
 from repro.kernels.sax_encode import sax_encode as r_sax_encode
+from repro_torch.core.sax import breakpoints
 from repro_torch.kernels import (dtw_band, lb_improved, lb_isax, lb_keogh, ops,
                                  pairwise_l2, ref, sax_encode)
 
@@ -247,6 +248,293 @@ def test_lb_paa_interval_pad_leaf_is_inf_not_nan():
                               64).numpy()
     assert np.isinf(got[:, -1]).all() and not np.isnan(got).any()
     assert np.isfinite(got[:, :-1]).all()
+
+
+# lb_paa_interval.cu's map: R = 1 leaf a thread (leaf l0 + tid + r·T),
+# QI = 4 queries summed together, the generic instance's 16-column chunks,
+# at most 64 queries a block; compiled widths 8 and 16
+LBPAA_R, LBPAA_QI, LBPAA_JC, LBPAA_QPB_MAX, LBPAA_SMS = 1, 4, 16, 64, 132
+
+
+def _lbpaa_launch(Q: int, L: int, w: int, sms: int) -> tuple[int, int]:
+    """The launcher's ``(threads a block, queries a block)``."""
+    def cdiv(a, b):
+        return -(-a // b)
+    fixed = w in (8, 16)
+    T, qpb = 64, LBPAA_QI
+    while (fixed and 2 * qpb <= LBPAA_QPB_MAX
+           and cdiv(L, LBPAA_R * T) * cdiv(Q, 2 * qpb) >= 8 * sms):
+        qpb *= 2
+    if cdiv(L, LBPAA_R * T) * cdiv(Q, qpb) < sms:
+        T = 32
+    return T, qpb
+
+
+def _lbpaa_tile_model(sl, sh, lo, hi, n: int, sms: int = LBPAA_SMS
+                      ) -> np.ndarray:
+    """A numpy walk of ``lb_paa_interval.cu``, every block and thread side
+    by side: the launcher's threads and queries a block, the leaf rows each
+    thread holds (zero past L), the block's query intervals staged as
+    (lo, hi) pairs (zero past Q), or in the generic instance 16-column
+    chunks of both (zero past w), each thread's QI × R chains summed column
+    by column as ``fl(acc + fl(d·d))`` with ``d = fmax(fmax(lo - qh, ql -
+    hi), 0)``, the query groups a block walks, and the store map (each
+    bound written once, ``fl(scale · acc)``)."""
+    f32 = np.float32
+    Q, w = sl.shape
+    L = lo.shape[0]
+    R, QI, JC = LBPAA_R, LBPAA_QI, LBPAA_JC
+    T, qpb = _lbpaa_launch(Q, L, w, sms)
+    fixed = w in (8, 16)
+    if not fixed:
+        assert qpb == QI
+    tiles_l = -(-L // (R * T))
+    blk = np.arange(tiles_l * -(-Q // qpb))
+    l0 = (blk % tiles_l)[:, None] * (R * T) + np.arange(T)    # [B, T]
+    q0 = (blk // tiles_l) * qpb                                # [B]
+    leaf = l0[:, :, None] + T * np.arange(R)                   # [B, T, R]
+    W = w if fixed else JC
+    scale = f32(n / w)
+    out = np.full((Q, L), np.nan, f32)
+    stored = np.zeros((Q, L), int)
+
+    def chunk(tab, rows, ok, j0):
+        """``tab[rows, j0:j0+W]`` zero-filled where not ``ok`` or past w."""
+        j = j0 + np.arange(W)
+        keep = ok[..., None] & (j < w)
+        v = tab[np.where(ok, rows, 0)[..., None], np.minimum(j, w - 1)]
+        return np.where(keep, v, f32(0)).astype(f32)
+
+    def group(acc, qlo, qhi, rlo, rhi):
+        """``acc [B, T, QI, R]`` += columns of ``qlo/qhi [B, QI, W]``
+        against ``rlo/rhi [B, T, R, W]``, in column order."""
+        for j in range(W):
+            a = rlo[:, :, None, :, j] - qhi[:, None, :, None, j]
+            b = qlo[:, None, :, None, j] - rhi[:, :, None, :, j]
+            d = np.fmax(np.fmax(a, b), f32(0))
+            acc = acc + d * d
+        return acc
+
+    def store(acc, qg, lf):
+        zero = np.zeros(acc.shape, int)
+        q = qg[:, None, None, None] + np.arange(QI)[:, None] + zero
+        l = lf[:, :, None, :] + zero
+        ok = (q < Q) & (l < L)
+        out[q[ok], l[ok]] = scale * acc[ok]
+        np.add.at(stored, (q[ok], l[ok]), 1)
+
+    lok = leaf < L
+    if fixed:
+        rlo, rhi = chunk(lo, leaf, lok, 0), chunk(hi, leaf, lok, 0)
+        qrow = q0[:, None] + np.arange(qpb)                    # [B, qpb]
+        nq = np.minimum(qpb, Q - q0)
+        qok = np.arange(qpb) < nq[:, None]
+        slo, shi = chunk(sl, qrow, qok, 0), chunk(sh, qrow, qok, 0)
+        for g in range(0, qpb, QI):          # a block walks g < its nq
+            acc = group(np.zeros((len(blk), T, QI, R), f32),
+                        slo[:, g:g + QI], shi[:, g:g + QI], rlo, rhi)
+            run = g < nq
+            store(acc[run], (q0 + g)[run], leaf[run])
+    else:
+        acc = np.zeros((len(blk), T, QI, R), f32)
+        qrow = q0[:, None] + np.arange(QI)
+        qok = qrow < Q
+        for j0 in range(0, w, JC):
+            acc = group(acc, chunk(sl, qrow, qok, j0),
+                        chunk(sh, qrow, qok, j0), chunk(lo, leaf, lok, j0),
+                        chunk(hi, leaf, lok, j0))
+        store(acc, q0, leaf)
+    assert (stored == 1).all()
+    return out
+
+
+# (Q, L, w, sms): widths 1, 3, 8, 16, 17, 32, 33, 64 at leaf counts 1, 757
+# and 1500, ragged query groups; sms = 2 makes the launcher take 8 to 64
+# queries a block (the fixed widths' walk over several groups)
+LBPAA_TILE = [(Q, L, w, sms)
+              for i, (w, L) in enumerate((w, L) for w in
+                                         (1, 3, 8, 16, 17, 32, 33, 64)
+                                         for L in (1, 757, 1500))
+              for Q, sms in [((1, 5, 33, 65, 130)[i % 5],
+                              2 if i % 3 == 1 else LBPAA_SMS)]]
+
+
+@pytest.mark.parametrize("Q,L,w,sms", LBPAA_TILE)
+def test_lbpaa_tile_model_matches_in_order_twin_and_pallas(Q, L, w, sms):
+    """The kernel's map gives the in-order bound of
+    ``ref.lb_paa_interval_in_order`` bit for bit (the ``+inf`` pad leaf
+    last: ``+inf``, never NaN), within 1e-6 of the twin and of the Pallas
+    kernel (interpret mode)."""
+    sl, sh, lo, hi = intervals(RNG, Q, L, w)
+    lo[-1] = hi[-1] = np.inf
+    n = 4 * w + 1
+    got = _lbpaa_tile_model(sl, sh, lo, hi, n, sms)
+    want = ref.lb_paa_interval_in_order(
+        *(torch.from_numpy(a) for a in (sl, sh, lo, hi)), n).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert np.isinf(got[:, -1]).all() and not np.isnan(got).any()
+    twin = ops.lb_paa_interval(*(torch.from_numpy(a)
+                                 for a in (sl, sh, lo, hi)), n).numpy()
+    np.testing.assert_allclose(got, twin, rtol=1e-6, atol=1e-6)
+    pallas = np.asarray(r_lb_paa_interval(
+        jnp.asarray(sl), jnp.asarray(sh), jnp.asarray(lo), jnp.asarray(hi),
+        n=n, interpret=True))
+    np.testing.assert_allclose(got, pallas, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("w", [8, 16, 33])
+def test_lbpaa_tile_model_is_position_invariant(w):
+    """The same pairs after other queries and leaves, under other launch
+    shapes (threads and queries a block), give the same bits."""
+    sl, sh, lo, hi = intervals(RNG, 21, 300, w)
+    base = _lbpaa_tile_model(sl, sh, lo, hi, 256)
+    for lead_q, lead_l, sms in ((3, 37, 132), (30, 129, 2), (1, 1, 1)):
+        a = intervals(RNG, lead_q + 2, lead_l + 5, w)
+        got = _lbpaa_tile_model(
+            np.concatenate([a[0][:lead_q], sl, a[0][lead_q:]]),
+            np.concatenate([a[1][:lead_q], sh, a[1][lead_q:]]),
+            np.concatenate([a[2][:lead_l], lo, a[2][lead_l:]]),
+            np.concatenate([a[3][:lead_l], hi, a[3][lead_l:]]), 256, sms)
+        np.testing.assert_array_equal(
+            got[lead_q:lead_q + 21, lead_l:lead_l + 300], base)
+
+
+# sax_encode.cu's map: tiles of 256 segments (one a thread), a ring of 4
+# stages, at most 16 floats of each segment a stage, segments at an odd
+# padded stride of copy units, two blocks an SM
+SAX_THREADS, SAX_NS, SAX_SC, SAX_SMS = 256, 4, 16, 132
+
+
+def _sax_stage_model(x: np.ndarray, w: int, b: int, aligned: bool = True,
+                     sms: int = SAX_SMS):
+    """A numpy walk of ``sax_encode.cu``, block by block: the launcher's
+    copy instance (16-byte copies where the segment length is a multiple
+    of 4 and ``x`` is aligned, else 4-byte) and grid (one wave, two blocks
+    an SM), each block's (tile, chunk) items through the 4-stage ring (a
+    slot refilled only once consumed; every staged float written once, at
+    segment p, unit u: ``(p·SP + u)·V``, zero past the last segment), each
+    thread's segment summed in order across its chunks, divided by its
+    length, and the breakpoint count by ``searchsorted``'s binary search;
+    each output written once.  Returns ``(paa, sax)``."""
+    f32 = np.float32
+    B, n = x.shape
+    seg = n // w
+    pairs = B * w
+    flat = x.reshape(-1)
+    V = 4 if seg % 4 == 0 and aligned else 1
+    SP = (SAX_SC // V + 1) | 1
+    assert SP % 2 == 1                       # 32 segments in 32 banks
+    STAGE = SAX_THREADS * SP * V
+    tiles = -(-pairs // SAX_THREADS)
+    grid = min(tiles, 2 * sms)
+    chunks = -(-seg // SAX_SC) if seg > 0 else 1
+    bp = breakpoints(b).astype(f32)
+    paa = np.full(pairs, np.nan, f32)
+    sax = np.full(pairs, -1, np.int64)
+    written = np.zeros(pairs, int)
+    tid = np.arange(SAX_THREADS)
+    for blk in range(grid):
+        items = -(-(tiles - blk) // grid) * chunks
+        ring = np.full((SAX_NS, STAGE), np.nan, f32)
+        holds = [-1] * SAX_NS
+
+        def issue(k):
+            slot = k % SAX_NS
+            assert holds[slot] < k - SAX_NS + 1 or holds[slot] == -1
+            holds[slot] = k
+            ring[slot] = np.nan
+            p0 = (blk + (k // chunks) * grid) * SAX_THREADS
+            c0 = (k % chunks) * SAX_SC
+            units = min(SAX_SC, seg - c0) // V
+            idx = np.arange(SAX_THREADS * units)
+            p, u = idx // units, idx % units
+            ok = p0 + p < pairs
+            for e in range(V):
+                src = np.where(ok, (p0 + p) * seg + c0 + u * V + e, 0)
+                dst = (p * SP + u) * V + e
+                assert np.isnan(ring[slot, dst]).all()      # once each
+                ring[slot, dst] = np.where(ok, flat[src], f32(0))
+
+        for k in range(min(SAX_NS - 1, items)):
+            issue(k)
+        s = np.zeros(SAX_THREADS, f32)
+        for k in range(items):
+            if k + SAX_NS - 1 < items:
+                issue(k + SAX_NS - 1)
+            assert holds[k % SAX_NS] == k
+            c = k % chunks
+            units = min(SAX_SC, seg - c * SAX_SC) // V
+            if c == 0:
+                s = np.zeros(SAX_THREADS, f32)
+            for u in range(units):
+                for e in range(V):
+                    s = s + ring[k % SAX_NS, (tid * SP + u) * V + e]
+            P = (blk + (k // chunks) * grid) * SAX_THREADS + tid
+            if c == chunks - 1:
+                ok = P < pairs
+                m = s / f32(seg)
+                lo, hi = np.zeros(SAX_THREADS, int), np.full(SAX_THREADS,
+                                                              len(bp))
+                while (lo < hi).any():
+                    act = lo < hi
+                    mid = (lo + hi) >> 1
+                    up = act & ~(bp[np.minimum(mid, len(bp) - 1)] > m)
+                    lo = np.where(up, mid + 1, lo)
+                    hi = np.where(act & ~up, mid, hi)
+                paa[P[ok]], sax[P[ok]] = m[ok], lo[ok]
+                np.add.at(written, P[ok], 1)
+    assert (written == 1).all()
+    return paa.reshape(B, w), sax.reshape(B, w)
+
+
+# (B, n, w, b, aligned, sms): a length not a multiple of 4 (segments of 341
+# in 22 chunks, the 4-byte instance), a row off alignment (4-byte instance),
+# segments of 8, 25 (4-byte, 2 chunks) and 64 (16-byte, 4 chunks), b in
+# {1, 4, 8}, B in {1, 7, 300}; sms = 1 or 2 makes each block walk several
+# tiles
+SAX_STAGE = [(1, 256, 16, 8, True, 132), (7, 1023, 3, 4, True, 132),
+             (300, 256, 16, 1, False, 2), (300, 96, 12, 8, True, 1),
+             (7, 100, 4, 4, True, 1), (1, 64, 1, 8, True, 132),
+             (300, 64, 8, 4, True, 2), (7, 1023, 3, 8, False, 132),
+             (300, 1023, 3, 1, True, 1)]
+
+
+@pytest.mark.parametrize("B,n,w,b,aligned,sms", SAX_STAGE)
+def test_sax_stage_model_matches_in_order_twin_and_pallas(B, n, w, b,
+                                                          aligned, sms):
+    """The kernel's staged walk gives ``ref.sax_encode_in_order`` bit for
+    bit (the in-order PAA and ``searchsorted``'s symbols), within 1e-6 of
+    the twin and of the Pallas kernel (interpret mode), its symbols equal
+    to theirs away from the breakpoints."""
+    x = RNG.standard_normal((B, n)).astype(np.float32)
+    paa, sax = _sax_stage_model(x, w, b, aligned, sms)
+    want, sym = ref.sax_encode_in_order(torch.from_numpy(x), w, b)
+    np.testing.assert_array_equal(paa, want.numpy())
+    np.testing.assert_array_equal(sax, sym.numpy())
+    clear = clear_of_breakpoints(paa, b)
+    twin = ops.sax_encode(torch.from_numpy(x), w, b)
+    pallas = r_sax_encode(jnp.asarray(x), w=w, b=b, interpret=True)
+    for p_, s_ in ((t.numpy() for t in twin), (np.asarray(a) for a in pallas)):
+        np.testing.assert_allclose(paa, p_, rtol=1e-6, atol=1e-6)
+        np.testing.assert_array_equal(sax[clear], s_[clear])
+
+
+def test_sax_stage_model_nan_and_position():
+    """A NaN makes its segment's mean NaN and its symbol ``searchsorted``'s
+    for NaN (c - 1); the same rows after others, in the other copy
+    instance and under another grid give the same bits."""
+    x = RNG.standard_normal((40, 256)).astype(np.float32)
+    x[3, 17] = x[39, 255] = np.nan
+    paa, sax = _sax_stage_model(x, 16, 8)
+    want, _ = ref.sax_encode_in_order(torch.from_numpy(x), 16, 8)
+    np.testing.assert_array_equal(paa, want.numpy())  # NaN where want's are
+    assert np.isnan(paa).sum() == 2 and (sax[np.isnan(paa)] == 255).all()
+    for lead, aligned, sms in ((1, True, 132), (37, False, 1), (100, True, 2)):
+        pad = RNG.standard_normal((lead, 256)).astype(np.float32)
+        got = _sax_stage_model(np.concatenate([pad, x, pad[:3]]), 16, 8,
+                               aligned, sms)
+        for g, t in zip(got, (paa, sax)):
+            np.testing.assert_array_equal(g[lead:lead + 40], t)
 
 
 @pytest.mark.parametrize("Q,k,C", [(1, 1, 1), (4, 10, 37), (8, 18, 256)])

@@ -3,7 +3,9 @@ shape sweeps of ``test_kernels.py`` (and ``DTW_SWEEP`` for the DTW cascade,
 ``LBI_SWEEP`` for ``lb_improved``'s tiling, ``DTW_CUDA_EDGES`` for
 ``dtw_band``'s two paths and their edges, ``L2_CUDA_EDGES`` for
 ``pairwise_l2``'s copy instances, ragged tiles and long rows,
-``LBK_CUDA_EDGES`` for ``lb_keogh``'s):
+``LBK_CUDA_EDGES`` for ``lb_keogh``'s, ``SAX_CUDA_EDGES`` and
+``LBPAA_CUDA_EDGES`` for ``sax_encode``'s and ``lb_paa_interval``'s, each
+bitwise against its in-order loop):
 the LB kernels within rtol 1e-5 — two sums of n nonnegative terms taken in
 other orders — and ``dtw_band`` bitwise, ``+inf`` lanes included).  Imports no ``jax``, so it runs where
 the card is (``python -m pytest -m cuda tests/test_torch_kernels_cuda.py``);
@@ -14,11 +16,12 @@ import torch
 
 from _torch_port import (DTW_CUDA_EDGES, DTW_SWEEP, L2_CUDA_EDGES,
                          L2_SWEEP, LB_SWEEP, LBK_CUDA_EDGES,
-                         LBI_SWEEP, SAX_SWEEP, clear_of_breakpoints, cuda,
+                         LBI_SWEEP, LBPAA_CUDA_EDGES, SAX_CUDA_EDGES,
+                         SAX_SWEEP, clear_of_breakpoints, cuda,
                          dtw_inputs,
                          dtw_mask_cutoff, intervals,
                          torch_threads)  # noqa: F401
-from repro_torch.kernels import (dtw_band, lb_improved, lb_keogh, ops,
+from repro_torch.kernels import (dtw_band, lb_improved, lb_isax, lb_keogh, ops,
                                  pairwise_l2, ref, sax_encode)
 
 RNG = np.random.default_rng(43)
@@ -122,6 +125,111 @@ def test_lb_paa_interval_kernel_matches_twin(cuda, Q, L, w, n):
     want = ref.lb_paa_interval_ref(*t, n)
     assert not torch.isnan(got).any()
     torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+
+
+def _sax_bitwise(x, w, b):
+    """``sax_encode`` bitwise against ``ref.sax_encode_in_order``: PAA
+    equal (NaN in the same places), every symbol equal to
+    ``searchsorted(bp, paa, right=True)`` over the same float32 table.
+    Returns the kernel's ``(paa, sax)``."""
+    paa, sax = ops.sax_encode(x, w, b)
+    want, sym = ref.sax_encode_in_order(x, w, b)
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(paa), nan)
+    assert torch.equal(paa[~nan], want[~nan])
+    assert torch.equal(sax.long(), sym)
+    return paa, sax
+
+
+@pytest.mark.parametrize("B,n,w,b", SAX_CUDA_EDGES)
+@pytest.mark.parametrize("align", ["aligned", "offset"])
+def test_sax_encode_kernel_edges_bitwise(cuda, B, n, w, b, align):
+    """Lengths and segments not a multiple of 4 and rows one float off
+    16-byte alignment (the 4-byte copy instance), long segments, many
+    tiles, no rows: bitwise against the in-order loop, every symbol."""
+    x = _rows(RNG.standard_normal((B, n)).astype(np.float32), cuda,
+              align == "offset" and B > 0)
+    before = sax_encode.launches
+    _sax_bitwise(x, w, b)
+    assert sax_encode.launches == before + (B > 0)
+
+
+@pytest.mark.parametrize("n,w", [(256, 16), (1023, 3), (96, 12)])
+def test_sax_encode_kernel_is_position_invariant_bitwise(cuda, n, w):
+    """The same rows give the same bits after other rows (another tile
+    position and block), unaligned, and in a second call."""
+    x = torch.from_numpy(RNG.standard_normal((700, n)).astype(np.float32)
+                         ).to(cuda)
+    base = ops.sax_encode(x, w, 8)
+    for lead in (1, 37, 255, 513):
+        pad = torch.from_numpy(RNG.standard_normal((lead, n)).astype(
+            np.float32)).to(cuda)
+        got = ops.sax_encode(torch.cat([pad, x, pad[:3]]), w, 8)
+        for g, t in zip(got, base):
+            assert torch.equal(g[lead:lead + 700], t)
+    for args in ((x, w, 8), (_offset(x), w, 8)):
+        for g, t in zip(ops.sax_encode(*args), base):
+            assert torch.equal(g, t)
+
+
+def test_sax_encode_kernel_nan_rows(cuda):
+    """A NaN in a row makes its segment's mean NaN, as the in-order sum
+    does, and its symbol the one searchsorted gives a NaN."""
+    x = RNG.standard_normal((9, 256)).astype(np.float32)
+    x[2, 17] = x[5, 0] = x[5, 255] = np.nan
+    for xx in (x, x[:, :255].copy()):
+        paa, _ = _sax_bitwise(torch.from_numpy(xx).to(cuda),
+                              16 if xx.shape[1] == 256 else 5, 8)
+        assert int(torch.isnan(paa).sum()) == (3 if xx.shape[1] == 256
+                                               else 2)
+
+
+@pytest.mark.parametrize("Q,L,w", LBPAA_CUDA_EDGES)
+@pytest.mark.parametrize("align", ["aligned", "offset"])
+def test_lb_paa_interval_kernel_edges_bitwise(cuda, Q, L, w, align):
+    """The generic instance's widths up to 64, the compiled ones, ragged
+    tiles, a 100 M-series table, operands one float off 16-byte alignment
+    (scalar loads), empty Q or L: bitwise against the in-order loop, the
+    +inf pad leaf +inf, within 1e-6 of the twin."""
+    sl, sh, lo, hi = intervals(RNG, Q, L, w)
+    if L:
+        lo[-1] = hi[-1] = np.inf
+    off = align == "offset" and Q > 0 and L > 0
+    t = [_rows(a, cuda, off) for a in (sl, sh, lo, hi)]
+    n = 4 * w + 1
+    before = lb_isax.launches
+    got = ops.lb_paa_interval(*t, n)
+    assert lb_isax.launches == before + (Q > 0 and L > 0)
+    assert got.shape == (Q, L) and not torch.isnan(got).any()
+    assert torch.equal(got, ref.lb_paa_interval_in_order(*t, n))
+    if L:
+        assert torch.isinf(got[:, -1]).all()
+    torch.testing.assert_close(got, ref.lb_paa_interval_ref(*t, n),
+                               rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("w", [8, 16, 33, 64])
+def test_lb_paa_interval_kernel_is_position_invariant_bitwise(cuda, w):
+    """One (query, leaf) pair gives the same bits wherever its rows sit:
+    other queries and leaves ahead of and behind them (other query groups,
+    leaf tiles and launch shapes), unaligned copies, and a second call."""
+    sl, sh, lo, hi = (torch.from_numpy(a).to(cuda)
+                      for a in intervals(RNG, 20, 300, w))
+    base = ops.lb_paa_interval(sl, sh, lo, hi, 256)
+    assert torch.equal(ops.lb_paa_interval(sl, sh, lo, hi, 256), base)
+    for lead_q, lead_l, reps in ((3, 37, 1), (31, 129, 1), (1, 5, 60)):
+        pq = [torch.from_numpy(a).to(cuda) for a in intervals(
+            RNG, lead_q + 2, lead_l + 7, w)]
+        cat = torch.cat
+        got = ops.lb_paa_interval(
+            cat([pq[0][:lead_q], sl, pq[0][lead_q:]] * reps),
+            cat([pq[1][:lead_q], sh, pq[1][lead_q:]] * reps),
+            cat([pq[2][:lead_l], lo, pq[2][lead_l:]]),
+            cat([pq[3][:lead_l], hi, pq[3][lead_l:]]), 256)
+        assert torch.equal(got[lead_q:lead_q + 20, lead_l:lead_l + 300],
+                           base)
+    got = ops.lb_paa_interval(*(_offset(t) for t in (sl, sh, lo, hi)), 256)
+    assert torch.equal(got, base)
 
 
 def _lb_close(got, want):
