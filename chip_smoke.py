@@ -48,7 +48,27 @@ Phases, each printed with its seconds:
    queries x 128 lanes, with the walk's mask and cutoff, recorded from a
    rerun of batch 0): bitwise against its twin, its time, and its bound
    from the cells each lane ran before it was abandoned;
-8. DTW profile: one more DTW batch under ``torch.profiler``.
+8. DTW profile: one more DTW batch under ``torch.profiler``;
+9. approximate and extended search (paper Alg. 4) on the same
+   ``DeviceIndex`` and queries (no second layout): ED
+   ``approximate_search_device_batch`` at nbr 1, 4, 16 and ED
+   ``extended_search_device_batch`` at nbr 1, 4, 16 with ``rerank`` True
+   and False (4 batches of 64), DTW extended (band 25, ``rerank=True``) at
+   nbr 1, 4, 16 (2 batches of 64).  Checks, each failing the run: ED
+   extended with re-rank bitwise equal to the host ``extended_search`` for
+   every query of batch 0; approximate nbr=1 leaves equal to the host
+   ``route_to_leaf`` for all 256 queries; every result of every path equal
+   to a float64 top-10 over its query's scheduled leaves (ED: brute force;
+   DTW: LB_Keogh then the banded DP, all 128 queries); recall and every
+   query's k-th distance monotone in nbr; extended with ``n_shards=4``
+   bitwise equal to one shard (ED, DTW).  Prints queries/s (the median of
+   passes over each configuration's batches, repeated for at least 2 s,
+   with the slowest and fastest pass), recall@10 against phases 5 and 7, launches of each kernel a batch and
+   ``max_memory_allocated`` for each configuration; ``lb_paa_interval`` on
+   the routing edge table and ``lb_keogh``, ``lb_improved`` and
+   ``dtw_band`` at two real per-query leaf ranks, each against its twin and
+   timed beside its bound and the launch floor; one profiled ED and one DTW
+   extended batch at nbr=16.
 """
 from __future__ import annotations
 
@@ -72,6 +92,9 @@ N_QUERIES = 256
 LENGTH = 256
 CHUNK = 2048
 N_DTW = 128            # DTW queries: 2 batches of 64
+NBRS = (1, 4, 16)      # leaf budgets of the approximate and extended paths
+QPS_WINDOW_S = 2.0     # phase 9 times each configuration over at least
+QPS_MIN_PASSES = 3     # this many seconds and passes over its batches
 BAND = 25              # default_band(256): the paper's 10% Sakoe-Chiba band
 # DTW cascade cost model for the bounds: float32 operations per element of
 # LB_Keogh (2 sub, 3 max, mul, add) and LB_Improved (LB_Keogh, the clip,
@@ -835,13 +858,31 @@ def check_dtw_kernels(torch, ops, ref, envelope, gather, qs_main, dev,
     return rows
 
 
-def dtw_float64_check(torch, dev, q32, d_port, r, k):
+def schedule_rows(torch, np, dev, leaves):
+    """``rows_of(qi)``: the rows (of the one-shard layout, whose flattened
+    coordinates are shard 0's) of the leaves ``leaves [Q, nbr]`` a search
+    scheduled for query ``qi``, as a CUDA index tensor."""
+    start = dev.leaf_start.cpu().numpy()
+    size = dev.leaf_size.cpu().numpy()
+
+    def rows_of(qi):
+        rows = np.concatenate([np.arange(start[lf], start[lf] + size[lf])
+                               for lf in leaves[qi]])
+        return torch.from_numpy(rows).cuda()
+
+    return rows_of
+
+
+def dtw_float64_check(torch, dev, q32, d_port, r, k, rows_of=None):
     """Independent float64 DTW top-(k+1) of ``q32 [Q, n]`` over every live
-    row of shard 0.  LB_Keogh in float64 (its own envelope) over every row,
-    then a float64 banded DP over the rows whose LB is at most the port's
-    k-th distance × (1 + 1e-5).  That is exact: LB ≤ DTW, and the port's
-    k-th distance is the DTW of a real row, so it is at least the true k-th.
-    Returns ``(d [Q, k+1] f64, ids [Q, k+1], rows given the DP)``."""
+    row of shard 0, or with ``rows_of(qi)`` over the live rows it gives for
+    query ``qi`` (the leaves a search scheduled).  LB_Keogh in float64 (its
+    own envelope) over every row, then a float64 banded DP over the rows
+    whose LB is at most the port's k-th distance × (1 + 1e-5) (every row
+    where the port returned fewer than k).  That is exact: LB ≤ DTW, and
+    the port's k-th distance is the DTW of a real row, so it is at least
+    the true k-th.  Returns ``(d [Q, k+1] f64, ids [Q, k+1], rows given the
+    DP)``, padded with ``inf / -1``."""
     F = torch.nn.functional
     inf = float("inf")
     db0, ids0, alive0 = dev.db[0], dev.ids[0], dev.alive[0]
@@ -853,13 +894,23 @@ def dtw_float64_check(torch, dev, q32, d_port, r, k):
                            device="cuda") * (1 + 1e-5)) ** 2
     qi_l, row_l = [], []
     step = 4096
-    for c0 in range(0, db0.shape[0], step):
-        x = db0[c0:c0 + step].double()[None]
-        e = (x - U[:, None]).clamp_min(0) + (L[:, None] - x).clamp_min(0)
-        keep = ((e * e).sum(-1) <= thr[:, None]) & alive0[None, c0:c0 + step]
-        qi, j = keep.nonzero(as_tuple=True)
-        qi_l.append(qi)
-        row_l.append(j + c0)
+    if rows_of is None:
+        for c0 in range(0, db0.shape[0], step):
+            x = db0[c0:c0 + step].double()[None]
+            e = (x - U[:, None]).clamp_min(0) + (L[:, None] - x).clamp_min(0)
+            keep = (((e * e).sum(-1) <= thr[:, None])
+                    & alive0[None, c0:c0 + step])
+            qi, j = keep.nonzero(as_tuple=True)
+            qi_l.append(qi)
+            row_l.append(j + c0)
+    else:
+        for qq in range(Q):
+            rows = rows_of(qq)
+            x = db0[rows].double()
+            e = (x - U[qq]).clamp_min(0) + (L[qq] - x).clamp_min(0)
+            keep = ((e * e).sum(-1) <= thr[qq]) & alive0[rows]
+            row_l.append(rows[keep])
+            qi_l.append(torch.full_like(row_l[-1], qq))
     qi, rows = torch.cat(qi_l), torch.cat(row_l)
     # the DP over the (query, row) pairs, anti-diagonal by anti-diagonal:
     # slot t of diagonal d = i + j holds D(i, j) with i - j = t - r
@@ -897,11 +948,26 @@ def dtw_float64_check(torch, dev, q32, d_port, r, k):
     return bd, bi, len(rows)
 
 
-def brute_force(torch, dev, q32, k):
-    """Exact top-(k+1) of ``q32 [Q, n]`` over every live row of shard 0 in
-    float64 by direct differences: ``(d [Q, k+1] f64, ids [Q, k+1])``."""
+def brute_force(torch, dev, q32, k, rows_of=None):
+    """Exact top-(k+1) of ``q32 [Q, n]`` in float64 by direct differences
+    over every live row of shard 0, or with ``rows_of(qi)`` over the live
+    rows it gives for query ``qi`` (the leaves a search scheduled):
+    ``(d [Q, k+1] f64, ids [Q, k+1])``, padded with ``inf / -1``."""
     db0, ids0, alive0 = dev.db[0], dev.ids[0], dev.alive[0]
     q = q32.double()
+    if rows_of is not None:
+        Q = q32.shape[0]
+        bd = torch.full((Q, k + 1), float("inf"), dtype=torch.float64,
+                        device="cuda")
+        bi = torch.full((Q, k + 1), -1, dtype=torch.int64, device="cuda")
+        for qq in range(Q):
+            rows = rows_of(qq)
+            rows = rows[alive0[rows]]
+            d = ((db0[rows].double() - q[qq]) ** 2).sum(-1)
+            v, j = torch.topk(d, min(k + 1, d.numel()), largest=False)
+            bd[qq, :len(v)] = v.sqrt()
+            bi[qq, :len(v)] = ids0[rows[j]].long()
+        return bd, bi
     best_d, best_i = [], []
     step = 8192
     for c0 in range(0, db0.shape[0], step):
@@ -986,16 +1052,23 @@ def check_exact(np, ids, d, bd, bi, true_dist, k) -> int:
     Distances agree to rtol 1e-5; an id may differ from the check's only
     where that position's distance is tied (within the same tolerance) with
     a neighbouring position, and then the port's id must be exactly as near
-    (``true_dist(query, id)``).  Returns the number of tied positions."""
+    (``true_dist(query, id)``).  Where the check found fewer than k rows
+    (``+inf`` in ``bd``) the result must pad with ``-1 / inf``.  Returns
+    the number of tied positions."""
     tol = 1e-5
-    if not np.allclose(d.astype(np.float64), bd[:, :k], rtol=tol, atol=0):
+    fin = np.isfinite(bd[:, :k])
+    if not (np.array_equal(np.isfinite(d), fin) and (ids[~fin] == -1).all()):
+        fail("result slots and the float64 check's rows differ in number")
+    if not np.allclose(d[fin].astype(np.float64), bd[:, :k][fin], rtol=tol,
+                       atol=0):
         fail(f"distances disagree with the float64 check (max rel "
-             f"{np.max(np.abs(d - bd[:, :k]) / bd[:, :k]):.3e})")
+             f"{np.max(np.abs(d[fin] - bd[:, :k][fin]) / bd[:, :k][fin]):.3e})")
     tied = 0
     for qi in range(ids.shape[0]):
-        if len(set(ids[qi].tolist())) != k:
+        m = int(fin[qi].sum())
+        if len(set(ids[qi, :m].tolist())) != m or (ids[qi, :m] < 0).any():
             fail(f"query {qi}: ids not unique {ids[qi]}")
-        for j in range(k):
+        for j in range(m):
             if ids[qi, j] == bi[qi, j]:
                 continue
             near = [bd[qi, jj] for jj in (j - 1, j + 1) if 0 <= jj <= k]
@@ -1014,7 +1087,9 @@ def profile_batch(torch, search, index, qb, **kw) -> None:
     """One batch of the main path under ``torch.profiler``: device time by
     kernel, and the device's busy share of the batch's wall time (the
     profiler's own overhead lengthens the wall time, so the share is a
-    lower bound)."""
+    lower bound).  The busy time sums the device-side rows alone (kernels,
+    copies): an operator row's self device time repeats its kernels'."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1023,12 +1098,14 @@ def profile_batch(torch, search, index, qb, **kw) -> None:
         wall = time.perf_counter() - t0
     events = prof.key_averages()
     device_us = sum(getattr(e, "self_device_time_total", 0.0)
-                    for e in events)
+                    for e in events if e.device_type != DeviceType.CPU)
+    op_us = sum(getattr(e, "self_device_time_total", 0.0) for e in events)
     top = sorted(events, key=lambda e: getattr(e, "self_device_time_total",
                                                0.0), reverse=True)[:10]
     print(f"  profiled batch: wall {wall:.3f} s, device busy "
           f"{device_us / 1e6:.4f} s ({100 * device_us / 1e6 / wall:.1f}% of "
-          f"wall; not measured if 0)")
+          f"wall; not measured if 0; all rows summed, operators and their "
+          f"kernels both: {op_us / 1e6:.4f} s)")
     for e in top:
         print(f"    {e.key[:60]:60s} calls {e.count:7d} device "
               f"{getattr(e, 'self_device_time_total', 0.0) / 1e3:9.3f} ms "
@@ -1042,6 +1119,297 @@ def profile_batch(torch, search, index, qb, **kw) -> None:
         dev_ms = sum(e.self_device_time_total for e in hits) / 1e3
         print(f"    kernel {name:16s} calls {sum(e.count for e in hits):7d}"
               f" device {dev_ms:9.3f} ms")
+
+
+def gather_calls(sd, index, qb, n_keep, **kw) -> list:
+    """The arguments of the first ``n_keep`` per-query leaf-rank calls
+    (``search_device._dist2_gather``: ``qs, prep, cand [Q, lmax, n], valid,
+    cutoff2``) of one extended search of ``qb``."""
+    calls, real = [], sd._dist2_gather
+
+    def record(metric, qs, prep, cand, valid, cutoff2):
+        if len(calls) < n_keep:
+            calls.append((qs, prep, cand, valid, cutoff2))
+        return real(metric, qs, prep, cand, valid, cutoff2)
+
+    sd._dist2_gather = record
+    try:
+        sd.extended_search_device_batch(index, qb, K, **kw)
+    finally:
+        sd._dist2_gather = real
+    return calls
+
+
+def check_rank_kernels(torch, ops, ref, gather, dev, ed_prep, calls,
+                       n_iter, floor, clock_hz, smi) -> None:
+    """Phase 9's new kernel calls on the card, each against its plain
+    version (bitwise where phase 4 holds the kernel bitwise, else phase 4's
+    rtol = atol = 1e-5), its time beside its bound and the launch floor:
+    ``lb_paa_interval`` on the routing edge table ``[64, Eg, 16]`` (ED and
+    DTW intervals), and ``lb_keogh``, ``lb_improved`` and ``dtw_band`` in
+    the per-query layout at the leaf ranks recorded in ``calls``."""
+    Eg, w, n = dev.rt_lo.shape[0], dev.w, dev.n
+    for label, (slo, shi) in (("ED", ed_prep[:2]), ("DTW", calls[0][1][:2])):
+        a = (slo, shi, dev.rt_lo, dev.rt_hi, n)
+        lbpaa_bitwise(torch, ops, ref, a, f"routing edges {label}")
+        ms, host = time_ms(torch, ops.lb_paa_interval, [a] * n_iter)
+        plain, _ = time_ms(torch, ref.lb_paa_interval_ref, [a] * n_iter)
+        Q = slo.shape[0]
+        b_ms, b_by = bound(4 * (2 * Q * w + 2 * Eg * w + Q * Eg),
+                           7 * Q * Eg * w + Q * Eg)
+        print(f"  lb_paa_interval routing edges [{Q},{Eg},{w}] {label}: "
+              f"bitwise equal to the in-order sum; kernel {ms:.5f} ms (host "
+              f"{host:.4f} ms per call; launch floor {floor:.5f} ms + "
+              f"{(ms - floor) * 1e3:.3f} us), twin {plain:.5f} ms, bound "
+              f"{b_ms:.6f} ms ({b_by}) [{smi}]")
+    for j, (q, prep, cand, valid, cut) in enumerate(calls):
+        env_lo, env_hi = prep[2], prep[3]
+        Q, m, _ = cand.shape
+        ct = cut[:, None]
+        lbk = ops.lb_keogh(cand, env_hi, env_lo)
+        lbi = ops.lb_improved(cand, q, env_hi, env_lo, BAND)
+        mask = valid & (lbk < ct) & (lbi < ct)
+        for name, got, want in (
+                ("lb_keogh", lbk, ref.lb_keogh_ref(cand, env_hi, env_lo)),
+                ("lb_improved", lbi,
+                 ref.lb_improved_ref(cand, q, env_hi, env_lo, BAND))):
+            torch.cuda.synchronize()
+            if torch.isnan(got).any() or not torch.allclose(
+                    got, want, rtol=1e-5, atol=1e-5):
+                fail(f"{name} disagrees with its twin at leaf rank {j} "
+                     f"[{Q},{m},{n}]")
+            del want
+        got = ops.dtw_band(q, cand, mask, cut, BAND)
+        want, d_ms, d_by, chain = dtw_call_work(torch, gather, q, cand, mask,
+                                                cut, BAND, None, clock_hz)
+        torch.cuda.synchronize()
+        if not (torch.equal(torch.isinf(got), torch.isinf(want))
+                and torch.equal(got, want)):
+            fail(f"dtw_band differs from its twin at leaf rank {j}")
+        del want
+        cutoff = ("none (+inf)" if bool(torch.isinf(cut).all())
+                  else "the running k-th best")
+        print(f"  leaf rank {j} of a DTW extended batch, nbr=16 (cutoff "
+              f"{cutoff}): cand [{Q},{m},{n}], {int(valid.sum())} live "
+              f"lanes, {int(mask.sum())} past both LBs, "
+              f"{int(torch.isfinite(got).sum())} finished the DP; "
+              f"lb_keogh and lb_improved within rtol 1e-5 of their twins, "
+              f"dtw_band bitwise")
+        el = Q * m * n
+        for name, fn, args, b in (
+                ("lb_keogh", ops.lb_keogh, (cand, env_hi, env_lo),
+                 bound(4 * (el + 2 * Q * n + Q * m), LBK_OPS * el)),
+                ("lb_improved", ops.lb_improved,
+                 (cand, q, env_hi, env_lo, BAND),
+                 bound(4 * (el + 3 * Q * n + Q * m), LBI_OPS * el)),
+                ("dtw_band", ops.dtw_band, (q, cand, mask, cut, BAND),
+                 (d_ms, d_by))):
+            ms, host = time_ms(torch, fn, [args] * n_iter)
+            extra = (f", chain floor {chain:.6f} ms" if name == "dtw_band"
+                     else "")
+            print(f"    {name} per query [{Q},{m},{n}]: kernel {ms:.5f} ms "
+                  f"(host {host:.4f} ms per call; launch floor "
+                  f"{floor:.5f} ms), bound {b[0]:.6f} ms ({b[1]}){extra} "
+                  f"[{smi}]")
+
+
+def search_paths_phase(torch, np, sd, hs, ops, ref, gather, dtw_np, index,
+                       dev, db, batches, dtw_batches, exact_ed, exact_dtw,
+                       mods, floor, clock_hz, smi):
+    """Phase 9: the approximate and extended searches (paper Alg. 4) on the
+    main path's ``DeviceIndex`` and queries.  Every check fails the run on
+    a miss; returns the per-configuration summary."""
+    builds = index._n_device_builds
+    qs_ed = np.concatenate(batches)
+    gt = {"ED": [set(r.tolist()) for ids, _, _ in exact_ed for r in ids],
+          "DTW": [set(r.tolist()) for ids, _, _ in exact_dtw for r in ids]}
+    kws = {"ED": {}, "DTW": dict(metric="dtw", band=BAND)}
+    configs = ([("ED", "approximate", nbr, None) for nbr in NBRS]
+               + [("ED", "extended", nbr, rr) for rr in (True, False)
+                  for nbr in NBRS]
+               + [("DTW", "extended", nbr, True) for nbr in NBRS])
+    caps = [index.routing_flat.stop_span_cap(nbr) for nbr in NBRS]
+    print(f"  {dev.n_leaves} leaves, {dev.rt_lo.shape[0]} routing edges, "
+          f"depth {dev.depth}, lmax {dev.lmax}; stop_span_cap at nbr {NBRS}: "
+          f"{caps} (the reference's schedule window; the port ranks all "
+          f"{dev.n_leaves} leaves)")
+    # one warm-up call a path (CUDA modules load lazily on first use)
+    sd.approximate_search_device_batch(index, batches[0], K)
+    sd.extended_search_device_batch(index, batches[0], K)
+    sd.extended_search_device_batch(index, dtw_batches[0], K, **kws["DTW"])
+    out, summary = {}, []
+    for metric, path, nbr, rerank in configs:
+        bs = batches if metric == "ED" else dtw_batches
+        kw = dict(kws[metric], nbr=nbr)
+        if path == "extended":
+            fn = sd.extended_search_device_batch
+            kw["rerank"] = rerank
+        else:
+            fn = sd.approximate_search_device_batch
+        for m in mods.values():
+            m.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        res = [fn(index, qb, K, **kw) for qb in bs]       # the checked pass
+        per_batch = {name: m.launches / len(bs) for name, m in mods.items()}
+        peak = torch.cuda.max_memory_allocated()
+        nq = len(bs) * BATCH
+        # queries/s: whole passes over the batches, repeated until the
+        # window holds QPS_WINDOW_S and QPS_MIN_PASSES passes; the median
+        # pass, with the slowest and fastest beside it
+        rates, t1 = [], time.perf_counter()
+        while (len(rates) < QPS_MIN_PASSES
+               or time.perf_counter() - t1 < QPS_WINDOW_S):
+            t2 = time.perf_counter()
+            for qb in bs:
+                fn(index, qb, K, **kw)
+            rates.append(nq / (time.perf_counter() - t2))
+        window = time.perf_counter() - t1
+        qps = float(np.median(rates))
+        need = ("sax_encode", "lb_paa_interval") + (
+            ("lb_keogh", "lb_improved", "dtw_band") if metric == "DTW"
+            else ())
+        for name in need:
+            if per_batch[name] <= 0:
+                fail(f"kernel {name} was not launched on the {metric} "
+                     f"{path} path (nbr={nbr})")
+        ids = np.concatenate([r[0] for r in res])
+        recall = float(np.mean([len(g & set(row[row >= 0].tolist())) / K
+                                for g, row in zip(gt[metric], ids)]))
+        label = f"{metric} {path} nbr={nbr}" + (
+            "" if rerank is None else f" rerank={rerank}")
+        print(f"  {label}: {nq} queries in {len(bs)} batches of {BATCH}, "
+              f"{len(rates)} passes in {window:.3f} s: median {qps:.2f} qps "
+              f"(passes {min(rates):.2f}-{max(rates):.2f}); recall@{K} "
+              f"{recall:.7f}; launches a batch {per_batch}; "
+              f"max_memory_allocated {peak} bytes [{smi}]")
+        out[(metric, path, nbr, rerank)] = res
+        summary.append(dict(metric=metric, path=path, nbr=nbr,
+                            rerank=rerank, qps=qps, qps_min=min(rates),
+                            qps_max=max(rates), passes=len(rates),
+                            recall=recall, launches_per_batch=per_batch,
+                            max_memory_allocated=peak))
+
+    # -- recall and the k-th distance monotone in nbr ------------------------
+    for key in {(m, p, r) for m, p, _, r in configs}:
+        rec = [x["recall"] for x in summary
+               if (x["metric"], x["path"], x["rerank"]) == key]
+        if rec != sorted(rec):
+            fail(f"recall is not monotone in nbr on {key}: {rec}")
+        kth = [np.concatenate([r[1][:, K - 1] for r in out[key[:2] + (nbr,)
+                                                          + key[2:]]])
+               for nbr in NBRS]
+        for a, b in zip(kth, kth[1:]):
+            if not (b <= a).all():
+                fail(f"the k-th distance grows with nbr on {key} for "
+                     f"{int((b > a).sum())} queries")
+    print(f"  recall@{K} and every query's k-th distance monotone in nbr "
+          f"{NBRS} on each path")
+
+    # -- leaf schedules: nbr=1 is the host descent; rerank keeps leaves -------
+    leaves1 = np.concatenate([r[2] for r in out[("ED", "approximate", 1,
+                                                 None)]])
+    for i, q in enumerate(qs_ed):
+        paa, sax = hs._encode_query(index, q)
+        if hs.route_to_leaf(index, paa, sax).leaf_id != leaves1[i, 0]:
+            fail(f"approximate nbr=1 query {i}: leaf {leaves1[i, 0]} is "
+                 f"not the host route_to_leaf's")
+    ext1 = np.concatenate([r[2] for r in out[("ED", "extended", 1, True)]])
+    if not np.array_equal(ext1, leaves1):
+        fail("extended nbr=1 leaves differ from approximate nbr=1 leaves")
+    for nbr in NBRS:
+        for a, b in zip(out[("ED", "extended", nbr, True)],
+                        out[("ED", "extended", nbr, False)]):
+            if not np.array_equal(a[2], b[2]):
+                fail(f"extended nbr={nbr}: rerank changes the leaves")
+    print(f"  approximate nbr=1 leaves equal the host route_to_leaf for all "
+          f"{len(qs_ed)} queries, and extended nbr=1's; rerank=False keeps "
+          f"the leaves")
+
+    # -- check 1: ED extended + re-rank bitwise equal to the host -------------
+    t1 = time.perf_counter()
+    for nbr in NBRS:
+        ids, d, _ = out[("ED", "extended", nbr, True)][0]
+        for i, q in enumerate(batches[0]):
+            h_ids, h_d, _ = hs.extended_search(index, q, K, nbr)
+            m = len(h_ids)
+            if not (np.array_equal(ids[i, :m], h_ids)
+                    and np.array_equal(d[i, :m], h_d)
+                    and (ids[i, m:] == -1).all()):
+                fail(f"ED extended nbr={nbr} query {i} differs from the "
+                     f"host extended_search")
+    print(f"  ED extended (rerank=True) bitwise equal to the host "
+          f"extended_search for all {BATCH} queries of batch 0 at nbr "
+          f"{NBRS} ({time.perf_counter() - t1:.3f} s)")
+
+    # -- check 3: float64 over each query's scheduled leaves ------------------
+    t1 = time.perf_counter()
+    tied, dp_rows = 0, 0
+    for (metric, path, nbr, rerank), res in out.items():
+        bs = batches if metric == "ED" else dtw_batches
+        for qb, (ids, d, leaves) in zip(bs, res):
+            q32 = torch.from_numpy(qb).cuda()
+            rows_of = schedule_rows(torch, np, dev, leaves)
+            if metric == "ED":
+                bd, bi = brute_force(torch, dev, q32, K, rows_of)
+                dist = (lambda qi, i, qb=qb: np.sqrt(
+                    ((db[i].astype(np.float64)
+                      - qb[qi].astype(np.float64)) ** 2).sum()))
+            else:
+                bd, bi, n_rows = dtw_float64_check(torch, dev, q32, d, BAND,
+                                                   K, rows_of)
+                dp_rows += n_rows
+                dist = (lambda qi, i, qb=qb: dtw_np(qb[qi], db[i], BAND))
+            tied += check_exact(np, ids, d, bd.cpu().numpy(),
+                                bi.cpu().numpy(), dist, K)
+    print(f"  every result of every path ({len(out)} configurations) equals "
+          f"the float64 top-{K} over its query's scheduled leaves (ED: "
+          f"brute force; DTW: all {N_DTW} queries at every nbr, LB_Keogh "
+          f"then the banded DP on {dp_rows} (query, row) pairs); tied "
+          f"positions {tied} ({time.perf_counter() - t1:.3f} s)")
+
+    # -- check 5: four shards bitwise equal to one ----------------------------
+    t1 = time.perf_counter()
+    for metric, rerank in (("ED", True), ("ED", False), ("DTW", True)):
+        qb = (batches if metric == "ED" else dtw_batches)[0]
+        got = sd.extended_search_device_batch(index, qb, K, nbr=NBRS[-1],
+                                              rerank=rerank, n_shards=4,
+                                              **kws[metric])
+        want = out[(metric, "extended", NBRS[-1], rerank)][0]
+        if not all(np.array_equal(a, b) for a, b in zip(got, want)):
+            fail(f"{metric} extended n_shards=4 differs from n_shards=1")
+    print(f"  extended nbr={NBRS[-1]} with n_shards=4 bitwise equal to one "
+          f"shard: ED (rerank True and False) and DTW, batch 0 "
+          f"({time.perf_counter() - t1:.3f} s)")
+
+    # -- the new kernel calls --------------------------------------------------
+    t1 = time.perf_counter()
+    paa, _ = ops.sax_encode(torch.from_numpy(batches[0]).cuda(), dev.w, 8)
+    calls = gather_calls(sd, index, dtw_batches[0], 2, nbr=NBRS[-1],
+                         **kws["DTW"])
+    check_rank_kernels(torch, ops, ref, gather, dev, (paa, paa), calls,
+                       n_iter=20, floor=floor, clock_hz=clock_hz, smi=smi)
+    del calls
+    print(f"  ({time.perf_counter() - t1:.3f} s)")
+
+    # -- where an extended batch's time goes ----------------------------------
+    rng = np.random.default_rng(0)
+    for metric, qb in (("ED", batches[0]), ("DTW", dtw_batches[0])):
+        met = sd.resolve(metric.lower(), LENGTH, BAND)
+        ids_kk = rng.integers(0, db.shape[0], (BATCH, K + 8))
+        t1 = time.perf_counter()
+        sd._finalize_exact(index, qb, ids_kk, K, met)
+        print(f"  host re-rank (_finalize_exact) of one {metric} batch, "
+              f"{BATCH} x {K + 8} lanes: {time.perf_counter() - t1:.4f} s "
+              f"of host wall")
+    for metric, qb in (("ED", batches[1]), ("DTW", dtw_batches[1])):
+        print(f"  {metric} extended nbr={NBRS[-1]} rerank=True, profiled "
+              f"[{smi}]:")
+        profile_batch(torch, sd.extended_search_device_batch, index, qb,
+                      nbr=NBRS[-1], **kws[metric])
+    if index._n_device_builds != builds:
+        fail("phase 9 built another DeviceIndex layout")
+    print("  no DeviceIndex built by phase 9")
+    return summary
 
 
 def main() -> None:
@@ -1065,7 +1433,7 @@ def main() -> None:
                                      dtw_np)
     from repro_torch.core.metric import query_prep, resolve
     from repro_torch.core.sax import SaxParams, breakpoints
-    from repro_torch.core import search_device
+    from repro_torch.core import search, search_device
     from repro_torch.core.search_device import exact_search_device_batch
     from repro_torch.core.split import SplitParams
     from repro_torch.data.series import query_workload, random_walks
@@ -1074,7 +1442,7 @@ def main() -> None:
                                      pairwise_l2, sax_encode)
 
     # ---- 1. environment -------------------------------------------------
-    t0 = time.perf_counter()
+    t_run = t0 = time.perf_counter()
     smi = nvidia_smi()
     print(f"card: {smi}")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python "
@@ -1276,6 +1644,17 @@ def main() -> None:
     profile_batch(torch, exact_search_device_batch, index, dtw_batches[1],
                   metric="dtw", band=BAND)
     phase("DTW profile", t0)
+
+    # ---- 9. approximate and extended search (paper Alg. 4) -------------------
+    print(f"[phase] phases 1-8: {time.perf_counter() - t_run:.3f} s")
+    t0 = time.perf_counter()
+    paths = search_paths_phase(
+        torch, np, search_device, search, ops, ref, dtw2_masked_gather,
+        dtw_np, index, dev, db, batches, dtw_batches, results, dtw_results,
+        mods, floor, clock_hz, smi)
+    print(json.dumps({"search_paths": paths}))
+    phase("approximate and extended search", t0)
+    print(f"[phase] whole run: {time.perf_counter() - t_run:.3f} s")
 
     for r in rows:
         r["launches"] = (launches if r["name"] in ed_kernels

@@ -11,9 +11,9 @@ frozen dataclass of torch tensors (port of ``repro.core.device_index``).
   span schedule (windows + (leaf, window)-intersection edges) let each
   shard run the windowed-pruning loop on its own;
 * the global leaf table, the flattened routing tables and the sibling
-  routing tables serve the approximate and extended searches of later
-  slices; they are carried now so the layout equals the reference's field
-  by field.
+  routing tables serve the approximate and extended searches (the batched
+  descent and the sibling schedule of ``search_device``); the layout
+  equals the reference's field by field.
 
 Index tables keep the reference's ``int32`` storage; the search casts to
 ``int64`` only where torch indexes with them.
@@ -129,6 +129,14 @@ class DeviceIndex:
     @property
     def n_shards(self) -> int:
         return self.db.shape[0]
+
+    @property
+    def shard_rows(self) -> int:
+        return self.db.shape[1]
+
+    @property
+    def n_leaves(self) -> int:
+        return self.leaf_start.shape[0]
 
     # -- construction --------------------------------------------------------
     @classmethod

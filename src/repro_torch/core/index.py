@@ -83,6 +83,22 @@ class FlatRouting:
             return 1
         return max(int(np.diff(self.grp_off).max()), 1)
 
+    def stop_span_cap(self, nbr: int) -> int:
+        """Widest subtree leaf span among internal nodes where the
+        extended-search descent can stop under budget ``nbr`` (a node stops
+        the descent iff one of its edges targets a leaf or a subtree of at
+        most ``nbr`` leaves).  The device sibling schedule sorts only a
+        window this wide instead of all ``L`` leaves; at worst (a stoppable
+        node near the root) it is ``L`` and nothing is lost."""
+        if len(self.edge_parent) == 0:
+            return 1
+        stop = (self.edge_leaf >= 0) | (self.edge_nl <= int(nbr))
+        if not stop.any():
+            return 1
+        parents = self.edge_parent[stop]
+        width = self.node_end[parents] - self.node_begin[parents]
+        return max(int(width.max()), 1)
+
 
 def _subtree_spans(root: TreeNode) -> dict[int, tuple[int, int]]:
     """``id(node) → (leaf_begin, leaf_end)`` contiguous leaf-id span of every

@@ -1,6 +1,6 @@
-"""Device-resident exact kNN over a :class:`~repro_torch.core.device_index.
-DeviceIndex` — the exact part of ``repro.core.search_device``, for ED and
-banded DTW.
+"""Device-resident kNN over a :class:`~repro_torch.core.device_index.
+DeviceIndex` — the exact, approximate and extended searches of
+``repro.core.search_device``, for ED and banded DTW.
 
 Per shard of the ``[S, Tp, n]`` layout, the same plan as the reference:
 
@@ -42,6 +42,20 @@ all), every later span has ``qact`` all false, so it merges only ``+inf /
 -1`` slots and adds 0 to ``spans_visited`` and to every counter; the lane
 walk carries the reference's condition as a device-side flag that, once
 false, masks every later step's lanes (nothing merged, nothing counted).
+
+Approximate search (paper §5.5) routes the whole batch root→leaf in
+lockstep over the flattened routing tables (``dev.depth`` steps, no host
+sync) and scans the routed leaf plus the ``nbr-1`` next-best leaves by the
+leaf bound, one rank at a time over the flattened ``[S·Tp, n]`` view.
+Extended search (paper Alg. 4) descends only to the smallest subtree
+within the ``nbr`` leaf budget, builds each query's visit schedule from the
+sibling tables (target subtree first, the other siblings by lower bound,
+leaves by lower bound within each), and scans it shard by shard before the
+same dedup merge.  Both scan per-query leaf gathers ``[Q, lmax, n]``
+(:func:`_dist2_gather`: the direct-difference ED sum, or the DTW cascade
+kernels in their per-query layout).  Where the reference relies on JAX's
+order among equal keys (``lax.top_k``, ``lexsort``, ``argsort``), the port
+sorts stably.
 """
 from __future__ import annotations
 
@@ -122,6 +136,28 @@ def _dist2_slab(metric: Metric, qs: torch.Tensor, prep: tuple,
     return d2, _cascade_stats(valid, lbk2, lbi2, d2, cutoff2)
 
 
+def _dist2_gather(metric: Metric, qs: torch.Tensor, prep: tuple,
+                  cand: torch.Tensor, valid: torch.Tensor,
+                  cutoff2: torch.Tensor) -> torch.Tensor:
+    """As :func:`_dist2_slab` but with *per-query* candidate sets
+    ``cand [Q, m, n]`` (the leaf-gather layout of the approximate and
+    extended scans); returns just ``d2 [Q, m]`` — the gather callers keep
+    no counters.  ED is the direct-difference sum (the reference computes
+    it outside any kernel); DTW runs the cascade with the ``lb_keogh``,
+    ``lb_improved`` and ``dtw_band`` kernels in their per-query layout.
+    Masking a lane whose LB reaches the cutoff never changes a merge
+    result (it could not displace a held slot)."""
+    if not metric.is_dtw:
+        diff = cand - qs[:, None, :]
+        return torch.where(valid, diff.square_().sum(-1), _INF)
+    _, _, env_lo, env_hi = prep
+    lbk2 = ops.lb_keogh(cand, env_hi, env_lo)                  # [Q, m]
+    lbi2 = ops.lb_improved(cand, qs, env_hi, env_lo, metric.band)
+    ct = cutoff2[:, None]
+    mask = valid & (lbk2 < ct) & (lbi2 < ct)
+    return ops.dtw_band(qs, cand, mask, cutoff2, metric.band)
+
+
 def _validate_queries_struct(qs, n: int) -> np.ndarray:
     """Structural half of :func:`_validate_queries` — dtype/shape/length,
     everything except the O(Q·n) finite scan."""
@@ -145,6 +181,13 @@ def lane_finite_mask(qs: np.ndarray) -> np.ndarray:
     return ~np.isfinite(qs).all(axis=1)
 
 
+def lane_finite_error() -> ValueError:
+    """The exact exception :func:`_validate_queries` raises for a bad batch
+    of one — what an offending request would have seen had it been issued
+    on its own rather than coalesced with others."""
+    return ValueError("queries [0] contain NaN/Inf values")
+
+
 def _validate_queries(qs, n: int) -> np.ndarray:
     """Host-boundary query validation: a NaN/Inf query would silently poison
     every distance it touches, and a wrong-length batch would broadcast into
@@ -158,19 +201,22 @@ def _validate_queries(qs, n: int) -> np.ndarray:
 
 
 def _mask_dead_shards(health, topd: torch.Tensor, topi: torch.Tensor,
-                      vis: torch.Tensor, st: torch.Tensor):
+                      vis: torch.Tensor | None = None,
+                      st: torch.Tensor | None = None):
     """Degraded mode: erase dead shards' per-shard locals (``[S, Q, k]``,
-    ``vis [S, Q]``, cascade counters ``st [S, 4]``) before the merge — their
-    slots become ``+inf / -1``, which the dedup top-k treats as absent.
-    ``health`` is ``DeviceIndex.shard_health``; ``None`` (all healthy) is
-    the identity."""
+    ``vis [S, Q]``, cascade counters ``st [S, 4]``; the last two optional)
+    before the merge — their slots become ``+inf / -1``, which the dedup
+    top-k treats as absent.  ``health`` is ``DeviceIndex.shard_health``;
+    ``None`` (all healthy) is the identity."""
     if health is None:
         return topd, topi, vis, st
     m = torch.tensor(health, dtype=torch.bool, device=topd.device)
     topd = torch.where(m[:, None, None], topd, _INF)
     topi = torch.where(m[:, None, None], topi, -1)
-    vis = torch.where(m[:, None], vis, 0)
-    st = torch.where(m[:, None], st, 0)
+    if vis is not None:
+        vis = torch.where(m[:, None], vis, 0)
+    if st is not None:
+        st = torch.where(m[:, None], st, 0)
     return topd, topi, vis, st
 
 
@@ -200,21 +246,28 @@ def _result_margin(dev: DeviceIndex, k: int) -> int:
     return k
 
 
+def _lexsort2(minor: torch.Tensor, major: torch.Tensor) -> torch.Tensor:
+    """Row-wise ``jnp.lexsort((minor, major), axis=-1)``: the permutation
+    that sorts each row by ``major``, then ``minor``, then position — two
+    stable sorts, the least significant key first."""
+    p = torch.sort(minor, dim=1, stable=True).indices
+    q = torch.sort(torch.gather(major, 1, p), dim=1, stable=True).indices
+    return torch.gather(p, 1, q)
+
+
 def _dedup_topk(d2: torch.Tensor, ids: torch.Tensor, k: int
                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Device dedup + final top-k: segment-min over original ids.
 
-    Each row is sorted by (id, d²) — two stable sorts, by d² then by id,
-    are the reference's ``lexsort`` — so the first slot of an id run is that
-    id's min distance; later slots (fuzzy replicas) and ``-1`` sentinels are
-    masked to ``+inf``.  A stable sort by distance then keeps the smallest
-    id among equal distances (the host heap's (d, id) order).  The output
-    depends only on the (id, d²) value set, not on the shard count."""
+    Each row is sorted by (id, d²) (:func:`_lexsort2`, the reference's
+    ``lexsort``), so the first slot of an id run is that id's min distance;
+    later slots (fuzzy replicas) and ``-1`` sentinels are masked to
+    ``+inf``.  A stable sort by distance then keeps the smallest id among
+    equal distances (the host heap's (d, id) order).  The output depends
+    only on the (id, d²) value set, not on the shard count."""
     Q, C = ids.shape
-    p = torch.sort(d2, dim=1, stable=True).indices
-    ids1, d1 = torch.gather(ids, 1, p), torch.gather(d2, 1, p)
-    p = torch.sort(ids1, dim=1, stable=True).indices
-    ids_s, d_s = torch.gather(ids1, 1, p), torch.gather(d1, 1, p)
+    perm = _lexsort2(d2, ids)
+    ids_s, d_s = torch.gather(ids, 1, perm), torch.gather(d2, 1, perm)
     first = torch.ones_like(ids_s, dtype=torch.bool)
     first[:, 1:] = ids_s[:, 1:] != ids_s[:, :-1]
     keep = first & (ids_s >= 0)
@@ -573,3 +626,391 @@ def exact_search_device(index: DumpyIndex, q: np.ndarray, k: int,
                                                 band=band, device=device)
     valid = ids[0] >= 0
     return ids[0][valid], d[0][valid], int(visited[0])
+
+
+# ---------------------------------------------------------------------------
+# batched approximate search (vectorized root→leaf descent)
+# ---------------------------------------------------------------------------
+
+def _route_edges(sax_q: torch.Tensor, cur: torch.Tensor,
+                 node_csl: torch.Tensor, node_shift: torch.Tensor,
+                 node_lam: torch.Tensor, edge_parent: torch.Tensor,
+                 edge_sid: torch.Tensor, edge_lb: torch.Tensor
+                 ) -> torch.Tensor:
+    """One routing step for a query batch sitting at internal nodes ``cur``:
+    recompute each query's sid from the node's chosen segments (promoteiSAX
+    bit extraction), match it against the node's edge span, and fall back to
+    the min-LB child for empty regions — bit-for-bit the host descent,
+    including its tie-breaking (the first matching edge; the first of equal
+    bounds, as the host's ``min`` over ``children`` in insertion order).
+    Returns the taken edge index per query."""
+    w = sax_q.shape[1]
+    lam_max = node_csl.shape[1]
+    pos = torch.arange(lam_max, device=sax_q.device)
+    curc = cur.clamp(0, node_csl.shape[0] - 1)
+    csl = node_csl[curc]                        # [Q, lam_max]
+    shift = node_shift[curc]
+    lam = node_lam[curc][:, None]
+    segs = csl.clamp(0, w - 1).long()
+    bits = (torch.gather(sax_q, 1, segs) >> shift) & 1
+    weights = torch.where(
+        pos[None, :] < lam,
+        torch.bitwise_left_shift(torch.ones_like(bits),
+                                 (lam - 1 - pos[None, :]).clamp_min(0)), 0)
+    sid = (bits * weights).sum(dim=1)           # [Q]
+    eligible = edge_parent[None, :] == curc[:, None]              # [Q, E]
+    hit = eligible & (edge_sid[None, :] == sid[:, None])
+    # argmax / argmin return the first of equal values (torch documents it)
+    hit_idx = hit.to(torch.uint8).argmax(dim=1)
+    fb_idx = torch.where(eligible, edge_lb, _INF).argmin(dim=1)
+    return torch.where(hit.any(dim=1), hit_idx, fb_idx)
+
+
+def _descend_device(dev: DeviceIndex, sax_q: torch.Tensor,
+                    edge_lb: torch.Tensor) -> torch.Tensor:
+    """Lockstep root→leaf routing of a query batch over the flat tables —
+    the host ``search.route_to_leaf`` vectorized, one step per tree level
+    (``dev.depth`` steps, no host sync inside).  Returns the leaf id per
+    query."""
+    Q = sax_q.shape[0]
+    cur = torch.zeros(Q, dtype=torch.int64, device=sax_q.device)
+    leaf = torch.full((Q,), -1, dtype=torch.int64, device=sax_q.device)
+    for _ in range(dev.depth):
+        active = leaf < 0                       # leaf stays -1 en route
+        e = _route_edges(sax_q, cur, dev.node_csl, dev.node_shift,
+                         dev.node_lam, dev.rt_parent, dev.rt_sid, edge_lb)
+        nxt_leaf = dev.rt_leaf[e].long()
+        leaf = torch.where(active, nxt_leaf, leaf)
+        cur = torch.where(active & (nxt_leaf < 0), dev.rt_child[e].long(),
+                          cur)
+    return leaf
+
+
+def _merge_leaf_rank(metric: Metric, qs: torch.Tensor, prep: tuple,
+                     db: torch.Tensor, ids: torch.Tensor, alive: torch.Tensor,
+                     starts: torch.Tensor, sizes: torch.Tensor,
+                     cols: torch.Tensor, topd: torch.Tensor,
+                     topi: torch.Tensor
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Merge one leaf rank into the running top-k: gather each query's leaf
+    rows ``starts + cols`` of ``db [T, n]`` (``[Q, lmax, n]``, clamped into
+    range; columns past ``sizes`` and dead rows masked), rank them with
+    :func:`_dist2_gather` against the running k-th best (the DTW cutoff)
+    and merge.  Masked rows come back as ``id -1 / d2 inf``."""
+    rows_c = (starts[:, None] + cols[None, :]).clamp(0, db.shape[0] - 1)
+    cand = db[rows_c]                                        # [Q, lmax, n]
+    valid = (cols[None, :] < sizes[:, None]) & alive[rows_c]
+    d2 = _dist2_gather(metric, qs, prep, cand, valid,
+                       topd[:, -1].contiguous())
+    del cand
+    idt = torch.where(torch.isinf(d2), -1, ids[rows_c])
+    return ops.topk_merge(topd, topi, d2, idt)
+
+
+def _leaf_topk_device(dev: DeviceIndex, qs: torch.Tensor, prep: tuple,
+                      lbq: torch.Tensor, routed: torch.Tensor, *, k: int,
+                      kk: int, nbr: int, metric: Metric = ED
+                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Scan the routed leaf (plus the ``nbr-1`` next-best leaves by the
+    metric's leaf bound) of every query over the flattened ``[S·Tp, n]``
+    shard layout and return the deduped top-k: ``(ids [Q,k], d2 [Q,k],
+    leaves [Q,nbr])``.  Invalid slots come back as ``id -1 / d2 inf``.
+
+    The leaves are picked by a stable ascending sort of the bounds with the
+    routed leaf forced first (``-inf``): equal bounds keep the lower leaf id
+    first, as ``lax.top_k`` does (``torch.topk`` does not promise an order
+    among equal values, and the interval MINDIST is 0 for every leaf whose
+    region holds the query).  Leaves are scanned one rank at a time with a
+    running top-k merge, so the peak temporary is ``[Q, lmax, n]``, never
+    ``[Q, nbr, lmax, n]``; the running k-th best feeds the DTW cutoff, so
+    later ranks prune against what earlier ranks found."""
+    Q = qs.shape[0]
+    lmax, device = dev.lmax, qs.device
+    db_flat = dev.db.reshape(-1, dev.n)
+    ids_flat = dev.ids.reshape(-1)
+    alive_flat = dev.alive.reshape(-1)
+    if dev.shard_health is not None:
+        # degraded mode on the flattened view: rows of dead shards read as
+        # tombstoned, so their candidates never enter a merge
+        hm = torch.tensor(dev.shard_health, dtype=torch.bool, device=device)
+        alive_flat = alive_flat & hm.repeat_interleave(dev.shard_rows)
+    scores = lbq.clone()
+    scores[torch.arange(Q, device=device), routed] = -_INF
+    leaves = torch.sort(scores, dim=1, stable=True).indices[:, :nbr]
+    cols = torch.arange(lmax, device=device)
+    topd = torch.full((Q, kk), _INF, dtype=torch.float32, device=device)
+    topi = torch.full((Q, kk), -1, dtype=torch.int32, device=device)
+    for j in range(nbr):
+        starts = dev.leaf_start[leaves[:, j]].long()         # [Q] flattened
+        topd, topi = _merge_leaf_rank(
+            metric, qs, prep, db_flat, ids_flat, alive_flat, starts,
+            dev.leaf_size[leaves[:, j]], cols, topd, topi)
+    d2f, idf = _dedup_topk(topd, topi, k)                    # segment-min dedup
+    return idf, d2f, leaves.to(torch.int32)
+
+
+def _approx_knn_device(dev: DeviceIndex, prep: tuple, sax_q: torch.Tensor,
+                       qs: torch.Tensor, *, k: int, kk: int, nbr: int,
+                       metric: Metric = ED
+                       ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The whole approximate path on the device (descent + leaf scan).
+    Returns ``(ids [Q,k], d2 [Q,k], leaves [Q,nbr])``; a degenerate tree
+    (the root is the only leaf) routes every query to leaf 0, as the host
+    path does."""
+    lbq = ops.lb_paa_interval(prep[0], prep[1], dev.leaf_lo_g, dev.leaf_hi_g,
+                              dev.n)
+    if dev.node_lam.shape[0] == 0:   # degenerate tree: the root is the only leaf
+        routed = torch.zeros(qs.shape[0], dtype=torch.int64, device=qs.device)
+    else:
+        edge_lb = ops.lb_paa_interval(prep[0], prep[1], dev.rt_lo, dev.rt_hi,
+                                      dev.n)
+        routed = _descend_device(dev, sax_q, edge_lb)
+    return _leaf_topk_device(dev, qs, prep, lbq, routed, k=k, kk=kk,
+                             nbr=nbr, metric=metric)
+
+
+def approximate_search_device_batch(index: DumpyIndex, qs: np.ndarray, k: int,
+                                    nbr: int = 1,
+                                    dev: DeviceIndex | None = None,
+                                    metric: str | Metric = "ed",
+                                    band: int | None = None,
+                                    n_shards: int = 1,
+                                    device: str | torch.device = "cuda"
+                                    ) -> tuple[np.ndarray, np.ndarray,
+                                               np.ndarray]:
+    """Batched approximate kNN (paper §5.5 descent, vectorized over queries).
+
+    ``nbr=1`` visits exactly the leaf the host ``approximate_search`` picks
+    at the same metric.  ``nbr>1`` widens to the next-best leaves by the
+    metric's leaf bound — the serving recall knob; unlike host
+    ``extended_search`` the extras are chosen globally, not within the
+    target subtree.  Returns ``(ids [Q, k'], d [Q, k'], leaves [Q, nbr])``
+    with ``k' = min(k, nbr·max_leaf_size)``; empty slots are ``id -1 /
+    d inf``.  Distances are the device's own sums (no host re-rank).  Fuzzy
+    replicas sharing a leaf are deduped in the device merge.
+
+    Runs on ``device`` (CUDA unless the caller asks for ``"cpu"``), or on
+    the device of a given ``dev``; ``n_shards`` picks the cached layout."""
+    qs = _validate_queries(qs, index.n)
+    met = resolve(metric, qs.shape[1], band)
+    if dev is None:
+        dev = index.device_index(n_shards=n_shards, device=device)
+    sax_p = index.params.sax
+    qs_dev = torch.from_numpy(qs).to(dev.device)
+    prep, sax_q = _prep_batch(met, qs_dev, sax_p.w, sax_p.b)
+
+    nbr = min(nbr, dev.n_leaves)
+    # fuzzy replicas can share a leaf (sibling packing merges them), so merge
+    # with the duplicate margin and segment-min-dedup on device
+    kk = min(_result_margin(dev, k), nbr * dev.lmax)
+    k_out = min(k, nbr * dev.lmax)
+    ids, d2, leaves = _approx_knn_device(dev, prep, sax_q, qs_dev,
+                                         k=k_out, kk=kk, nbr=nbr, metric=met)
+    return (ids.cpu().numpy().astype(np.int64), np.sqrt(d2.cpu().numpy()),
+            leaves.cpu().numpy())
+
+
+# ---------------------------------------------------------------------------
+# batched extended search — Algorithm 4 (sibling subtrees, LB-ordered)
+# ---------------------------------------------------------------------------
+
+def _descend_subtree(dev: DeviceIndex, sax_q: torch.Tensor,
+                     edge_lb: torch.Tensor, *, nbr: int
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Root→subtree descent of a query batch: follow sids (min-LB fallback on
+    empty regions) while the child subtree still holds more than ``nbr``
+    leaves.  Returns ``(parent node id [Q], stop edge index [Q])`` — the stop
+    edge's target is the host descent's stop node, its parent the node whose
+    children form the sibling set."""
+    Q = sax_q.shape[0]
+    z = torch.zeros(Q, dtype=torch.int64, device=sax_q.device)
+    cur, pm, se = z, z, z
+    done = torch.zeros(Q, dtype=torch.bool, device=sax_q.device)
+    for _ in range(dev.depth):
+        e = _route_edges(sax_q, cur, dev.node_csl, dev.node_shift,
+                         dev.node_lam, dev.rt_parent, dev.rt_sid, edge_lb)
+        stop = (~done) & ((dev.rt_leaf[e] >= 0) | (dev.rt_nl[e] <= nbr))
+        pm = torch.where(stop, cur.clamp(0, dev.node_csl.shape[0] - 1), pm)
+        se = torch.where(stop, e, se)
+        done = done | stop
+        cur = torch.where(done, cur, dev.rt_child[e].long())
+    return pm, se
+
+
+def _sibling_schedule(dev: DeviceIndex, prep: tuple, lbq: torch.Tensor,
+                      pm: torch.Tensor, se: torch.Tensor, *, nbr: int
+                      ) -> torch.Tensor:
+    """Per-query leaf visit schedule ``[Q, nbr]`` over the stop subtree.
+
+    Mirrors the host order exactly: the target subtree (the stop edge's
+    span) ranks first, the remaining siblings of the parent group by
+    (interval MINDIST, span begin), and leaves inside every subtree by
+    (leaf LB, leaf id); the overall schedule is the ``nbr`` smallest
+    (sibling rank, leaf LB, leaf id) keys, which equals the host's
+    budget-truncated walk because sibling spans partition the parent span.
+
+    Every query ranks all ``L`` leaves.  The reference sorts a window of
+    ``FlatRouting.stop_span_cap`` leaf ids instead, to give XLA a static
+    width narrower than ``L``; the window holds the whole parent span, so
+    both give the same schedule.  The reference's ``lexsort`` calls are two
+    stable sorts each (least significant key first), its ``argsort`` a
+    stable sort."""
+    Q, L = lbq.shape
+    gmax, device = dev.gmax, lbq.device
+    seg_lo, seg_hi = prep[0], prep[1]
+    i32max = torch.iinfo(torch.int32).max
+    tb = dev.rt_begin[se]                                     # [Q]
+    goff = dev.grp_off[pm]
+    gcnt = dev.grp_off[pm + 1] - goff
+    gpos = torch.arange(gmax, dtype=torch.int32, device=device)
+    gi = (goff[:, None] + gpos[None, :]).clamp(
+        0, dev.grp_begin.shape[0] - 1).long()                 # [Q, gmax]
+    valid = gpos[None, :] < gcnt[:, None]
+    m_begin = torch.where(valid, dev.grp_begin[gi], i32max)
+    # member interval MINDIST (squared — order-equal to the host sqrt form)
+    below = torch.clamp_min(dev.grp_lo[gi] - seg_hi[:, None, :], 0.0)
+    above = torch.clamp_min(seg_lo[:, None, :] - dev.grp_hi[gi], 0.0)
+    d = torch.maximum(below, above)
+    sib_lb = (dev.n / dev.w) * (d * d).sum(-1)                # [Q, gmax]
+    sib_lb = torch.where(valid, sib_lb, _INF)
+    sib_lb = torch.where(m_begin == tb[:, None], -_INF, sib_lb)
+    # member visit rank: (LB, span begin), target forced first by the -inf
+    perm = _lexsort2(m_begin, sib_lb)
+    rank = torch.argsort(perm, dim=1)                         # inverse perm
+    nb, ne = dev.node_begin[pm][:, None], dev.node_end[pm][:, None]
+    # owning member of every leaf: spans are begin-sorted and partition the
+    # parent span, so one searchsorted per query resolves it
+    leaf_ids = torch.arange(L, dtype=torch.int32, device=device)
+    sidx = torch.searchsorted(m_begin, leaf_ids.expand(Q, L).contiguous(),
+                              right=True) - 1
+    leaf_rank = torch.gather(rank, 1, sidx.clamp(0, gmax - 1))
+    under = (leaf_ids[None, :] >= nb) & (leaf_ids[None, :] < ne)
+    leaf_rank = torch.where(under, leaf_rank, gmax + 1)
+    order = _lexsort2(lbq, leaf_rank)                         # stable → id
+    return order[:, :nbr].to(torch.int32)
+
+
+def _scan_leaf_schedule(dev: DeviceIndex, qs: torch.Tensor, prep: tuple,
+                        leaves: torch.Tensor, *, k: int, metric: Metric = ED
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Visit the per-query leaf schedule shard by shard and merge.
+
+    Shard ``s`` owns the contiguous leaf range ``leaf_bounds[s:s+2]`` of
+    the leaf-aligned layout; it scans only the scheduled leaves inside that
+    range (the rest mask to ``+inf``), producing a local ``[Q, k]`` top-k.
+    The ``[S, Q, k]`` locals then merge exactly like the exact path (dead
+    shards masked, segment-min dedup, top-k), so results are bitwise
+    invariant to the shard count.  Candidate distances go through
+    :func:`_dist2_gather`, so DTW candidates prune against the shard-local
+    running k-th best."""
+    Q, nbr = leaves.shape
+    lmax, L = dev.lmax, dev.n_leaves
+    Tp, device = dev.shard_rows, qs.device
+    cols = torch.arange(lmax, device=device)
+    lfc = leaves.clamp(0, L - 1).long()
+    parts = []
+    for s in range(dev.n_shards):
+        a, z = dev.leaf_bounds[s], dev.leaf_bounds[s + 1]
+        topd = torch.full((Q, k), _INF, dtype=torch.float32, device=device)
+        topi = torch.full((Q, k), -1, dtype=torch.int32, device=device)
+        for j in range(nbr):
+            mine = (leaves[:, j] >= a) & (leaves[:, j] < z)
+            starts = dev.leaf_start[lfc[:, j]].long() - s * Tp  # shard-local
+            sizes = torch.where(mine, dev.leaf_size[lfc[:, j]], 0)
+            topd, topi = _merge_leaf_rank(
+                metric, qs, prep, dev.db[s], dev.ids[s], dev.alive[s],
+                starts, sizes, cols, topd, topi)
+        parts.append((topd, topi))
+    topd = torch.stack([p[0] for p in parts])                 # [S, Q, k]
+    topi = torch.stack([p[1] for p in parts])
+    topd, topi, _, _ = _mask_dead_shards(dev.shard_health, topd, topi)
+    S = topd.shape[0]
+    alld = topd.permute(1, 0, 2).reshape(Q, S * k)
+    alli = topi.permute(1, 0, 2).reshape(Q, S * k)
+    return _dedup_topk(alld, alli, k)
+
+
+def _extended_knn_sharded(dev: DeviceIndex, prep: tuple,
+                          sax_q: torch.Tensor, qs: torch.Tensor, *, k: int,
+                          nbr: int, subtree: bool, metric: Metric = ED
+                          ) -> tuple[torch.Tensor, torch.Tensor,
+                                     torch.Tensor]:
+    """Batched Alg. 4: descent → sibling schedule → shard-local scan → dedup
+    merge.  Returns ``(d2 [Q,k], ids [Q,k], leaves [Q,nbr])``.  With
+    ``subtree=False`` (the whole tree fits the ``nbr`` budget, or the root
+    is the only leaf) the schedule is simply every leaf by (LB, leaf id) —
+    the host's ``parent is None`` branch.  All bounds are the metric's
+    interval MINDIST."""
+    lbq = ops.lb_paa_interval(prep[0], prep[1], dev.leaf_lo_g, dev.leaf_hi_g,
+                              dev.n)
+    if subtree:
+        edge_lb = ops.lb_paa_interval(prep[0], prep[1], dev.rt_lo, dev.rt_hi,
+                                      dev.n)
+        pm, se = _descend_subtree(dev, sax_q, edge_lb, nbr=nbr)
+        leaves = _sibling_schedule(dev, prep, lbq, pm, se, nbr=nbr)
+    else:
+        order = torch.sort(lbq, dim=1, stable=True).indices  # stable → id
+        leaves = order[:, :nbr].to(torch.int32)
+    d2, ids = _scan_leaf_schedule(dev, qs, prep, leaves, k=k, metric=metric)
+    return d2, ids, leaves
+
+
+def extended_search_device_batch(index: DumpyIndex, qs: np.ndarray, k: int,
+                                 nbr: int = 1, chunk: int = 2048,
+                                 n_shards: int = 1,
+                                 dev: DeviceIndex | None = None,
+                                 rerank: bool = True,
+                                 metric: str | Metric = "ed",
+                                 band: int | None = None,
+                                 shard_health=None,
+                                 device: str | torch.device = "cuda"):
+    """Batched extended approximate kNN (paper Alg. 4, vectorized over
+    queries): ``qs [Q, n]`` → ``(ids [Q, k], d [Q, k], leaves [Q, nbr'])``
+    with ``nbr' = min(nbr, n_leaves)``; short results pad ``id -1 / d inf``.
+
+    The visit set per query is exactly the host ``extended_search`` schedule
+    at the same metric (target subtree first, then LB-ordered siblings,
+    LB-ordered leaves within), so ``nbr=1`` degenerates to the approximate
+    answer and the k-th distance is monotone in ``nbr``.  ``n_shards``
+    picks the cached ``[S, ...]`` layout: the leaf scan runs shard by shard
+    and merges through the same segment-min dedup as the exact path,
+    bitwise invariant to the shard count.
+
+    ``rerank=True`` (default) finishes with the k-sized host re-rank
+    (:func:`_finalize_exact`) for bitwise (ids, dists) parity with
+    ``extended_search``; ``rerank=False`` keeps the whole path on the
+    device (ids ordered by the device d², distances returned as ``sqrt`` of
+    the device form).
+
+    ``shard_health`` enables degraded mode exactly as in
+    :func:`exact_search_device_batch` (dead shards masked from the scan and
+    merge; a trailing ``coverage`` float joins the return tuple).  Runs on
+    ``device`` (CUDA unless the caller asks for ``"cpu"``), or on the device
+    of a given ``dev``."""
+    qs = _validate_queries(qs, index.n)
+    met = resolve(metric, qs.shape[1], band)
+    if dev is None:
+        dev = index.device_index(chunk=chunk, n_shards=n_shards,
+                                 device=device)
+    want_cov = shard_health is not None or dev.shard_health is not None
+    if shard_health is not None:
+        dev = dev.with_shard_health(shard_health)
+    sax_p = index.params.sax
+    qs_dev = torch.from_numpy(qs).to(dev.device)
+    prep, sax_q = _prep_batch(met, qs_dev, sax_p.w, sax_p.b)
+    L = dev.n_leaves
+    nbr_eff = max(min(int(nbr), L), 1)
+    subtree = dev.node_lam.shape[0] > 0 and L > nbr_eff
+    kk = _result_margin(dev, k) + (8 if rerank else 0)
+    d2, ids, leaves = _extended_knn_sharded(dev, prep, sax_q, qs_dev,
+                                            k=kk, nbr=nbr_eff,
+                                            subtree=subtree, metric=met)
+    if rerank:
+        ids_out, d_out = _finalize_exact(index, qs, ids.cpu().numpy(), k, met)
+        out = [ids_out, d_out, leaves.cpu().numpy()]
+    else:
+        out = [ids.cpu().numpy()[:, :k].astype(np.int64),
+               np.sqrt(d2.cpu().numpy())[:, :k], leaves.cpu().numpy()]
+    if want_cov:
+        out.append(shard_coverage(index, dev))
+    return tuple(out)

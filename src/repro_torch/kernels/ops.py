@@ -76,6 +76,18 @@ def dtw_band(qs: torch.Tensor, xs: torch.Tensor, mask: torch.Tensor,
     return ref.dtw_band_ref(qs, xs, mask, cutoff2, r, idx)
 
 
+def knn_from_leaves(q: torch.Tensor, db_ordered: torch.Tensor, k: int
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Top-k over a contiguous candidate slab: distances by ``pairwise_l2``,
+    selection by a stable ascending sort, so equal distances keep the lower
+    position first (``lax.top_k``'s order).  Returns (ordered-position ids,
+    d2)."""
+    d2 = pairwise_l2(q[None, :], db_ordered)[0]
+    d2s, idx = torch.sort(d2, stable=True)
+    k = min(k, d2.shape[0])
+    return idx[:k], d2s[:k]
+
+
 def topk_merge(topd: torch.Tensor, topi: torch.Tensor, d2: torch.Tensor,
                ids: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-query top-k merge step of the batched search loop

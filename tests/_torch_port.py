@@ -8,7 +8,9 @@
   import, so every worker collects the same tests);
 * :func:`build_pair` — the same data and parameters built by both packages
   (the only helper that imports the reference; the card's tests import no
-  ``jax``, so they run where JAX is not installed).
+  ``jax``, so they run where JAX is not installed);
+* :func:`assert_ties_only` — the rtol rule for answers that each package
+  sums in its own float32 order.
 """
 from __future__ import annotations
 
@@ -143,6 +145,20 @@ def dtw_mask_cutoff(rng, qs, xs, r: int, on: float = 0.7):
                         torch.full((Q,), np.inf), r).numpy()
     cut = np.quantile(full, 0.25, axis=1).astype(np.float32)
     return mask, cut
+
+
+def assert_ties_only(ids, d, r_ids, r_d, rtol: float = 1e-5):
+    """Two packages' ``[Q, k]`` answers from their own float32 sums:
+    distances within ``rtol`` (``+inf`` slots in the same places), ids
+    equal except at positions whose distance is tied (within ``rtol``)
+    with a neighbouring position, where the tied ids may swap."""
+    np.testing.assert_array_equal(np.isinf(d), np.isinf(r_d))
+    fin = np.isfinite(r_d)
+    np.testing.assert_allclose(d[fin], r_d[fin], rtol=rtol, atol=0)
+    for qi, j in zip(*np.nonzero(ids != r_ids)):
+        near = [r_d[qi, jj] for jj in (j - 1, j + 1) if 0 <= jj < d.shape[1]]
+        assert any(abs(x - r_d[qi, j]) <= rtol * r_d[qi, j] for x in near), \
+            (qi, j, ids[qi], r_ids[qi], r_d[qi])
 
 
 def params_pair(w: int = 8, b: int = 8, th: int = 128, fuzzy_f: float = 0.0):

@@ -79,6 +79,19 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
     assert pi._n_device_builds == 0        # nothing ran on the CPU instead
 
 
+def test_approx_and_extended_default_to_cuda_and_raise_without_it(no_cuda):
+    from repro.data.series import random_walks
+    from repro_torch.core.search_device import (
+        approximate_search_device_batch, extended_search_device_batch)
+    _, pi = build_pair(random_walks(300, 64, seed=0))
+    qs = random_walks(2, 64, seed=1)
+    for search in (approximate_search_device_batch,
+                   extended_search_device_batch):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            search(pi, qs, 5)
+    assert pi._n_device_builds == 0        # nothing ran on the CPU instead
+
+
 def test_chip_smoke_fails_alone_and_without_cuda(no_cuda, tmp_path):
     shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
     for cwd in (tmp_path, ROOT):

@@ -1049,6 +1049,33 @@ def test_dtw_band_row_table_is_the_gather():
     assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("X,n,k", [(100, 64, 3), (333, 96, 10), (5, 64, 9)])
+def test_knn_from_leaves_matches_reference(X, n, k):
+    """``ops.knn_from_leaves`` on the CPU (``pairwise_l2``'s twin, then a
+    stable sort) against the reference's (its Pallas ``pairwise_l2`` in
+    interpret mode, then ``lax.top_k``), as ``test_kernels.py`` calls it:
+    the query's own row first at distance ~0; distances within rtol 1e-5
+    (atol 1e-4: the row at ~0), ids equal except between such ties.  Rows
+    repeated twice give exact ties, which keep the lower position first in
+    both packages."""
+    x = RNG.standard_normal((X, n)).astype(np.float32)
+    x[X // 2] = x[X // 3]                    # an exact tie
+    for qi in (0, X // 3):
+        r_ids, r_d2 = (np.asarray(a) for a in r_ops.knn_from_leaves(
+            jnp.asarray(x[qi]), jnp.asarray(x), k))
+        ids, d2 = ops.knn_from_leaves(torch.from_numpy(x[qi]),
+                                      torch.from_numpy(x), k)
+        assert ids.shape == d2.shape == (min(k, X),)
+        assert int(ids[0]) == qi
+        np.testing.assert_allclose(d2.numpy(), r_d2, rtol=1e-5, atol=1e-4)
+        for j in np.nonzero(ids.numpy() != r_ids)[0]:
+            assert np.isclose(r_d2[j], r_d2[j - 1 if j else 1], rtol=1e-5,
+                              atol=1e-4), (j, ids, r_ids, r_d2)
+    ids, _ = ops.knn_from_leaves(torch.from_numpy(x[X // 3]),
+                                 torch.from_numpy(x), 2)
+    assert ids.tolist() == sorted({X // 3, X // 2})
+
+
 def test_ops_routes_cpu_tensors_to_twins():
     """A CPU tensor goes to the twin and launches nothing; the kernel
     wrappers themselves refuse CPU tensors (no silent fallback)."""

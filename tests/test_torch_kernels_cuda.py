@@ -374,3 +374,28 @@ def test_dtw_band_kernel_edges_bitwise(cuda, Q, m, n, r, on, layout):
     band past the old cap, and an all-masked call."""
     _dtw_band_case(cuda, Q, m, n, r, layout, on,
                    rows=RNG.integers(0, m, (Q, m)))
+
+
+@pytest.mark.parametrize("X,n,k", [(100, 64, 3), (2048, 256, 10),
+                                   (5, 97, 9)])
+def test_knn_from_leaves_on_card(cuda, X, n, k):
+    """``ops.knn_from_leaves`` on CUDA launches ``pairwise_l2`` once; its
+    distances within 1e-5 (|q|^2 + |x|^2) of the twin's, ids equal except
+    between such ties, an exact tie (a repeated row) in position order."""
+    x = RNG.standard_normal((X, n)).astype(np.float32)
+    x[X // 2] = x[X // 3]
+    xt = torch.from_numpy(x).to(cuda)
+    q = xt[X // 3]
+    before = pairwise_l2.launches
+    ids, d2 = ops.knn_from_leaves(q, xt, k)
+    assert pairwise_l2.launches == before + 1
+    want = ref.pairwise_l2_ref(q[None], xt)[0]
+    w_d2, w_ids = torch.sort(want, stable=True)
+    scale = float((q * q).sum()) + (xt * xt).sum(1)
+    assert ids.shape == d2.shape == (min(k, X),)
+    assert bool(((d2 - w_d2[:k]).abs() <= 1e-5 * scale[w_ids[:k]]).all())
+    tie = 1e-5 * float(scale.max())
+    for j in torch.nonzero(ids != w_ids[:k]).flatten().tolist():
+        assert abs(float(w_d2[j]) - float(w_d2[j - 1 if j else 1])) <= tie
+    assert sorted(ids[:2].tolist()) == ids[:2].tolist() == \
+        sorted({X // 3, X // 2})
