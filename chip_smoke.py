@@ -68,7 +68,28 @@ Phases, each printed with its seconds:
    the routing edge table and ``lb_keogh``, ``lb_improved`` and
    ``dtw_band`` at two real per-query leaf ranks, each against its twin and
    timed beside its bound and the launch floor; one profiled ED and one DTW
-   extended batch at nbr=16.
+   extended batch at nbr=16;
+10. serving on the same ``DeviceIndex`` (no second layout; ``k_max`` 10,
+   ``nbr_max`` 4, band 25): (a) a bucket of every ladder size 1–64 (k
+   cycling 1..10, nbr 1..4, every fourth lane DTW, one dead lane), each
+   live lane held against the same request alone through
+   ``extended_search_device_batch(rerank=False)`` and against a float64
+   top-k over its scheduled leaves; (b) the five kernels a bucket launches
+   (``pairwise_l2`` is off this path) at B = 1 and B = 64 against their
+   plain versions, timed beside their bounds, with their launches a
+   bucket; (c) ``bucket_search_launch`` under
+   ``torch.cuda.set_sync_debug_mode("error")`` with the stream held: it
+   returns before the device starts, host µs against the bucket's device
+   ms; (d) open-loop Poisson load through ``CoalescingFrontend``
+   (``max_batch`` 64, ``max_wait`` 2 ms, the knob mix of
+   ``benchmarks/bench_serving.py``) at 0.25, 0.6, 1.0 and 1.4 x phase 9's
+   closed-loop ED extended nbr=4 ``rerank=False`` rate, then a 25%-DTW mix
+   at half the closed-loop rate of such buckets, after a NaN request that
+   must fail only its own future; queries/s, latency p50 / p99 / p99.9
+   from the scheduled arrival, occupancy and padding; (e) the kNN-softmax
+   head at OLMo-1B's width (``lm_head [2048, 50 304]`` from the seed): the
+   front-end's tokens equal ``step_batch``'s, the batched candidates equal
+   the host search's up to ties, decode tokens/s and recall.
 """
 from __future__ import annotations
 
@@ -135,6 +156,20 @@ LBPAA_EDGES = [(1, 1, 1), (5, 333, 3), (9, 77, 64), (33, 1500, 33),
 # the leaf table at scale: the shard-0 table repeated, 757 x 25 = 18 925
 # leaves, as a 100 M-series collection at th = 10 000 has
 LB_SCALE = 25
+# phase 10, serving: the knob bounds, coalescing settings and rates of
+# benchmarks/bench_serving.py
+SERVE_K_MAX, SERVE_NBR_MAX = 10, 4
+SERVE_MAX_BATCH, SERVE_MAX_WAIT = 64, 0.002
+SERVE_LADDER = (1, 2, 4, 8, 16, 32, 64)
+KNOB_MIX = ((5, 1), (10, 4), (10, 2), (5, 4), (10, 1), (5, 2))
+RATE_FRACS = (0.25, 0.6, 1.0, 1.4)   # of the closed-loop batch-64 rate
+DTW_MIX_FRAC = 0.5                   # of the closed-loop 25%-DTW rate
+LOAD_S = 2.0                         # each rate's arrival schedule spans this
+SERVING_KERNELS = ("sax_encode", "lb_paa_interval", "lb_keogh",
+                   "lb_improved", "dtw_band")
+# the kNN-softmax head at OLMo-1B's published width
+# (src/repro/configs/olmo_1b.py: d_model 2048, vocab 50 304)
+OLMO_D, OLMO_VOCAB = 2048, 50_304
 
 
 def fail(msg: str) -> None:
@@ -1412,6 +1447,560 @@ def search_paths_phase(torch, np, sd, hs, ops, ref, gather, dtw_np, index,
     return summary
 
 
+class recorded_calls:
+    """Context manager: count every call of the five serving kernels'
+    dispatchers (``kernels.ops``) while the block runs, and keep the
+    arguments of the first ``keep`` calls of each."""
+
+    def __init__(self, ops, keep: int = 2):
+        self.ops, self.keep = ops, keep
+        self.calls = {name: [] for name in SERVING_KERNELS}
+        self.count = dict.fromkeys(SERVING_KERNELS, 0)
+
+    def __enter__(self):
+        self.real = {name: getattr(self.ops, name) for name in SERVING_KERNELS}
+
+        def recorder(name):
+            def call(*a, **kw):
+                self.count[name] += 1
+                if len(self.calls[name]) < self.keep:
+                    self.calls[name].append((a, kw))
+                return self.real[name](*a, **kw)
+            return call
+
+        for name in SERVING_KERNELS:
+            setattr(self.ops, name, recorder(name))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.real.items():
+            setattr(self.ops, name, fn)
+
+
+def ties_only(np, ids, d, r_ids, r_d, rtol: float = 1e-5) -> tuple:
+    """``(ok, max rel gap)``: two ``[Q, k]`` answers agree to ``rtol`` in
+    their distances (``+inf`` in the same places) and their ids differ only
+    between positions whose distances are tied within ``rtol``."""
+    if not np.array_equal(np.isinf(d), np.isinf(r_d)):
+        return False, float("inf")
+    fin = np.isfinite(r_d)
+    gap = (float(np.max(np.abs(d[fin] - r_d[fin]) / r_d[fin]))
+           if fin.any() else 0.0)
+    if gap > rtol:
+        return False, gap
+    for qi, j in zip(*np.nonzero(ids != r_ids)):
+        near = [r_d[qi, jj] for jj in (j - 1, j + 1) if 0 <= jj < d.shape[1]]
+        if not any(abs(x - r_d[qi, j]) <= rtol * r_d[qi, j] for x in near):
+            return False, gap
+    return True, gap
+
+
+def serving_knobs(B: int, offset: int) -> tuple[list, list, list]:
+    """A ladder bucket's lanes: ``k`` cycling 1..10, ``nbr`` cycling 1..4,
+    every fourth lane DTW (25%), lane 1 dead (``k = 0``) in buckets of 4
+    lanes or more."""
+    ks = [1 + (offset + i) % SERVE_K_MAX for i in range(B)]
+    nbrs = [1 + (offset + i) % SERVE_NBR_MAX for i in range(B)]
+    mets = ["dtw" if (offset + i) % 4 == 3 else "ed" for i in range(B)]
+    if B >= 4:
+        ks[1] = 0
+    return ks, nbrs, mets
+
+
+def bucket_parity(torch, np, sd, dtw_np, index, dev, db, qs) -> dict:
+    """Phase 10 (a): a bucket of every ladder size, each live lane held
+    against the same request alone (``extended_search_device_batch(
+    rerank=False)``) — schedules bitwise; ids and distances bitwise, or
+    else counted (fault C7) and held ties-only at rtol 1e-5 — and against a
+    float64 top-k over its own scheduled leaves.  Fails the run on a
+    miss."""
+    lanes = differ = tied = dtw_lanes = 0
+    gap = 0.0
+    offset = 0
+    for B in SERVE_LADDER:
+        qb = qs[offset % len(qs):][:B].copy()
+        if len(qb) < B:
+            qb = np.concatenate([qb, qs[:B - len(qb)]])
+        ks, nbrs, mets = serving_knobs(B, offset)
+        for i, k in enumerate(ks):
+            if k == 0:
+                qb[i] = 0.0                      # a dead lane: finite pad
+        ids, d, leaves = sd.bucket_search_device_batch(
+            index, qb, ks, nbrs, mets, k_max=SERVE_K_MAX,
+            nbr_max=SERVE_NBR_MAX, band=BAND, dev=dev)
+        for i, (k, nbr, m) in enumerate(zip(ks, nbrs, mets)):
+            if k == 0:
+                if not ((ids[i] == -1).all() and np.isinf(d[i]).all()
+                        and (leaves[i] == -1).all()):
+                    fail(f"bucket {B}: dead lane {i} returned results")
+                continue
+            lanes += 1
+            dtw_lanes += m == "dtw"
+            a_ids, a_d, a_leaves = sd.extended_search_device_batch(
+                index, qb[i:i + 1], k, nbr=nbr, metric=m, band=BAND,
+                rerank=False, dev=dev)
+            if not np.array_equal(leaves[i, :nbr], a_leaves[0][:nbr]):
+                fail(f"bucket {B} lane {i}: schedule differs from the "
+                     f"request alone")
+            if not ((leaves[i, nbr:] == -1).all() and (ids[i, k:] == -1).all()
+                    and np.isinf(d[i, k:]).all()):
+                fail(f"bucket {B} lane {i}: columns past k / nbr not padded")
+            if not (np.array_equal(ids[i, :k], a_ids[0])
+                    and np.array_equal(d[i, :k], a_d[0])):
+                differ += 1
+                ok, g = ties_only(np, ids[i:i + 1, :k], d[i:i + 1, :k],
+                                  a_ids, a_d)
+                gap = max(gap, g)
+                if not ok:
+                    fail(f"bucket {B} lane {i} ({m}): differs from the "
+                         f"request alone beyond ties at rtol 1e-5 (max rel "
+                         f"{g:.3e})")
+            # float64 top-k over the lane's own scheduled leaves
+            q32 = torch.from_numpy(qb[i:i + 1]).cuda()
+            rows_of = schedule_rows(torch, np, dev, leaves[i:i + 1, :nbr])
+            if m == "ed":
+                bd, bi = brute_force(torch, dev, q32, k, rows_of)
+                dist = (lambda qi, j, q=qb[i]: np.sqrt(
+                    ((db[j].astype(np.float64) - q.astype(np.float64))
+                     ** 2).sum()))
+            else:
+                bd, bi, _ = dtw_float64_check(torch, dev, q32,
+                                              d[i:i + 1, :k], BAND, k,
+                                              rows_of)
+                dist = lambda qi, j, q=qb[i]: dtw_np(q, db[j], BAND)
+            tied += check_exact(np, ids[i:i + 1, :k], d[i:i + 1, :k],
+                                bd.cpu().numpy(), bi.cpu().numpy(), dist, k)
+        offset += B
+    print(f"  bucket parity: buckets of {SERVE_LADDER} lanes (k 1..10, nbr "
+          f"1..4, every fourth lane DTW band {BAND}, lane 1 dead from 4 "
+          f"lanes up): {lanes} live lanes ({dtw_lanes} DTW), schedules "
+          f"bitwise equal to each request alone; ids and distances differ "
+          f"from the request alone in {differ} lanes (max rel gap "
+          f"{gap:.3e}); every lane equal to the float64 top-k over its "
+          f"scheduled leaves (tied positions {tied})")
+    return dict(lanes=lanes, dtw_lanes=dtw_lanes, lanes_differing=differ,
+                max_rel_gap=gap)
+
+
+def serving_kernels(torch, np, sd, ops, ref, gather, index, dev, qs, floor,
+                    clock_hz, smi, n_iter: int = 20) -> list:
+    """Phase 10 (b): the five kernels as a bucket calls them, at B = 1 and
+    B = 64 (mixed buckets, every fourth lane DTW): each recorded call
+    against its plain version (``sax_encode`` and ``lb_paa_interval``
+    bitwise against their in-order sums, ``dtw_band`` bitwise against its
+    twin, the LB kernels within rtol 1e-5), its time beside its bound, and
+    each kernel's launches a bucket (pure ED and mixed)."""
+    out = []
+    for B in (1, 64):
+        qb = torch.from_numpy(qs[:B]).cuda()
+        nbrs = np.full(B, SERVE_NBR_MAX)
+        dtw = np.array([i % 4 == 3 for i in range(B)]) if B > 1 \
+            else np.array([True])
+        per_bucket = {}
+        for label, lane_dtw in (("ED", np.zeros(B, bool)), ("mixed", dtw)):
+            with recorded_calls(ops) as rec:
+                sd.bucket_search_launch(index, qb, nbrs, lane_dtw,
+                                        k_max=SERVE_K_MAX,
+                                        nbr_max=SERVE_NBR_MAX, band=BAND,
+                                        dev=dev)
+                torch.cuda.synchronize()
+            per_bucket[label] = dict(rec.count)
+        print(f"  B={B}: launches a bucket, pure ED {per_bucket['ED']}; "
+              f"mixed {per_bucket['mixed']}")
+        calls = rec.calls
+        for name in SERVING_KERNELS:
+            for j, (a, kw) in enumerate(calls[name]):
+                got = getattr(ops, name)(*a, **kw)
+                torch.cuda.synchronize()
+                if name == "sax_encode":
+                    paa, sym = ref.sax_encode_in_order(*a)
+                    ok = (torch.equal(got[0], paa)
+                          and torch.equal(got[1].long(), sym))
+                    x = a[0]
+                    Bq, n, w = x.shape[0], x.shape[1], a[1]
+                    b = bound(4 * (Bq * n + 2 * Bq * w + 255),
+                              Bq * n + Bq * w + Bq * w * 8)
+                    what = f"[{Bq},{n}]"
+                elif name == "lb_paa_interval":
+                    ok = torch.equal(got, ref.lb_paa_interval_in_order(*a))
+                    Q, w = a[0].shape
+                    Lt = a[2].shape[0]
+                    b = bound(4 * (2 * Q * w + 2 * Lt * w + Q * Lt),
+                              7 * Q * Lt * w + Q * Lt)
+                    what = (f"[{Q},{Lt},{w}] "
+                            f"{'leaves' if j == 0 else 'routing edges'}")
+                elif name == "dtw_band":
+                    q, cand, mask, cut, r = a
+                    want, b_ms, b_by, chain = dtw_call_work(
+                        torch, gather, q, cand, mask, cut, r, None, clock_hz)
+                    ok = (torch.equal(torch.isinf(got), torch.isinf(want))
+                          and torch.equal(got, want))
+                    b = (b_ms, b_by)
+                    cutoff = ("no cutoff" if bool(torch.isinf(cut).all())
+                              else "cutoff")
+                    what = (f"per query [{q.shape[0]},{cand.shape[1]}] rank "
+                            f"{j} ({cutoff}, {int(mask.sum())} lanes on)")
+                    del want
+                else:
+                    want = getattr(ref, f"{name}_ref")(*a)
+                    ok = bool(torch.allclose(got, want, rtol=1e-5, atol=1e-5)
+                              and not torch.isnan(got).any())
+                    x = a[0]
+                    Q, m, n = x.shape
+                    el = Q * m * n
+                    n_env = 2 if name == "lb_keogh" else 3
+                    per = LBK_OPS if name == "lb_keogh" else LBI_OPS
+                    b = bound(4 * (el + n_env * Q * n + Q * m), per * el)
+                    what = f"per query [{Q},{m},{n}] rank {j}"
+                    del want
+                if not ok:
+                    fail(f"{name} disagrees with its plain version at a "
+                         f"B={B} bucket's call {what}")
+                ms, host = time_ms(torch, getattr(ops, name),
+                                   [a] * (5 if name == "dtw_band" else n_iter))
+                print(f"    {name} {what}: agrees with its plain version; "
+                      f"kernel {ms:.5f} ms (host {host:.4f} ms per call; "
+                      f"launch floor {floor:.5f} ms), bound {b[0]:.6f} ms "
+                      f"({b[1]}) [{smi}]")
+                out.append(dict(name=name, B=B, call=what, ms=ms,
+                                bound_ms=b[0], bound_by=b[1],
+                                launches_ed=per_bucket["ED"][name],
+                                launches_mixed=per_bucket["mixed"][name]))
+        del calls, rec
+    return out
+
+
+def launch_without_wait(torch, np, sd, index, dev, qs, smi) -> list:
+    """Phase 10 (c): ``bucket_search_launch`` under
+    ``torch.cuda.set_sync_debug_mode("error")`` (a device→host wait inside
+    it raises) while the stream is held by ``torch.cuda._sleep``: the
+    launch must return before the held stream reaches its first kernel.
+    Prints the launch's host µs against the bucket's device ms."""
+    out = []
+    for B in (1, 64):
+        qb = torch.from_numpy(qs[:B]).cuda()
+        nbrs = np.full(B, SERVE_NBR_MAX)
+        for label, lane_dtw in (
+                ("ED", np.zeros(B, bool)),
+                ("mixed", np.array([i % 4 == 3 for i in range(B)])
+                 if B > 1 else np.array([True]))):
+            kw = dict(k_max=SERVE_K_MAX, nbr_max=SERVE_NBR_MAX, band=BAND,
+                      dev=dev)
+            sd.bucket_search_launch(index, qb, nbrs, lane_dtw, **kw)
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(400_000_000)
+            start.record()
+            torch.cuda.set_sync_debug_mode("error")
+            t0 = time.perf_counter()
+            try:
+                sd.bucket_search_launch(index, qb, nbrs, lane_dtw, **kw)
+            except RuntimeError as e:
+                fail(f"a B={B} {label} bucket launch waits for the device: "
+                     f"{e}")
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            host_us = (time.perf_counter() - t0) * 1e6
+            held = not start.query()
+            end.record()
+            torch.cuda.synchronize()
+            dev_ms = start.elapsed_time(end)
+            if not held:
+                fail(f"a B={B} {label} bucket launch returned only after "
+                     f"the held stream ran ({host_us:.1f} us)")
+            print(f"  B={B} {label} bucket: launch under "
+                  f"set_sync_debug_mode('error') returned in {host_us:.1f} "
+                  f"us of host time while the stream was still held; the "
+                  f"bucket's device time {dev_ms:.4f} ms [{smi}]")
+            out.append(dict(B=B, bucket=label, launch_host_us=host_us,
+                            device_ms=dev_ms))
+    return out
+
+
+def open_loop(np, fe, pool, rate: float, n_req: int, mix, seed: int,
+              stats_cls) -> dict:
+    """Drive one Poisson arrival schedule through ``fe`` (the load
+    generator of ``benchmarks/bench_serving.py``): latency is ``t_done -
+    scheduled arrival``, so a slow server cannot slow the clock down.
+    Fails the run if any request fails."""
+    fe.stats = stats_cls()
+    rng = np.random.default_rng(seed)
+    sched = time.perf_counter() + 0.005 + np.cumsum(
+        rng.exponential(1.0 / rate, size=n_req))
+    futs = []
+    for i in range(n_req):
+        now = time.perf_counter()
+        if sched[i] > now:
+            time.sleep(sched[i] - now)
+        k, nbr, met = mix[i % len(mix)]
+        futs.append(fe.submit(pool[i % len(pool)], k=k, nbr=nbr, metric=met))
+    lat = np.empty(n_req)
+    t_last = 0.0
+    for i, f in enumerate(futs):
+        try:
+            r = f.result(timeout=300)
+        except Exception as e:                 # noqa: BLE001 - fail the run
+            fail(f"open-loop request {i} at {rate:.1f} req/s failed: {e!r}")
+        lat[i] = r.t_done - sched[i]
+        t_last = max(t_last, r.t_done)
+    s = fe.stats
+    if s.failed:
+        fail(f"{s.failed} requests failed at {rate:.1f} req/s")
+    return {"offered_qps": rate, "n_requests": n_req,
+            "sustained_qps": n_req / (t_last - sched[0]),
+            "p50_ms": float(np.percentile(lat, 50) * 1e3),
+            "p99_ms": float(np.percentile(lat, 99) * 1e3),
+            "p999_ms": float(np.percentile(lat, 99.9) * 1e3),
+            "mean_ms": float(lat.mean() * 1e3),
+            "padding_waste": s.padding_waste,
+            "mean_occupancy": s.mean_occupancy, "batches": s.batches,
+            "occupancy": {str(b): c for b, c in sorted(s.occupancy.items())}}
+
+
+def closed_loop_qps(np, fn, batches) -> float:
+    """Median queries/s of whole passes over ``batches`` (at least
+    ``QPS_MIN_PASSES`` passes and ``QPS_WINDOW_S`` seconds), as phase 9
+    times its configurations."""
+    fn(batches[0])
+    rates, t1 = [], time.perf_counter()
+    while (len(rates) < QPS_MIN_PASSES
+           or time.perf_counter() - t1 < QPS_WINDOW_S):
+        t2 = time.perf_counter()
+        for qb in batches:
+            fn(qb)
+        rates.append(sum(len(qb) for qb in batches)
+                     / (time.perf_counter() - t2))
+    return float(np.median(rates))
+
+
+def open_loop_load(torch, np, sd, mods, frontend_cls, stats_cls, index, dev,
+                   qs, batches, paths, smi) -> dict:
+    """Phase 10 (d): open-loop Poisson load through a ``CoalescingFrontend``
+    (``max_batch`` 64, ``max_wait`` 2 ms): ED at 0.25, 0.6, 1.0 and 1.4 x
+    the closed-loop ED extended nbr=4 ``rerank=False`` batch-64 rate
+    (phase 9, this run), then a 25%-DTW mix at half the closed-loop rate of
+    25%-DTW buckets (measured here).  A NaN request first: it fails its own
+    future with the individual path's error, its neighbours complete.  The
+    kernel counts are zeroed before the load and read after it; every one
+    of the five serving kernels must have run.  Fails the run if a request
+    fails or the mean occupancy at the top rate is not above 1."""
+    closed = next(x["qps"] for x in paths
+                  if (x["metric"], x["path"], x["nbr"], x["rerank"])
+                  == ("ED", "extended", SERVE_NBR_MAX, False))
+    t1 = time.perf_counter()
+    fe = frontend_cls(index, k_max=SERVE_K_MAX, nbr_max=SERVE_NBR_MAX,
+                      max_batch=SERVE_MAX_BATCH, max_wait=SERVE_MAX_WAIT,
+                      band=BAND, dev=dev)
+    print(f"  front-end built and warmed ({len(fe.buckets)} bucket sizes x "
+          f"pure ED and mixed): {time.perf_counter() - t1:.3f} s")
+    out = {"closed_loop_qps": closed}
+    try:
+        # -- a NaN lane through the front-end --------------------------------
+        bad = qs[0].copy()
+        bad[7] = np.nan
+        fe.max_wait = 0.2                  # coalesce the three into one
+        f_ok1 = fe.submit(qs[1], k=3, nbr=2)
+        f_bad = fe.submit(bad, k=3, nbr=2)
+        f_ok2 = fe.submit(qs[2], k=5, nbr=4, metric="dtw")
+        try:
+            f_bad.result(timeout=60)
+            fail("the NaN request completed")
+        except ValueError as e:
+            got_msg = str(e)
+        r1, r2 = f_ok1.result(timeout=60), f_ok2.result(timeout=60)
+        fe.max_wait = SERVE_MAX_WAIT
+        try:
+            sd.extended_search_device_batch(index, bad[None], 3, nbr=2,
+                                            rerank=False, dev=dev)
+            fail("the individual path accepted a NaN query")
+        except ValueError as e:
+            want_msg = str(e)
+        if got_msg != want_msg:
+            fail(f"the NaN lane's error {got_msg!r} is not the individual "
+                 f"path's {want_msg!r}")
+        for r, q, k, nbr, m in ((r1, qs[1], 3, 2, "ed"),
+                                (r2, qs[2], 5, 4, "dtw")):
+            a = sd.extended_search_device_batch(
+                index, q[None], k, nbr=nbr, metric=m, band=BAND,
+                rerank=False, dev=dev)
+            ok, _ = ties_only(np, r.ids[None], r.d[None], a[0], a[1])
+            if not (ok and np.array_equal(r.leaves, a[2][0][:nbr])):
+                fail(f"a neighbour of the NaN lane ({m}) differs from the "
+                     f"request alone")
+        print(f"  NaN lane: failed its own future with {got_msg!r} (the "
+              f"individual path's message); its two neighbours (ED, DTW) "
+              f"equal their requests alone")
+
+        # -- ED at fractions of the closed-loop rate --------------------------
+        for m in mods.values():
+            m.launches = 0
+        ed_mix = [(k, nbr, "ed") for k, nbr in KNOB_MIX]
+        out["rates"] = {}
+        for i, frac in enumerate(RATE_FRACS):
+            rate = frac * closed
+            rec = open_loop(np, fe, qs, rate, max(200, int(rate * LOAD_S)),
+                            ed_mix, seed=100 + i, stats_cls=stats_cls)
+            out["rates"][str(frac)] = rec
+            print(f"  ED open loop {frac} x {closed:.2f} = {rate:.2f} req/s "
+                  f"offered: sustained {rec['sustained_qps']:.2f}, latency "
+                  f"p50 {rec['p50_ms']:.3f} / p99 {rec['p99_ms']:.3f} / "
+                  f"p99.9 {rec['p999_ms']:.3f} ms, mean occupancy "
+                  f"{rec['mean_occupancy']:.3f}, padding waste "
+                  f"{rec['padding_waste']:.4f}, {rec['batches']} buckets, "
+                  f"occupancy {rec['occupancy']} [{smi}]")
+        top = out["rates"][str(RATE_FRACS[-1])]
+        if top["mean_occupancy"] <= 1.0:
+            fail(f"no coalescing at the top rate: mean occupancy "
+                 f"{top['mean_occupancy']}")
+
+        # -- 25% DTW at half the closed-loop rate of mixed buckets ------------
+        dtw_mix = [(k, nbr, "dtw" if i % 4 == 3 else "ed")
+                   for i, (k, nbr) in enumerate(KNOB_MIX * 2)]
+        lanes = [dtw_mix[i % len(dtw_mix)] for i in range(BATCH)]
+        ks, nbrs, mets = ([x[j] for x in lanes] for j in range(3))
+        mixed = closed_loop_qps(np, lambda qb: sd.bucket_search_device_batch(
+            index, qb, ks, nbrs, mets, k_max=SERVE_K_MAX,
+            nbr_max=SERVE_NBR_MAX, band=BAND, dev=dev), batches)
+        rate = DTW_MIX_FRAC * mixed
+        rec = open_loop(np, fe, qs, rate, max(200, int(rate * LOAD_S)),
+                        dtw_mix, seed=200, stats_cls=stats_cls)
+        out["closed_loop_mixed_qps"] = mixed
+        out["dtw_mix"] = rec
+        print(f"  closed loop, 64-lane buckets with every fourth lane DTW: "
+              f"{mixed:.2f} queries/s; open loop at {DTW_MIX_FRAC} x = "
+              f"{rate:.2f} req/s: sustained {rec['sustained_qps']:.2f}, "
+              f"p50 {rec['p50_ms']:.3f} / p99 {rec['p99_ms']:.3f} / p99.9 "
+              f"{rec['p999_ms']:.3f} ms, mean occupancy "
+              f"{rec['mean_occupancy']:.3f}, padding waste "
+              f"{rec['padding_waste']:.4f}, occupancy {rec['occupancy']} "
+              f"[{smi}]")
+        launches = {name: m.launches for name, m in mods.items()}
+    finally:
+        fe.close(timeout=120)
+    print(f"  launches on the serving path (open loop, both mixes): "
+          f"{launches}")
+    for name in SERVING_KERNELS:
+        if launches[name] <= 0:
+            fail(f"kernel {name} was not launched on the serving path")
+    out["launches"] = launches
+    return out
+
+
+def knn_softmax_phase(torch, np, sd, hs, head_cls, seed: int) -> dict:
+    """Phase 10 (e): the kNN-softmax head at OLMo-1B width
+    (``lm_head [2048, 50 304]``, normal / sqrt(d), from ``seed``; 64 hidden
+    states ``lm_head[:, t] + 0.3 noise`` with noise of a column's scale):
+    ``step_batch_via`` through a front-end gives exactly ``step_batch``'s
+    tokens, and for 8 states the batched candidates equal the host
+    ``candidates`` up to ties at rtol 1e-5.  Prints the build seconds,
+    decode tokens/s of both paths and the recall stats."""
+    rng = np.random.default_rng(seed)
+    t1 = time.perf_counter()
+    lm_head = (rng.standard_normal((OLMO_D, OLMO_VOCAB), dtype=np.float32)
+               / np.float32(np.sqrt(OLMO_D)))
+    tgt = rng.integers(OLMO_VOCAB, size=BATCH)
+    H = (lm_head[:, tgt].T + 0.3 * rng.standard_normal(
+        (BATCH, OLMO_D), dtype=np.float32) / np.float32(np.sqrt(OLMO_D))
+         ).astype(np.float32)
+    t_data = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    head = head_cls(lm_head, device="cuda")
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t1
+    dev = head.index.device_index(device="cuda")
+    print(f"  head: lm_head [{OLMO_D}, {OLMO_VOCAB}] ({t_data:.3f} s to "
+          f"make), index over {OLMO_VOCAB} rows of {dev.n} floats: "
+          f"{dev.n_leaves} leaves, lmax {dev.lmax}; build and upload "
+          f"{t_build:.3f} s; r {head.r}, nbr {head.nbr}")
+    direct = head.step_batch(H)                           # stats tracked
+    s = head.stats
+    t1 = time.perf_counter()
+    with head.make_frontend(max_batch=BATCH, max_wait=SERVE_MAX_WAIT) as fe:
+        t_fe = time.perf_counter() - t1
+        via = head.step_batch_via(fe, H, track_exact=False)
+        if not np.array_equal(via, direct):
+            fail(f"step_batch_via's tokens differ from step_batch's in "
+                 f"{int((via != direct).sum())} of {BATCH} rows")
+        times_via = []
+        for _ in range(3):
+            t1 = time.perf_counter()
+            head.step_batch_via(fe, H, track_exact=False)
+            times_via.append(time.perf_counter() - t1)
+    times = []
+    for _ in range(3):
+        t1 = time.perf_counter()
+        head.step_batch(H, track_exact=False)
+        times.append(time.perf_counter() - t1)
+    # 8 states: the batched candidates against the host's, ties only
+    enc = head._encode_queries(H[:8])
+    cand = head.candidates_batch(H[:8])
+    ids, d, _ = sd.extended_search_device_batch(
+        head.index, enc, head.r, nbr=head.nbr, rerank=False, dev=dev,
+        metric=head.metric)
+    if not np.array_equal(cand, ids):
+        fail("candidates_batch differs from its extended search")
+    same = 0
+    for i, h in enumerate(H[:8]):
+        # the host search on the batch's encoding (``candidates`` encodes
+        # one state in float64, ``_encode_queries`` a batch in float32, as
+        # the reference does; the two can differ in a last bit)
+        h_ids, h_d, _ = hs.extended_search(head.index, enc[i], head.r,
+                                           head.nbr, metric=head.metric)
+        same += bool(np.array_equal(head.candidates(h), h_ids))
+        m = len(h_ids)
+        ok, gap = ties_only(np, ids[i:i + 1, :m], d[i:i + 1, :m],
+                            h_ids[None], h_d[None].astype(np.float32))
+        if not (ok and (ids[i, m:] == -1).all()):
+            fail(f"state {i}: batched candidates differ from the host's "
+                 f"beyond ties at rtol 1e-5 (max rel {gap:.3e})")
+    tok_s = BATCH / float(np.median(times))
+    tok_s_via = BATCH / float(np.median(times_via))
+    print(f"  step_batch_via through a front-end (built and warmed in "
+          f"{t_fe:.3f} s) gives step_batch's {BATCH} tokens exactly; for 8 "
+          f"states the batched candidates equal the host extended search's "
+          f"on the same encoding up to ties at rtol 1e-5 (the host "
+          f"candidates() of its own encoding identical in {same} of 8)")
+    print(f"  decode: step_batch {tok_s:.2f} tokens/s, step_batch_via "
+          f"{tok_s_via:.2f} tokens/s (batch {BATCH}, without the exact "
+          f"logits); exact_in_topr / tokens {s.exact_in_topr}/{s.tokens} = "
+          f"{s.exact_in_topr / s.tokens:.4f}, agree_argmax / tokens "
+          f"{s.agree_argmax}/{s.tokens} = {s.agree_argmax / s.tokens:.4f}")
+    return dict(build_s=t_build, leaves=dev.n_leaves, lmax=dev.lmax,
+                tokens_per_s=tok_s, tokens_per_s_via=tok_s_via,
+                exact_in_topr=s.exact_in_topr / s.tokens,
+                agree_argmax=s.agree_argmax / s.tokens)
+
+
+def serving_phase(torch, np, sd, hs, ops, ref, gather, dtw_np, mods,
+                  frontend_cls, stats_cls, head_cls, index, dev, db, qs,
+                  batches, paths, floor, clock_hz, smi, seed) -> dict:
+    """Phase 10: serving on the main path's ``DeviceIndex`` (no second
+    layout), parts (a)–(e), each printed with its seconds."""
+    builds = index._n_device_builds
+    out = {}
+    for part, fn in (
+            ("a", lambda: bucket_parity(torch, np, sd, dtw_np, index, dev,
+                                        db, qs)),
+            ("b", lambda: serving_kernels(torch, np, sd, ops, ref, gather,
+                                          index, dev, qs, floor, clock_hz,
+                                          smi)),
+            ("c", lambda: launch_without_wait(torch, np, sd, index, dev, qs,
+                                              smi)),
+            ("d", lambda: open_loop_load(torch, np, sd, mods, frontend_cls,
+                                         stats_cls, index, dev, qs, batches,
+                                         paths, smi)),
+            ("e", lambda: knn_softmax_phase(torch, np, sd, hs, head_cls,
+                                            seed + 1))):
+        t1 = time.perf_counter()
+        out[part] = fn()
+        print(f"  [10{part}] {time.perf_counter() - t1:.3f} s")
+    if index._n_device_builds != builds:
+        fail("phase 10 built another DeviceIndex layout")
+    print("  no DeviceIndex layout built for the main index by phase 10")
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n-series", type=int, default=4_000_000,
@@ -1440,6 +2029,8 @@ def main() -> None:
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.kernels import (dtw_band, lb_improved, lb_isax, lb_keogh,
                                      pairwise_l2, sax_encode)
+    from repro_torch.serving.batching import CoalescingFrontend, ServingStats
+    from repro_torch.serving.knn_softmax import KnnSoftmaxHead
 
     # ---- 1. environment -------------------------------------------------
     t_run = t0 = time.perf_counter()
@@ -1654,6 +2245,15 @@ def main() -> None:
         mods, floor, clock_hz, smi)
     print(json.dumps({"search_paths": paths}))
     phase("approximate and extended search", t0)
+
+    # ---- 10. serving ---------------------------------------------------------
+    t0 = time.perf_counter()
+    serving = serving_phase(
+        torch, np, search_device, search, ops, ref, dtw2_masked_gather,
+        dtw_np, mods, CoalescingFrontend, ServingStats, KnnSoftmaxHead,
+        index, dev, db, qs, batches, paths, floor, clock_hz, smi, args.seed)
+    print(json.dumps({"serving": serving}))
+    phase("serving", t0)
     print(f"[phase] whole run: {time.perf_counter() - t_run:.3f} s")
 
     for r in rows:

@@ -138,6 +138,21 @@ class DeviceIndex:
     def n_leaves(self) -> int:
         return self.leaf_start.shape[0]
 
+    @property
+    def health_mask(self) -> torch.Tensor | None:
+        """``shard_health`` as a bool ``[S]`` tensor on the device (``None``
+        when every shard is healthy), uploaded on first use and kept: a
+        search reads it on every call, and an upload from pageable memory
+        waits for the work already queued on the stream."""
+        if self.shard_health is None:
+            return None
+        mask = self.__dict__.get("_health_mask")
+        if mask is None:
+            mask = torch.tensor(self.shard_health, dtype=torch.bool
+                                ).to(self.device)
+            object.__setattr__(self, "_health_mask", mask)
+        return mask
+
     # -- construction --------------------------------------------------------
     @classmethod
     def from_arrays(cls, arrays: dict[str, np.ndarray], meta: dict,

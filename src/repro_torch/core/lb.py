@@ -142,10 +142,13 @@ def dtw_np(a: np.ndarray, b_: np.ndarray, r: int) -> float:
 
 def dtw_np_batch(qs: np.ndarray, cand: np.ndarray, r: int) -> np.ndarray:
     """:func:`dtw_np` vectorized over a per-query candidate set:
-    ``qs [Q, n]``, ``cand [Q, kk, n]`` → ``[Q, kk]`` float64, bitwise the
-    scalar reference per lane (same i/j visit order; numpy f64 min/add are
-    IEEE-exact).  The cost is squared in the input's dtype (f32) before the
-    f64 add, as the scalar reference does."""
+    ``qs [Q, n]``, ``cand [Q, kk, n]`` → ``[Q, kk]`` float64.  Each cell
+    is ``fl64(fl32(d·d) + min(up, diag, left))`` — the cost squared in the
+    input's dtype (f32) by an array multiply, the add in float64 — visited
+    in the host's i/j order.  It agrees with the scalar :func:`dtw_np` to
+    float32, not bitwise: numpy squares an f32 *scalar* through ``powf``
+    and an f32 *array* by multiplying, and the two can differ in the last
+    bit of a cell's cost."""
     Q, kk, n = cand.shape
     a = np.repeat(np.asarray(qs), kk, axis=0)                # [Q*kk, n]
     b_ = np.asarray(cand).reshape(Q * kk, n)

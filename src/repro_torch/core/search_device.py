@@ -56,6 +56,13 @@ same dedup merge.  Both scan per-query leaf gathers ``[Q, lmax, n]``
 kernels in their per-query layout).  Where the reference relies on JAX's
 order among equal keys (``lax.top_k``, ``lexsort``, ``argsort``), the port
 sorts stably.
+
+The serving buckets (``bucket_search_*``) run extended search with every
+per-request knob as a lane array: a per-lane leaf budget (0 marks a dead
+lane), a per-lane metric, and per-lane ``k`` applied on the host.  Lane q
+of a bucket is bitwise the request issued alone.  The launch queues the
+whole bucket without waiting for the device, so a front-end stages the
+next bucket while this one computes.
 """
 from __future__ import annotations
 
@@ -67,7 +74,7 @@ from ..robustness.failpoints import failpoint, with_retries
 from .device_index import DeviceIndex
 from .index import DumpyIndex
 from .lb import dtw_np_batch
-from .metric import ED, Metric, query_prep, resolve
+from .metric import ED, Metric, default_band, query_prep, resolve
 
 #: steps between two host-side stop tests of the span loop and of the DTW
 #: lane walk (one sync each)
@@ -200,17 +207,17 @@ def _validate_queries(qs, n: int) -> np.ndarray:
     return qs
 
 
-def _mask_dead_shards(health, topd: torch.Tensor, topi: torch.Tensor,
-                      vis: torch.Tensor | None = None,
+def _mask_dead_shards(dev: DeviceIndex, topd: torch.Tensor,
+                      topi: torch.Tensor, vis: torch.Tensor | None = None,
                       st: torch.Tensor | None = None):
     """Degraded mode: erase dead shards' per-shard locals (``[S, Q, k]``,
     ``vis [S, Q]``, cascade counters ``st [S, 4]``; the last two optional)
     before the merge — their slots become ``+inf / -1``, which the dedup
-    top-k treats as absent.  ``health`` is ``DeviceIndex.shard_health``;
-    ``None`` (all healthy) is the identity."""
-    if health is None:
+    top-k treats as absent.  All shards healthy (``dev.shard_health`` is
+    ``None``) is the identity."""
+    m = dev.health_mask
+    if m is None:
         return topd, topi, vis, st
-    m = torch.tensor(health, dtype=torch.bool, device=topd.device)
     topd = torch.where(m[:, None, None], topd, _INF)
     topi = torch.where(m[:, None, None], topi, -1)
     if vis is not None:
@@ -364,8 +371,7 @@ def _exact_knn_sharded(dev: DeviceIndex, prep: tuple, qs: torch.Tensor, *,
     topi = torch.stack([p[1] for p in parts])
     vis = torch.stack([p[2] for p in parts])
     st = torch.stack([p[3] for p in parts])
-    topd, topi, vis, st = _mask_dead_shards(dev.shard_health, topd, topi,
-                                            vis, st)
+    topd, topi, vis, st = _mask_dead_shards(dev, topd, topi, vis, st)
     S = topd.shape[0]
     alld = topd.permute(1, 0, 2).reshape(Q, S * k)
     alli = topi.permute(1, 0, 2).reshape(Q, S * k)
@@ -533,7 +539,8 @@ def _finalize_exact(index: DumpyIndex, qs: np.ndarray, ids_dev: np.ndarray,
                 np.full((Q, k), np.inf, np.float32))
     cand = index.db[np.maximum(ids_dev, 0)]                 # [Q, kk, n]
     if metric.is_dtw:
-        # f64 vectorized DP, bitwise the scalar dtw_np per lane
+        # f64 vectorized DP (each cell fl64(fl32(d*d) + min(...)) in the
+        # host's cell order); agrees with the scalar dtw_np to float32
         d = dtw_np_batch(qs, cand, metric.band)
     else:
         diff = cand - qs[:, None, :]
@@ -686,22 +693,21 @@ def _descend_device(dev: DeviceIndex, sax_q: torch.Tensor,
     return leaf
 
 
-def _merge_leaf_rank(metric: Metric, qs: torch.Tensor, prep: tuple,
-                     db: torch.Tensor, ids: torch.Tensor, alive: torch.Tensor,
-                     starts: torch.Tensor, sizes: torch.Tensor,
-                     cols: torch.Tensor, topd: torch.Tensor,
-                     topi: torch.Tensor
+def _merge_leaf_rank(dist2, db: torch.Tensor, ids: torch.Tensor,
+                     alive: torch.Tensor, starts: torch.Tensor,
+                     sizes: torch.Tensor, cols: torch.Tensor,
+                     topd: torch.Tensor, topi: torch.Tensor
                      ) -> tuple[torch.Tensor, torch.Tensor]:
     """Merge one leaf rank into the running top-k: gather each query's leaf
     rows ``starts + cols`` of ``db [T, n]`` (``[Q, lmax, n]``, clamped into
     range; columns past ``sizes`` and dead rows masked), rank them with
-    :func:`_dist2_gather` against the running k-th best (the DTW cutoff)
-    and merge.  Masked rows come back as ``id -1 / d2 inf``."""
+    ``dist2(cand, valid, cutoff2)`` (:func:`_dist2_gather` or, in a serving
+    bucket, :func:`_dist2_gather_mixed`) against the running k-th best (the
+    DTW cutoff) and merge.  Masked rows come back as ``id -1 / d2 inf``."""
     rows_c = (starts[:, None] + cols[None, :]).clamp(0, db.shape[0] - 1)
     cand = db[rows_c]                                        # [Q, lmax, n]
     valid = (cols[None, :] < sizes[:, None]) & alive[rows_c]
-    d2 = _dist2_gather(metric, qs, prep, cand, valid,
-                       topd[:, -1].contiguous())
+    d2 = dist2(cand, valid, topd[:, -1].contiguous())
     del cand
     idt = torch.where(torch.isinf(d2), -1, ids[rows_c])
     return ops.topk_merge(topd, topi, d2, idt)
@@ -729,21 +735,26 @@ def _leaf_topk_device(dev: DeviceIndex, qs: torch.Tensor, prep: tuple,
     db_flat = dev.db.reshape(-1, dev.n)
     ids_flat = dev.ids.reshape(-1)
     alive_flat = dev.alive.reshape(-1)
-    if dev.shard_health is not None:
+    hm = dev.health_mask
+    if hm is not None:
         # degraded mode on the flattened view: rows of dead shards read as
         # tombstoned, so their candidates never enter a merge
-        hm = torch.tensor(dev.shard_health, dtype=torch.bool, device=device)
-        alive_flat = alive_flat & hm.repeat_interleave(dev.shard_rows)
+        alive_flat = alive_flat & hm[:, None].expand(
+            -1, dev.shard_rows).reshape(-1)
     scores = lbq.clone()
     scores[torch.arange(Q, device=device), routed] = -_INF
     leaves = torch.sort(scores, dim=1, stable=True).indices[:, :nbr]
     cols = torch.arange(lmax, device=device)
     topd = torch.full((Q, kk), _INF, dtype=torch.float32, device=device)
     topi = torch.full((Q, kk), -1, dtype=torch.int32, device=device)
+
+    def dist2(cand, valid, cutoff2):
+        return _dist2_gather(metric, qs, prep, cand, valid, cutoff2)
+
     for j in range(nbr):
         starts = dev.leaf_start[leaves[:, j]].long()         # [Q] flattened
         topd, topi = _merge_leaf_rank(
-            metric, qs, prep, db_flat, ids_flat, alive_flat, starts,
+            dist2, db_flat, ids_flat, alive_flat, starts,
             dev.leaf_size[leaves[:, j]], cols, topd, topi)
     d2f, idf = _dedup_topk(topd, topi, k)                    # segment-min dedup
     return idf, d2f, leaves.to(torch.int32)
@@ -815,13 +826,14 @@ def approximate_search_device_batch(index: DumpyIndex, qs: np.ndarray, k: int,
 # ---------------------------------------------------------------------------
 
 def _descend_subtree(dev: DeviceIndex, sax_q: torch.Tensor,
-                     edge_lb: torch.Tensor, *, nbr: int
+                     edge_lb: torch.Tensor, *, nbr: int | torch.Tensor
                      ) -> tuple[torch.Tensor, torch.Tensor]:
     """Root→subtree descent of a query batch: follow sids (min-LB fallback on
     empty regions) while the child subtree still holds more than ``nbr``
-    leaves.  Returns ``(parent node id [Q], stop edge index [Q])`` — the stop
-    edge's target is the host descent's stop node, its parent the node whose
-    children form the sibling set."""
+    leaves (one budget for the batch, or a serving bucket's ``[Q]`` lane
+    budgets, compared lane by lane).  Returns ``(parent node id [Q], stop
+    edge index [Q])`` — the stop edge's target is the host descent's stop
+    node, its parent the node whose children form the sibling set."""
     Q = sax_q.shape[0]
     z = torch.zeros(Q, dtype=torch.int64, device=sax_q.device)
     cur, pm, se = z, z, z
@@ -890,8 +902,8 @@ def _sibling_schedule(dev: DeviceIndex, prep: tuple, lbq: torch.Tensor,
     return order[:, :nbr].to(torch.int32)
 
 
-def _scan_leaf_schedule(dev: DeviceIndex, qs: torch.Tensor, prep: tuple,
-                        leaves: torch.Tensor, *, k: int, metric: Metric = ED
+def _scan_leaf_schedule(dev: DeviceIndex, leaves: torch.Tensor, dist2, *,
+                        k: int, lane_nbr: torch.Tensor | None = None
                         ) -> tuple[torch.Tensor, torch.Tensor]:
     """Visit the per-query leaf schedule shard by shard and merge.
 
@@ -901,11 +913,13 @@ def _scan_leaf_schedule(dev: DeviceIndex, qs: torch.Tensor, prep: tuple,
     The ``[S, Q, k]`` locals then merge exactly like the exact path (dead
     shards masked, segment-min dedup, top-k), so results are bitwise
     invariant to the shard count.  Candidate distances go through
-    :func:`_dist2_gather`, so DTW candidates prune against the shard-local
-    running k-th best."""
+    ``dist2(cand, valid, cutoff2)`` (:func:`_merge_leaf_rank`), so DTW
+    candidates prune against the shard-local running k-th best.
+    ``lane_nbr [Q]`` (a serving bucket's per-lane budgets) scans rank ``j``
+    of lane ``q`` only while ``j < lane_nbr[q]``."""
     Q, nbr = leaves.shape
     lmax, L = dev.lmax, dev.n_leaves
-    Tp, device = dev.shard_rows, qs.device
+    Tp, device = dev.shard_rows, leaves.device
     cols = torch.arange(lmax, device=device)
     lfc = leaves.clamp(0, L - 1).long()
     parts = []
@@ -915,15 +929,17 @@ def _scan_leaf_schedule(dev: DeviceIndex, qs: torch.Tensor, prep: tuple,
         topi = torch.full((Q, k), -1, dtype=torch.int32, device=device)
         for j in range(nbr):
             mine = (leaves[:, j] >= a) & (leaves[:, j] < z)
+            if lane_nbr is not None:
+                mine &= j < lane_nbr
             starts = dev.leaf_start[lfc[:, j]].long() - s * Tp  # shard-local
             sizes = torch.where(mine, dev.leaf_size[lfc[:, j]], 0)
             topd, topi = _merge_leaf_rank(
-                metric, qs, prep, dev.db[s], dev.ids[s], dev.alive[s],
-                starts, sizes, cols, topd, topi)
+                dist2, dev.db[s], dev.ids[s], dev.alive[s], starts, sizes,
+                cols, topd, topi)
         parts.append((topd, topi))
     topd = torch.stack([p[0] for p in parts])                 # [S, Q, k]
     topi = torch.stack([p[1] for p in parts])
-    topd, topi, _, _ = _mask_dead_shards(dev.shard_health, topd, topi)
+    topd, topi, _, _ = _mask_dead_shards(dev, topd, topi)
     S = topd.shape[0]
     alld = topd.permute(1, 0, 2).reshape(Q, S * k)
     alli = topi.permute(1, 0, 2).reshape(Q, S * k)
@@ -951,7 +967,11 @@ def _extended_knn_sharded(dev: DeviceIndex, prep: tuple,
     else:
         order = torch.sort(lbq, dim=1, stable=True).indices  # stable → id
         leaves = order[:, :nbr].to(torch.int32)
-    d2, ids = _scan_leaf_schedule(dev, qs, prep, leaves, k=k, metric=metric)
+
+    def dist2(cand, valid, cutoff2):
+        return _dist2_gather(metric, qs, prep, cand, valid, cutoff2)
+
+    d2, ids = _scan_leaf_schedule(dev, leaves, dist2, k=k)
     return d2, ids, leaves
 
 
@@ -1011,6 +1031,283 @@ def extended_search_device_batch(index: DumpyIndex, qs: np.ndarray, k: int,
     else:
         out = [ids.cpu().numpy()[:, :k].astype(np.int64),
                np.sqrt(d2.cpu().numpy())[:, :k], leaves.cpu().numpy()]
+    if want_cov:
+        out.append(shard_coverage(index, dev))
+    return tuple(out)
+
+
+# ---------------------------------------------------------------------------
+# bucketed serving search — every per-request knob (k / nbr / metric /
+# liveness) a lane array, so a coalescing front-end serves any knob mix with
+# the same code path per bucket shape (docs/serving.md: the masking contract)
+# ---------------------------------------------------------------------------
+
+def _dist2_gather_mixed(qs: torch.Tensor, prep: tuple, cand: torch.Tensor,
+                        valid: torch.Tensor, cutoff2: torch.Tensor,
+                        lane_dtw: torch.Tensor, band: int, has_dtw: bool
+                        ) -> torch.Tensor:
+    """Per-lane metric blend of :func:`_dist2_gather`: ED lanes pay the
+    direct-difference sum, DTW lanes the LB_Keogh → LB_Improved → masked
+    band DP cascade (the ``lb_keogh``, ``lb_improved`` and ``dtw_band``
+    kernels in their per-query layout).
+
+    ``has_dtw`` is the host's ``lane_dtw.any()``: an all-ED bucket launches
+    no DTW kernel at all.  Bitwise per lane: each lane's value is
+    :func:`_dist2_gather`'s for its metric (a DTW lane's against this
+    bucket's running cutoff), and the blend only selects between the two
+    results, never mixes them."""
+    sel = lane_dtw[:, None]
+    d2_ed = _dist2_gather(ED, qs, prep, cand, valid & ~sel, cutoff2)
+    if not has_dtw:
+        return d2_ed
+    d2_dtw = _dist2_gather(Metric("dtw", band), qs, prep, cand, valid & sel,
+                           cutoff2)
+    return torch.where(sel, d2_dtw, d2_ed)
+
+
+def _scan_bucket_schedule(dev: DeviceIndex, qs: torch.Tensor, prep: tuple,
+                          leaves: torch.Tensor, lane_nbr: torch.Tensor,
+                          lane_dtw: torch.Tensor, *, k: int, band: int,
+                          has_dtw: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`_scan_leaf_schedule` with per-lane masking: schedule rank ``j``
+    is scanned for lane q only while ``j < lane_nbr[q]`` (a dead or padded
+    lane has ``lane_nbr == 0`` and scans nothing — its gathers still run
+    over clamped rows, but every candidate masks to ``+inf / -1``), and the
+    candidate distance blends ED and the DTW cascade per lane
+    (:func:`_dist2_gather_mixed`)."""
+    def dist2(cand, valid, cutoff2):
+        return _dist2_gather_mixed(qs, prep, cand, valid, cutoff2, lane_dtw,
+                                   band, has_dtw)
+
+    return _scan_leaf_schedule(dev, leaves, dist2, k=k, lane_nbr=lane_nbr)
+
+
+def _bucket_knn_sharded(dev: DeviceIndex, prep_ed: tuple, prep_dtw: tuple,
+                        sax_q: torch.Tensor, qs: torch.Tensor,
+                        lane_nbr: torch.Tensor, lane_dtw: torch.Tensor, *,
+                        kk: int, nbr_max: int, subtree: bool, band: int,
+                        has_dtw: bool
+                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The bucketed serving program: extended (Alg. 4) search where every
+    per-request knob is a lane array, so one code path per bucket shape
+    serves any ``k``/``nbr``/``metric`` mix.  Returns ``(d2 [Q, kk],
+    ids [Q, kk], leaves [Q, nbr_max])`` on the device.
+
+    - ``lane_nbr [Q] i32`` — per-lane leaf budget; 0 marks a dead (padding)
+      lane.  It reaches the descent's stop test lane by lane, masks the
+      schedule scan, and picks flat or subtree per lane (lanes with
+      ``nbr >= L`` take the all-leaves flat order, the individual path's
+      ``subtree=False`` branch).
+    - ``lane_dtw [Q] bool`` — per-lane metric.  The two preps have equal
+      shapes; ``torch.where`` on their rows makes every bound, the descent
+      and the schedule per-lane correct, and the candidate distance blends
+      via :func:`_dist2_gather_mixed`.
+    - per-lane ``k`` never reaches the device: the program runs at the full
+      dedup margin ``kk`` and the host truncates each lane (the superset
+      argument of docs/serving.md).
+
+    The schedule is built at ``nbr_max`` over all ``L`` leaves (the port's
+    :func:`_sibling_schedule`, no window); a lane's first ``lane_nbr``
+    entries are its own schedule."""
+    if has_dtw:
+        sel = lane_dtw[:, None]
+        prep = tuple(torch.where(sel, pd, pe)
+                     for pe, pd in zip(prep_ed, prep_dtw))
+    else:
+        prep = prep_ed
+    lbq = ops.lb_paa_interval(prep[0], prep[1], dev.leaf_lo_g, dev.leaf_hi_g,
+                              dev.n)
+    L = dev.n_leaves
+    flat = torch.sort(lbq, dim=1, stable=True).indices[:, :nbr_max]
+    flat = flat.to(torch.int32)                               # stable → id
+    if subtree:
+        edge_lb = ops.lb_paa_interval(prep[0], prep[1], dev.rt_lo, dev.rt_hi,
+                                      dev.n)
+        pm, se = _descend_subtree(dev, sax_q, edge_lb, nbr=lane_nbr)
+        sub = _sibling_schedule(dev, prep, lbq, pm, se, nbr=nbr_max)
+        leaves = torch.where((lane_nbr >= L)[:, None], flat, sub)
+    else:
+        leaves = flat
+    d2, ids = _scan_bucket_schedule(dev, qs, prep, leaves, lane_nbr,
+                                    lane_dtw, k=kk, band=band,
+                                    has_dtw=has_dtw)
+    return d2, ids, leaves
+
+
+def _upload_async(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A small host array on ``device`` without a host wait: staged in
+    pinned memory and copied non-blocking (an upload from pageable memory
+    waits for the work already queued on the stream)."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if device.type == "cuda":
+        t = t.pin_memory()
+    return t.to(device, non_blocking=True)
+
+
+def bucket_search_launch(index: DumpyIndex, qs_dev: torch.Tensor,
+                         lane_nbr, lane_dtw, *, k_max: int, nbr_max: int,
+                         band: int | None = None,
+                         dev: DeviceIndex | None = None
+                         ) -> tuple[torch.Tensor, torch.Tensor,
+                                    torch.Tensor]:
+    """Queue the bucketed program on an already-staged device query batch —
+    the asynchronous half of :func:`bucket_search_device_batch`.  Nothing
+    here waits for the device: ``has_dtw`` is read from the host's lane
+    array, the lane arrays go up from pinned memory without blocking, and
+    every table the program reads is on the device already.  So a
+    front-end stages bucket *i+1* while this one computes, and waits only
+    in :func:`bucket_search_finish`.
+
+    ``lane_nbr [Q]`` is the per-request leaf budget with 0 marking dead
+    (padding) lanes; ``lane_dtw [Q] bool`` selects the metric per lane
+    (both host arrays).  Returns device tensors ``(d2 [Q, kk], ids [Q, kk],
+    leaves [Q, nbr'])`` at the full dedup margin ``kk =
+    _result_margin(dev, k_max)``."""
+    if dev is None:
+        dev = index.device_index(device=qs_dev.device)
+    sax_p = index.params.sax
+    band_eff = max(int(band) if band is not None else default_band(dev.n), 1)
+    paa_q, sax_q = ops.sax_encode(qs_dev, sax_p.w, sax_p.b)
+    prep_ed = query_prep(ED, qs_dev, paa_q)
+    lane_dtw = np.asarray(lane_dtw, bool)
+    has_dtw = bool(lane_dtw.any())          # host array: no device read
+    if has_dtw:
+        prep_dtw = query_prep(Metric("dtw", band_eff), qs_dev, paa_q)
+    else:
+        prep_dtw = prep_ed      # no DTW lane: values unused, shapes identical
+    L = dev.n_leaves
+    nbr_eff = max(min(int(nbr_max), L), 1)
+    subtree = dev.node_lam.shape[0] > 0 and L > 1
+    kk = _result_margin(dev, k_max)
+    lane_nbr = np.clip(np.asarray(lane_nbr, np.int64), 0, nbr_eff)
+    lanes = _upload_async(np.stack([lane_nbr, lane_dtw]).astype(np.int32),
+                          dev.device)
+    return _bucket_knn_sharded(
+        dev, prep_ed, prep_dtw, sax_q.to(torch.int32), qs_dev, lanes[0],
+        lanes[1].bool(), kk=kk, nbr_max=nbr_eff, subtree=subtree,
+        band=band_eff, has_dtw=has_dtw)
+
+
+def bucket_search_finish(res, lane_k, lane_nbr, *, k_max: int
+                         ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Harvest a :func:`bucket_search_launch` result on the host: one
+    device→host copy (d² as its bits, ids and leaves in one ``int32``
+    block), then every lane truncated to its own ``k`` (columns ≥ k pad
+    ``-1 / inf``) and its schedule to its own ``nbr`` (pad ``-1``).  The
+    first ``lane_k[q]`` columns are bitwise the ids and distances
+    ``extended_search_device_batch(rerank=False)`` returns for that request
+    issued alone (docs/serving.md: the masking contract)."""
+    d2, ids, leaves = res
+    kk = d2.shape[1]
+    block = torch.cat([d2.view(torch.int32), ids.to(torch.int32),
+                       leaves.to(torch.int32)], dim=1).cpu().numpy()
+    d2 = block[:, :kk].view(np.float32)
+    ids = block[:, kk:2 * kk][:, :k_max].astype(np.int64)
+    d = np.sqrt(d2[:, :k_max])
+    leaves = block[:, 2 * kk:]
+    kcol = np.arange(k_max)[None, :] < np.asarray(lane_k, np.int64)[:, None]
+    ids = np.where(kcol, ids, -1)
+    d = np.where(kcol, d, np.inf).astype(np.float32)
+    ncol = np.arange(leaves.shape[1])[None, :] \
+        < np.asarray(lane_nbr, np.int64)[:, None]
+    return ids, d, np.where(ncol, leaves, -1)
+
+
+def bucket_search_device_batch(index: DumpyIndex, qs, ks, nbrs,
+                               metrics=None, *, k_max: int | None = None,
+                               nbr_max: int | None = None,
+                               band: int | None = None, chunk: int = 2048,
+                               n_shards: int = 1,
+                               dev: DeviceIndex | None = None,
+                               shard_health=None,
+                               device: str | torch.device = "cuda"):
+    """Coalesced mixed-knob kNN: one device program per batch, every
+    per-request knob a lane array — the blocking entry point behind the
+    serving front-end (``repro_torch.serving.batching``).
+
+    ``ks``/``nbrs`` give each lane its own ``k`` and leaf budget; a lane
+    with ``ks[q] == 0`` is a dead (padding) lane — its query must still be
+    finite (pad with zeros) and its result is all ``-1 / inf``.  ``metrics``
+    is a per-lane ``"ed"``/``"dtw"`` sequence (or a bool DTW mask; default
+    all-ED); ``band`` is the shared DTW band (default ``0.1 n``, matching
+    ``resolve``).  ``k_max``/``nbr_max`` pin the program's widths so a
+    front-end can hold them constant across calls (defaults: the lane
+    maxima).
+
+    Lane q's live columns are bitwise
+    ``extended_search_device_batch(index, qs[q:q+1], ks[q], nbr=nbrs[q],
+    metric=..., rerank=False)`` — masking absorbs the knob mix
+    (``tests/test_torch_serving_batching.py`` pins this, including degraded
+    ``shard_health`` and fuzzy+tombstone layouts).  Validation is one
+    vectorized pass for the whole batch.
+
+    ``shard_health`` enables degraded mode exactly as in
+    :func:`exact_search_device_batch` (dead shards masked from scan and
+    merge; a trailing ``coverage`` float joins the return tuple).  Runs on
+    ``device`` (CUDA unless the caller asks for ``"cpu"``), or on the
+    device of a given ``dev``."""
+    qs = _validate_queries(qs, index.n)   # one vectorized check per batch
+    Q = qs.shape[0]
+    ks = np.asarray(ks, np.int64).reshape(-1)
+    nbrs = np.asarray(nbrs, np.int64).reshape(-1)
+    if ks.shape[0] != Q or nbrs.shape[0] != Q:
+        raise ValueError(
+            f"ks/nbrs need one entry per query lane: got {ks.shape[0]}/"
+            f"{nbrs.shape[0]} for {Q} lanes")
+    if (ks < 0).any() or (nbrs < 0).any():
+        raise ValueError("per-lane k/nbr must be >= 0 (0 = dead lane)")
+    if metrics is None:
+        lane_dtw = np.zeros(Q, bool)
+    else:
+        ms = list(metrics)
+        if len(ms) != Q:
+            raise ValueError(
+                f"metrics needs one entry per query lane: got {len(ms)} "
+                f"for {Q} lanes")
+        lane_dtw = np.empty(Q, bool)
+        for i, m in enumerate(ms):
+            if isinstance(m, (bool, np.bool_, int, np.integer)):
+                lane_dtw[i] = bool(m)
+            elif m in ("ed", "dtw"):
+                lane_dtw[i] = m == "dtw"
+            else:
+                raise ValueError(f"lane {i}: unknown metric {m!r}")
+    k_max = int(k_max) if k_max is not None else max(int(ks.max()), 1)
+    nbr_max = int(nbr_max) if nbr_max is not None else max(int(nbrs.max()), 1)
+    over = np.where(ks > k_max)[0]
+    if over.size:
+        raise ValueError(
+            f"lanes {over[:8].tolist()} request k > k_max={k_max}")
+    if dev is None:
+        dev = index.device_index(chunk=chunk, n_shards=n_shards,
+                                 device=device)
+    want_cov = shard_health is not None or dev.shard_health is not None
+    if shard_health is not None:
+        dev = dev.with_shard_health(shard_health)
+    if index.db.shape[0] == 0:                              # empty collection
+        out = [np.full((Q, k_max), -1, np.int64),
+               np.full((Q, k_max), np.inf, np.float32),
+               np.full((Q, max(nbr_max, 1)), -1, np.int32)]
+        if want_cov:
+            out.append(shard_coverage(index, dev))
+        return tuple(out)
+    alive = ks > 0
+    nbr_eff = max(min(nbr_max, dev.n_leaves), 1)
+    lane_nbr = np.where(alive, np.clip(nbrs, 1, nbr_eff), 0)
+    lane_dtw = lane_dtw & alive        # dead lanes stay on the ED fast path
+    qs_dev = torch.from_numpy(qs).to(dev.device)
+
+    def _launch():
+        failpoint("search.shard_merge")
+        return bucket_search_launch(index, qs_dev, lane_nbr, lane_dtw,
+                                    k_max=k_max, nbr_max=nbr_max,
+                                    band=band, dev=dev)
+
+    res = with_retries(_launch, site="search.shard_merge")
+    ids, d, leaves = bucket_search_finish(
+        res, np.where(alive, np.minimum(ks, k_max), 0), lane_nbr,
+        k_max=k_max)
+    out = [ids, d, leaves]
     if want_cov:
         out.append(shard_coverage(index, dev))
     return tuple(out)
