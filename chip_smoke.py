@@ -89,7 +89,23 @@ Phases, each printed with its seconds:
    from the scheduled arrival, occupancy and padding; (e) the kNN-softmax
    head at OLMo-1B's width (``lm_head [2048, 50 304]`` from the seed): the
    front-end's tokens equal ``step_batch``'s, the batched candidates equal
-   the host search's up to ties, decode tokens/s and recall.
+   the host search's up to ties, decode tokens/s and recall;
+11. the index lifecycle on the same collection: (a) the device build
+   (``backend="device"``, ``sax_encode_np``) bitwise equal to phase 3's
+   host build (leaf layout, routing arrays, stats), its ``DeviceIndex``
+   assembled from the rows on the card bitwise phase 3's, seconds beside
+   the host build's; (b) the device build with the ``sax_encode`` kernel:
+   the kernel's ms over the collection beside its bound, the symbols that
+   differ from ``sax_encode_np``, every row inside its leaf's SAX region,
+   one exact ED batch against the float64 brute force, the layout equal
+   to (a)'s where no symbol differs; (c) ``save`` and ``load`` (seconds,
+   GB, sha256 checks included) under a temporary directory in ``build/``
+   (the first 1 M series where the disk holds no two generations of the
+   whole collection), then one exact ED batch on the loaded index bitwise
+   equal to phase 5's; (d) 1 000 inserts through the write-ahead log, a
+   save crashed at ``index.save.commit``, a load that replays the log: the
+   pre-crash ``db`` and ``alive``, 8 inserted series found at distance 0;
+   (e) ``repro_torch.robustness.smoke`` on the card.
 """
 from __future__ import annotations
 
@@ -165,6 +181,12 @@ KNOB_MIX = ((5, 1), (10, 4), (10, 2), (5, 4), (10, 1), (5, 2))
 RATE_FRACS = (0.25, 0.6, 1.0, 1.4)   # of the closed-loop batch-64 rate
 DTW_MIX_FRAC = 0.5                   # of the closed-loop 25%-DTW rate
 LOAD_S = 2.0                         # each rate's arrival schedule spans this
+# phase 11: the routing arrays a device build must match
+# (tests/test_build_pipeline.py)
+ROUTING_FIELDS = ("node_csl", "node_shift", "node_lam", "edge_parent",
+                  "edge_sid", "edge_leaf", "edge_child", "edge_nl",
+                  "edge_begin", "edge_end", "node_begin", "node_end",
+                  "leaf_parent", "grp_off", "grp_begin", "grp_end")
 SERVING_KERNELS = ("sax_encode", "lb_paa_interval", "lb_keogh",
                    "lb_improved", "dtw_band")
 # the kNN-softmax head at OLMo-1B's published width
@@ -2001,6 +2023,276 @@ def serving_phase(torch, np, sd, hs, ops, ref, gather, dtw_np, mods,
     return out
 
 
+def layout_mismatch(np, a, b) -> str | None:
+    """The first layout field where two indexes differ: the leaf layout,
+    every routing array of ``tests/test_build_pipeline.py`` and the stats
+    (``plans_evaluated`` apart: the backends count plans per row and per
+    word group).  ``None`` where they agree bitwise."""
+    for f in ("order", "leaf_offsets", "leaf_sym", "leaf_card"):
+        if not np.array_equal(getattr(a.flat, f), getattr(b.flat, f)):
+            return f
+    ra, rb = a.routing_flat, b.routing_flat
+    for f in ROUTING_FIELDS:
+        if not np.array_equal(getattr(ra, f), getattr(rb, f)):
+            return f
+    sa, sb = dict(vars(a.stats)), dict(vars(b.stats))
+    sa.pop("plans_evaluated")
+    sb.pop("plans_evaluated")
+    return None if sa == sb else f"stats {sa} != {sb}"
+
+
+def rows_outside_leaves(np, flat, sax, b: int) -> int:
+    """Rows of the layout whose symbols (``sax``) fall outside their leaf's
+    SAX region."""
+    leaf = np.repeat(np.arange(flat.n_leaves), np.diff(flat.leaf_offsets))
+    card = flat.leaf_card[leaf].astype(np.int64)
+    prefix = sax[flat.order].astype(np.int64) >> (b - card)
+    return int((prefix != flat.leaf_sym[leaf]).any(axis=1).sum())
+
+
+def borderline_symbols(np, breakpoints, db, sax, sax_ref, w: int, b: int
+                       ) -> float:
+    """Symbols of ``sax`` (a float32 encoder's) that differ from ``sax_ref``
+    (``sax_encode_np``'s, from float64 means) must be borderline: one
+    breakpoint apart, with the segment's float64 mean within
+    ``(m + 2)·2⁻²⁴·(mean|x| + |bp|)`` of that breakpoint ``bp`` — the error
+    of any float32 sum of the m = n / w values plus the breakpoint's own
+    float32 rounding.  Fails otherwise; returns the largest distance as a
+    share of its bound (0 where no symbol differs)."""
+    r, j = np.nonzero(sax != sax_ref)
+    if len(r) == 0:
+        return 0.0
+    m = db.shape[1] // w
+    seg = db[r].astype(np.float64).reshape(len(r), w, m)
+    seg = seg[np.arange(len(r)), j]
+    hi = np.maximum(sax[r, j], sax_ref[r, j]).astype(np.int64)
+    if (hi - np.minimum(sax[r, j], sax_ref[r, j]) != 1).any():
+        fail("a kernel symbol is more than one breakpoint from "
+             "sax_encode_np's")
+    bp = np.asarray(breakpoints(b), np.float64)[hi - 1]
+    tol = (m + 2) * 2.0 ** -24 * (np.abs(seg).mean(axis=1) + np.abs(bp))
+    share = np.abs(seg.mean(axis=1) - bp) / tol
+    if (share > 1).any():
+        k = int(share.argmax())
+        fail(f"symbol ({r[k]}, {j[k]}) differs from sax_encode_np's with "
+             f"its float64 mean {float(seg[k].mean())!r} {share[k]:.3f} "
+             f"times the float32 gap from breakpoint {float(bp[k])!r}")
+    return float(share.max())
+
+
+def store_bytes(path: Path) -> int:
+    return sum(f.stat().st_size for f in path.rglob("*") if f.is_file())
+
+
+def lifecycle_phase(torch, np, sd, ops, mods, DumpyIndex, device_build,
+                    smoke, fp, breakpoints, random_walks, params, index, dev,
+                    db, batches, exact_ed, host_build_s, seed) -> dict:
+    """Phase 11: the index lifecycle on the main collection, parts (a)–(e),
+    each printed with its seconds.  Every check fails the run on a miss;
+    returns the ``{"lifecycle": ...}`` summary."""
+    import shutil
+    import tempfile
+    from repro_torch.core.sax import sax_encode_np
+    out = {"host_build_s": host_build_s}
+    w, b = params.sax.w, params.sax.b
+    qb = batches[0]
+
+    # -- (a) device build, sax_encode_np: the host build's layout bitwise ----
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    idx_np = DumpyIndex.build(db, params, backend="device", device="cuda")
+    torch.cuda.synchronize()
+    out["device_build_np_s"] = time.perf_counter() - t1
+    bad = layout_mismatch(np, idx_np, index)
+    if bad is not None:
+        fail(f"device build (np encoder) differs from the host build: {bad}")
+    t2 = time.perf_counter()
+    dev_np = idx_np.device_index(chunk=CHUNK, device="cuda")
+    torch.cuda.synchronize()
+    if idx_np._db_ordered is not None:
+        fail("device_index of the device build went through the host rows")
+    for f in ("db", "ids", "leaf_start"):
+        if not torch.equal(getattr(dev_np, f), getattr(dev, f)):
+            fail(f"DeviceIndex from the device rows differs in {f}")
+    print(f"  (a) device build (np encoder) {out['device_build_np_s']:.3f} s "
+          f"against the host build's {host_build_s:.3f} s: layout, routing "
+          f"and stats bitwise the host build's (plans evaluated "
+          f"{idx_np.stats.plans_evaluated} / {index.stats.plans_evaluated}); "
+          f"DeviceIndex from the rows on the device in "
+          f"{time.perf_counter() - t2:.3f} s, db / ids / leaf_start bitwise "
+          f"phase 3's")
+    del idx_np, dev_np
+    torch.cuda.empty_cache()
+    t2 = time.perf_counter()
+    sax_encode_np(db, params.sax)
+    out["sax_encode_np_s"] = time.perf_counter() - t2
+    print(f"  (a) sax_encode_np alone over the collection, the build's "
+          f"stage 1: {out['sax_encode_np_s']:.3f} s")
+
+    # -- (b) device build, the sax_encode kernel --------------------------------
+    t1 = time.perf_counter()
+    x = torch.from_numpy(db).cuda()
+    ms, _ = time_ms(torch, lambda t: ops.sax_encode(t, w, b), [(x,)] * 5,
+                    warmup=1)
+    B, n = x.shape
+    bms, by = bound(B * n * 4 + B * w * 8, B * n)
+    del x
+    torch.cuda.empty_cache()
+    for m in mods.values():
+        m.launches = 0
+    t2 = time.perf_counter()
+    res = device_build(db, params, encoder="kernel", device="cuda")
+    torch.cuda.synchronize()
+    out["device_build_kernel_s"] = time.perf_counter() - t2
+    kl = {name: m.launches for name, m in mods.items()}
+    if kl["sax_encode"] <= 0:
+        fail("the kernel-encoder device build launched no sax_encode")
+    differ = int((res.sax != index.sax).sum())
+    rows_differ = int((res.sax != index.sax).any(axis=1).sum())
+    worst = borderline_symbols(np, breakpoints, db, res.sax, index.sax, w, b)
+    outside = rows_outside_leaves(np, res.flat, res.sax, b)
+    if outside:
+        fail(f"{outside} rows lie outside their leaf's SAX region")
+    idx_k = DumpyIndex.from_device_build(db, params, res)
+    del res
+    if differ == 0:
+        bad = layout_mismatch(np, idx_k, index)
+        if bad is not None:
+            fail(f"kernel-encoder build differs from (a) with no symbol "
+                 f"differing: {bad}")
+    dev_k = idx_k.device_index(chunk=CHUNK, device="cuda")
+    ids, d, _ = sd.exact_search_device_batch(idx_k, qb, K, dev=dev_k)
+    bd, bi = brute_force(torch, dev_k, torch.from_numpy(qb).cuda(), K)
+    tied = check_exact(
+        np, ids, d, bd.cpu().numpy(), bi.cpu().numpy(),
+        lambda qi, i: np.sqrt(((db[i].astype(np.float64)
+                                - qb[qi].astype(np.float64)) ** 2).sum()), K)
+    out.update(sax_encode_ms=ms, sax_encode_bound_ms=bms,
+               sax_encode_bound_by=by, symbols_differ=differ,
+               rows_differ=rows_differ, symbols_differ_worst_share=worst,
+               kernel_layout_equal=differ == 0,
+               kernel_build_launches=kl, kernel_leaves=idx_k.flat.n_leaves)
+    print(f"  (b) sax_encode over [{B}, {n}]: {ms:.5f} ms on the card "
+          f"(bound {bms:.6f} ms, {by}); device build (kernel encoder) "
+          f"{out['device_build_kernel_s']:.3f} s, launches {kl}; "
+          f"{differ} symbols in {rows_differ} rows differ from "
+          f"sax_encode_np, each one breakpoint apart and borderline (the "
+          f"farthest float64 mean at {worst:.3f} of its float32 gap); every "
+          f"row inside its leaf's region; "
+          f"{idx_k.flat.n_leaves} leaves ({index.flat.n_leaves} on the host"
+          f"); layout {'equal to' if differ == 0 else 'not compared with'} "
+          f"(a)'s; batch 0 exact against the float64 brute force (tied "
+          f"{tied}) ({time.perf_counter() - t1:.3f} s)")
+    del idx_k, dev_k
+    torch.cuda.empty_cache()
+
+    # -- (c) save and load ---------------------------------------------------
+    build_dir = ROOT / "build"
+    build_dir.mkdir(exist_ok=True)
+    df = subprocess.run(["df", "-h", str(build_dir)], capture_output=True,
+                        text=True, timeout=60).stdout.strip()
+    print("  " + df.replace("\n", "\n  "))
+    per_row = db.shape[1] * 4 + w * 5 + 1 + 8
+    free = shutil.disk_usage(build_dir).free
+    # two generations (the crashed overwrite renames its own into place)
+    # and the write-ahead log, with a tenth to spare
+    n_save = db.shape[0]
+    if free < 2.2 * n_save * per_row:
+        n_save = 1_000_000
+        print(f"  REDUCED: {free} bytes free under build/ hold no two "
+              f"generations of {db.shape[0]} rows: saving the first "
+              f"{n_save} series instead")
+    out["saved_rows"] = n_save
+    if n_save == db.shape[0]:
+        saved, want_ids, want_d = index, exact_ed[0][0], exact_ed[0][1]
+    else:
+        saved = DumpyIndex.build(db[:n_save], params)
+        want_ids, want_d, _ = sd.exact_search_device_batch(saved, qb, K,
+                                                           chunk=CHUNK)
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        path = str(Path(tmp) / "idx")
+        t1 = time.perf_counter()
+        saved.save(path)
+        out["save_s"] = time.perf_counter() - t1
+        out["save_gb"] = store_bytes(Path(path)) / 1e9
+        t1 = time.perf_counter()
+        re = DumpyIndex.load(path)
+        out["load_s"] = time.perf_counter() - t1
+        if re._dirty or re._device_cache or re._n_device_builds:
+            fail("a loaded index is not clean")
+        if not (np.array_equal(re.db, saved.db)
+                and np.array_equal(re.alive, saved.alive)
+                and np.array_equal(re.flat.order, saved.flat.order)):
+            fail("the loaded index differs from the saved one")
+        for m in mods.values():
+            m.launches = 0
+        t1 = time.perf_counter()
+        ids, d, _ = sd.exact_search_device_batch(re, qb, K, chunk=CHUNK)
+        out["loaded_search_s"] = time.perf_counter() - t1
+        ll = {name: m.launches for name, m in mods.items()}
+        for name in ("sax_encode", "lb_paa_interval", "pairwise_l2"):
+            if ll[name] <= 0:
+                fail(f"kernel {name} was not launched on the loaded index")
+        if not (np.array_equal(ids, want_ids) and np.array_equal(d, want_d)):
+            fail("exact ED on the loaded index differs from before the save")
+        out["loaded_search_launches"] = ll
+        print(f"  (c) saved {n_save} series in {out['save_s']:.3f} s "
+              f"({out['save_gb']:.3f} GB with sha256), loaded and verified "
+              f"in {out['load_s']:.3f} s; batch 0 exact ED on the loaded "
+              f"index bitwise equal to before the save "
+              f"({out['loaded_search_s']:.3f} s with its DeviceIndex "
+              f"upload), launches {ll}")
+
+        # -- (d) crash at the commit, then WAL replay -------------------------
+        new = random_walks(1000, db.shape[1], seed=seed + 7)
+        t1 = time.perf_counter()
+        new_ids = re.insert_many(new)
+        out["insert_s"] = time.perf_counter() - t1
+        crashed = False
+        t1 = time.perf_counter()
+        try:
+            with fp.armed({"index.save.commit": "crash"}):
+                re.save(path)
+        except fp.InjectedCrash:
+            crashed = True
+        out["crashed_save_s"] = time.perf_counter() - t1
+        if not crashed:
+            fail("the save did not crash at index.save.commit")
+        t1 = time.perf_counter()
+        back = DumpyIndex.load(path)
+        out["recover_s"] = time.perf_counter() - t1
+        if not (np.array_equal(back.db, re.db)
+                and np.array_equal(back.alive, re.alive)):
+            fail("the recovered index differs from the pre-crash one")
+        del re
+        torch.cuda.empty_cache()
+        ids, d, _ = sd.exact_search_device_batch(back, new[:8].copy(), K,
+                                                 chunk=CHUNK)
+        if not (np.array_equal(ids[:, 0], new_ids[:8])
+                and (d[:, 0] == 0).all()):
+            fail(f"the recovered inserts are not found at distance 0: "
+                 f"{ids[:, 0]} {d[:, 0]}")
+        out["wal_rows"] = int(new.shape[0])
+        print(f"  (d) insert_many of {new.shape[0]} series (WAL) "
+              f"{out['insert_s']:.3f} s; save crashed at index.save.commit "
+              f"after {out['crashed_save_s']:.3f} s; load with the WAL "
+              f"replay {out['recover_s']:.3f} s: db and alive equal the "
+              f"pre-crash index ({back.db.shape[0]} rows), 8 inserted "
+              f"series found at distance 0")
+        del back
+        torch.cuda.empty_cache()
+
+    # -- (e) the robustness smoke on the card ---------------------------------
+    t1 = time.perf_counter()
+    if not (smoke.crash_on_commit_smoke(device="cuda")
+            and smoke.degraded_search_smoke(device="cuda")):
+        fail("the robustness smoke failed on the card")
+    out["smoke_s"] = time.perf_counter() - t1
+    print(f"  (e) robustness smoke on the card passed "
+          f"({out['smoke_s']:.3f} s)")
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n-series", type=int, default=4_000_000,
@@ -2017,6 +2309,7 @@ def main() -> None:
     sys.path.insert(0, str(src))
     import numpy as np
     from repro_torch.core.build import DumpyParams
+    from repro_torch.core.build_device import device_build
     from repro_torch.core.index import DumpyIndex
     from repro_torch.core.lb import (dtw2_masked_gather, dtw_envelope_batch,
                                      dtw_np)
@@ -2031,6 +2324,8 @@ def main() -> None:
                                      pairwise_l2, sax_encode)
     from repro_torch.serving.batching import CoalescingFrontend, ServingStats
     from repro_torch.serving.knn_softmax import KnnSoftmaxHead
+    from repro_torch.robustness import failpoints
+    from repro_torch.robustness import smoke as robustness_smoke
 
     # ---- 1. environment -------------------------------------------------
     t_run = t0 = time.perf_counter()
@@ -2076,8 +2371,9 @@ def main() -> None:
     params = DumpyParams(sax=SaxParams(w=16, b=8),
                          split=SplitParams(th=10_000))
     index = DumpyIndex.build(db, params)
+    host_build_s = time.perf_counter() - t1
     print(f"  host build: {index.flat.n_leaves} leaves, height "
-          f"{index.stats.height} ({time.perf_counter() - t1:.3f} s)")
+          f"{index.stats.height} ({host_build_s:.3f} s)")
     t1 = time.perf_counter()
     dev = index.device_index(chunk=CHUNK, n_shards=1, device="cuda")
     torch.cuda.synchronize()
@@ -2254,6 +2550,15 @@ def main() -> None:
         index, dev, db, qs, batches, paths, floor, clock_hz, smi, args.seed)
     print(json.dumps({"serving": serving}))
     phase("serving", t0)
+
+    # ---- 11. index lifecycle ---------------------------------------------------
+    t0 = time.perf_counter()
+    lifecycle = lifecycle_phase(
+        torch, np, search_device, ops, mods, DumpyIndex, device_build,
+        robustness_smoke, failpoints, breakpoints, random_walks, params,
+        index, dev, db, batches, results, host_build_s, args.seed)
+    print(json.dumps({"lifecycle": lifecycle}))
+    phase("index lifecycle", t0)
     print(f"[phase] whole run: {time.perf_counter() - t_run:.3f} s")
 
     for r in rows:

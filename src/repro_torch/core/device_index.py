@@ -59,7 +59,9 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
     return device
 
 
-def _to_tensor(a: np.ndarray, device: torch.device) -> torch.Tensor:
+def _to_tensor(a, device: torch.device) -> torch.Tensor:
+    if isinstance(a, torch.Tensor):  # e.g. the sharded rows of from_index
+        return a.to(device)
     a = np.ascontiguousarray(a)
     if not a.flags.writeable:        # e.g. np.asarray of a jax.Array
         a = a.copy()
@@ -159,7 +161,8 @@ class DeviceIndex:
                     device: str | torch.device = "cuda") -> "DeviceIndex":
         """Carry a layout across: ``arrays`` holds every field of
         :data:`_ARRAY_FIELDS` as a numpy array (for example the fields of the
-        reference's ``DeviceIndex``, read with ``np.asarray``), ``meta`` the
+        reference's ``DeviceIndex``, read with ``np.asarray``) or a tensor
+        (moved to ``device`` if it is elsewhere), ``meta`` the
         static fields of :data:`_META_FIELDS` (``shard_health`` optional).
         Dtypes are kept; tuples in ``meta`` are normalized to host ints."""
         device = resolve_device(device)
@@ -181,14 +184,25 @@ class DeviceIndex:
     @classmethod
     def from_index(cls, index: "DumpyIndex", chunk: int = 2048,
                    n_shards: int = 1,
-                   device: str | torch.device = "cuda") -> "DeviceIndex":
+                   device: str | torch.device = "cuda", *,
+                   db_device: torch.Tensor | None = None) -> "DeviceIndex":
         """Build the full device state from a host ``DumpyIndex``.
 
         ``n_shards`` fixes the leading axis; the shard boundaries are the
         leaf boundaries nearest the ideal ``total/S`` cuts, so a leaf never
         straddles two shards and the span loop needs no cross-shard windows.
+
+        ``db_device`` — optional ``[total, n]`` tensor already in
+        leaf-contiguous order (the device build's gather output): the data
+        plane is then assembled on the device and the host ``db_ordered``
+        permutation is never materialized.  Without it the host rows are
+        padded into shards on the host and uploaded.
         """
+        device = resolve_device(device)
         arrays, meta = layout_arrays(index, chunk, n_shards)
+        rows = (db_device.to(device) if db_device is not None
+                else torch.from_numpy(index.db_ordered))
+        arrays["db"] = _shard_rows(rows, meta["row_bounds"])
         return cls.from_arrays(arrays, meta, device)
 
     # -- incremental state ---------------------------------------------------
@@ -222,11 +236,25 @@ class DeviceIndex:
             self, alive=torch.from_numpy(new).to(self.device))
 
 
+def _shard_rows(rows: torch.Tensor, row_bounds: tuple) -> torch.Tensor:
+    """``[total, n]`` ordered rows → the ``[S, Tp, n]`` shard layout, on the
+    rows' device (zero pad rows).  One unpadded shard is a view."""
+    S = len(row_bounds) - 1
+    sizes = [row_bounds[s + 1] - row_bounds[s] for s in range(S)]
+    Tp = max(max(sizes), 1)
+    if S == 1 and sizes[0] == Tp:
+        return rows[None]
+    out = rows.new_zeros((S, Tp, rows.shape[1]))
+    for s in range(S):
+        out[s, :sizes[s]] = rows[row_bounds[s]:row_bounds[s + 1]]
+    return out
+
+
 def layout_arrays(index: "DumpyIndex", chunk: int = 2048, n_shards: int = 1
                   ) -> tuple[dict[str, np.ndarray], dict]:
-    """The host half of :meth:`DeviceIndex.from_index`: every field as a
-    numpy array, plus the static fields (the reference's construction,
-    verbatim)."""
+    """The host half of :meth:`DeviceIndex.from_index`: every field but the
+    data plane ``db`` (:func:`_shard_rows`) as a numpy array, plus the
+    static fields (the reference's construction, verbatim)."""
     flat = index.flat
     offs = np.asarray(flat.leaf_offsets, np.int64)
     L = flat.n_leaves
@@ -252,10 +280,6 @@ def layout_arrays(index: "DumpyIndex", chunk: int = 2048, n_shards: int = 1
     W = math.ceil(Tp / chunk_eff)
     Lp = max(cut_leaf[s + 1] - cut_leaf[s] for s in range(S)) + 1  # +pad
 
-    db_ord = index.db_ordered
-    # one unpadded shard is the ordered collection itself: no host copy
-    as_is = S == 1 and total == Tp
-    db_sh = db_ord[None] if as_is else np.zeros((S, Tp, n), np.float32)
     alive_sh = np.zeros((S, Tp), bool)
     ids_sh = np.full((S, Tp), -1, np.int32)
     lo_sh = np.full((S, Lp, w), np.inf, np.float32)
@@ -272,8 +296,6 @@ def layout_arrays(index: "DumpyIndex", chunk: int = 2048, n_shards: int = 1
         r0, r1 = row_bounds[s], row_bounds[s + 1]
         l0, l1 = cut_leaf[s], cut_leaf[s + 1]
         Ts = r1 - r0
-        if not as_is:
-            db_sh[s, :Ts] = db_ord[r0:r1]
         alive_sh[s, :Ts] = alive_ord[r0:r1]
         ids_sh[s, :Ts] = order[r0:r1]
         lo_sh[s, :l1 - l0] = flat.leaf_lo[l0:l1]
@@ -319,7 +341,7 @@ def layout_arrays(index: "DumpyIndex", chunk: int = 2048, n_shards: int = 1
     # bounds: begin/end = i32 max, bounds = +inf
     big = np.iinfo(np.int32).max
     arrays = dict(
-        db=db_sh, alive=alive_sh, ids=ids_sh, leaf_lo=lo_sh, leaf_hi=hi_sh,
+        alive=alive_sh, ids=ids_sh, leaf_lo=lo_sh, leaf_hi=hi_sh,
         win_start=win_start, win_lead=win_lead, win_size=win_size,
         edge_leaf=edge_leaf, edge_win=edge_win,
         leaf_start=leaf_start, leaf_size=leaf_size,

@@ -12,21 +12,50 @@ flat structure-of-arrays state:
 * ``alive``                  — tombstone bit-vector for deletions (§5.6)
 
 The host build, the flattening and the updates are numpy copies of the
-reference, so the same data and parameters give the same tree and layout.
-Crash-safe persistence (``save``/``load``, the write-ahead log) and the
-device build backend arrive with later slices of the port.
+reference, so the same data and parameters give the same tree and layout;
+``backend="device"`` builds through ``core/build_device.py``.
+
+Save/load is npz+json (no pickle), including the tree, and is crash-safe:
+each ``save()`` writes a fresh *generation* directory plus a checksummed
+``manifest.json``, and commits by atomically replacing a ``CURRENT``
+pointer file; ``load()`` verifies checksums and falls back to the previous
+intact generation, then replays the generation's write-ahead log so
+``insert_many`` batches survive a crash between saves.  The on-disk format
+is the reference's (the same files, array names, dtypes and JSON, byte for
+byte but for the zip entries' times): a store written by either package
+loads in the other.
 """
 from __future__ import annotations
 
 import dataclasses
+import hashlib
+import io
+import json
+import os
+import re
+import shutil
 
 import numpy as np
 import torch
 
 from ..robustness.failpoints import failpoint, with_retries
+from ..robustness.wal import WriteAheadLog
 from .build import BuildStats, DumpyBuilder, DumpyParams, TreeNode, collect_leaves
 from .lb import node_bounds_np
 from .sax import sax_encode_np
+
+#: on-disk format version (manifest.json); bump on layout changes
+FORMAT_VERSION = 2
+#: generations kept after a successful commit (current + fallback)
+KEEP_GENERATIONS = 2
+
+_CURRENT = "CURRENT"
+_GEN_RE = re.compile(r"^gen-(\d{6})$")
+
+
+class IndexCorruptionError(RuntimeError):
+    """A persisted index failed verification (checksum mismatch, missing
+    file, or inconsistent array shapes/dtypes)."""
 
 
 @dataclasses.dataclass
@@ -260,30 +289,52 @@ class DumpyIndex:
         self._flat = flat
         self._dirty = False
         self._db_ordered: np.ndarray | None = None
+        self._db_ordered_dev: torch.Tensor | None = None   # device build's rows
         self._n_layout_builds = 0              # observability (tests)
         self._n_device_builds = 0              # cache-miss DeviceIndex builds
         # (chunk, n_shards, device) → (DeviceIndex, alive snapshot);
         # invalidated by updates (insert rebuilds the layout; delete
         # refreshes the alive mask per entry)
         self._device_cache: dict = {}
+        # durability: set by save()/load() — while attached, insert_many
+        # appends each batch to the store's write-ahead log before mutating
+        self._store_path: str | None = None
+        self._wal: WriteAheadLog | None = None
 
     # -- construction --------------------------------------------------------
     @classmethod
     def build(cls, db: np.ndarray, params: DumpyParams | None = None,
-              backend: str = "host") -> "DumpyIndex":
-        """Build the index with the host backend (reference Alg. 1
-        recursion).  The device backend arrives with a later slice."""
+              backend: str = "host",
+              device: str | torch.device = "cuda") -> "DumpyIndex":
+        """Build the index with either the host backend (reference Alg. 1
+        recursion) or the device backend (bottom-up grouped build on
+        ``device``, ``core/build_device.py``; CUDA unless the caller asks
+        for the CPU).  Both give the same layout on data where no two split
+        plans score exactly equal."""
         params = params or DumpyParams()
         db = np.ascontiguousarray(db, dtype=np.float32)
         if backend == "device":
-            raise NotImplementedError(
-                "backend='device' is not ported yet (device build slice)")
+            from .build_device import device_build
+            return cls.from_device_build(db, params,
+                                         device_build(db, params,
+                                                      device=device))
         if backend != "host":
             raise ValueError(f"unknown build backend: {backend!r}")
         builder = DumpyBuilder(params)
         root, stats, paa, sax = builder.build(db)
         flat = flatten_tree(root, params.sax.b)
         return cls(params, root, flat, db, paa, sax, stats)
+
+    @classmethod
+    def from_device_build(cls, db: np.ndarray, params: DumpyParams,
+                          res) -> "DumpyIndex":
+        """The index of a :func:`~repro_torch.core.build_device.device_build`
+        result over ``db``; it keeps the ordered rows on the device for
+        :meth:`device_index`."""
+        idx = cls(params, res.root, res.flat, db, res.paa, res.sax,
+                  res.stats)
+        idx._db_ordered_dev = res.db_ordered_dev
+        return idx
 
     # -- lazy layout ---------------------------------------------------------
     @property
@@ -306,6 +357,7 @@ class DumpyIndex:
     def _invalidate_layout(self) -> None:
         self._dirty = True
         self._db_ordered = None
+        self._db_ordered_dev = None
         self._routing_flat = None
         self._device_cache.clear()    # layout changed: device state is stale
 
@@ -331,11 +383,18 @@ class DumpyIndex:
         return int(self.insert_many(np.asarray(series,
                                                np.float32).reshape(1, -1))[0])
 
-    def insert_many(self, batch: np.ndarray) -> np.ndarray:
+    def insert_many(self, batch: np.ndarray,
+                    log_wal: bool = True) -> np.ndarray:
         """Append a batch of series in one pass: one encode, one set of array
         concatenations, one routing loop, each overflowing leaf resplit once
         after all routing, and a single (lazy) layout invalidation.  Returns
-        the new series ids."""
+        the new series ids.
+
+        When the index is attached to a store (after ``save``/``load``) the
+        batch is first appended to the generation's write-ahead log, so a
+        crash before the next ``save()`` loses nothing: ``load`` replays the
+        log on top of the loaded generation.  ``log_wal=False`` is the replay
+        path itself (and callers that explicitly opt out of durability)."""
         batch = np.ascontiguousarray(batch, np.float32)
         if batch.ndim != 2:
             batch = batch.reshape(1, -1)
@@ -343,6 +402,8 @@ class DumpyIndex:
             raise ValueError(
                 f"insert_many: series length {batch.shape[1]} != index "
                 f"length {self.n}")
+        if log_wal and self._wal is not None:
+            self._wal.append(batch)   # durable before any in-memory mutation
         m = batch.shape[0]
         n0 = self.db.shape[0]
         new_ids = np.arange(n0, n0 + m, dtype=np.int64)
@@ -418,10 +479,13 @@ class DumpyIndex:
         key = (int(chunk), int(n_shards), str(device))
         cached = self._device_cache.get(key)
         if cached is None:
+            # device-built indexes keep db_ordered on the device: assemble
+            # the DeviceIndex from those rows without a host round-trip
             def _build():
                 failpoint("device.put")
-                return DeviceIndex.from_index(self, chunk=chunk,
-                                              n_shards=n_shards, device=device)
+                return DeviceIndex.from_index(
+                    self, chunk=chunk, n_shards=n_shards, device=device,
+                    db_device=self._db_ordered_dev)
 
             # transient upload failures (device OOM races, injected faults)
             # are retried with backoff before giving up
@@ -434,3 +498,380 @@ class DumpyIndex:
             dev = dev.with_alive(self.alive)
             self._device_cache[key] = (dev, self.alive.copy())
         return dev
+
+    # -- serialization ---------------------------------------------------------
+    #
+    # On-disk layout (the reference's, byte for byte):
+    #
+    #   path/
+    #     CURRENT            -> "gen-000002\n"   (the commit pointer)
+    #     gen-000001/        arrays.npz, meta.json, manifest.json
+    #     gen-000002/        ...
+    #     wal-000002.log     inserts since gen-000002 was committed
+    #
+    # A save writes a complete new generation under gen-NNNNNN.tmp, renames
+    # it into place, and *commits* with a single os.replace of CURRENT — the
+    # only mutation of shared state.  Every earlier step is invisible to
+    # load(); every later step (pruning old generations) is cleanup.
+
+    def save(self, path: str) -> None:
+        """Write a new checksummed generation and atomically commit it.
+
+        Idempotent and crash-safe: stale ``*.tmp`` droppings from an earlier
+        crashed save are cleared on entry, nothing existing is touched until
+        the final ``CURRENT`` replace, and a crash at any point leaves the
+        previous generation (plus its write-ahead log) fully loadable."""
+        os.makedirs(path, exist_ok=True)
+        for name in os.listdir(path):       # stale tmp dirs from a crash
+            if name.endswith(".tmp"):
+                full = os.path.join(path, name)
+                shutil.rmtree(full) if os.path.isdir(full) else os.remove(full)
+        legacy_tmp = path.rstrip("/") + ".tmp"    # pre-v2 save() droppings
+        if os.path.isdir(legacy_tmp):
+            shutil.rmtree(legacy_tmp)
+        failpoint("index.save.begin")
+
+        gen_id = max(_generation_ids(path), default=0) + 1
+        gen_name = f"gen-{gen_id:06d}"
+        wal_name = f"wal-{gen_id:06d}.log"
+        tmp = os.path.join(path, gen_name + ".tmp")
+        os.makedirs(tmp)
+
+        buf = io.BytesIO()
+        arrays = dict(db=self.db, paa=self.paa, sax=self.sax,
+                      alive=self.alive,
+                      leaf_sym=self.flat.leaf_sym,
+                      leaf_card=self.flat.leaf_card,
+                      leaf_offsets=self.flat.leaf_offsets,
+                      order=self.flat.order)
+        np.savez(buf, **arrays)
+        arrays_bytes = buf.getbuffer()        # no copy of the collection
+        meta = {"params": _params_to_json(self.params),
+                "stats": dataclasses.asdict(self.stats),
+                "tree": _tree_to_json(self.root)}
+        meta_bytes = json.dumps(meta).encode()
+        manifest = {
+            "format_version": FORMAT_VERSION,
+            "generation": gen_name,
+            "wal": wal_name,
+            "arrays": {k: {"shape": list(v.shape), "dtype": str(v.dtype)}
+                       for k, v in arrays.items()},
+            "files": {"arrays.npz": _sha256(arrays_bytes),
+                      "meta.json": _sha256(meta_bytes)},
+        }
+        manifest_bytes = json.dumps(manifest, indent=1).encode()
+
+        _write_durable(os.path.join(tmp, "arrays.npz"), arrays_bytes,
+                       site="index.save.arrays")
+        _write_durable(os.path.join(tmp, "meta.json"), meta_bytes,
+                       site="index.save.meta")
+        _write_durable(os.path.join(tmp, "manifest.json"), manifest_bytes,
+                       site="index.save.manifest")
+
+        failpoint("index.save.rename")
+        os.replace(tmp, os.path.join(path, gen_name))
+        _fsync_dir(path)
+
+        # the commit: one atomic pointer flip
+        failpoint("index.save.commit")
+        _write_durable(os.path.join(path, _CURRENT + ".tmp"),
+                       (gen_name + "\n").encode())
+        os.replace(os.path.join(path, _CURRENT + ".tmp"),
+                   os.path.join(path, _CURRENT))
+        _fsync_dir(path)
+        failpoint("index.save.post_commit")
+
+        # committed: future inserts log to this generation's (fresh) WAL
+        self._store_path = path
+        self._wal = WriteAheadLog(os.path.join(path, wal_name))
+        self._wal.reset()
+
+        failpoint("index.save.prune")
+        self._prune_generations(path, gen_id)
+
+    @staticmethod
+    def _prune_generations(path: str, current_id: int) -> None:
+        """Drop generations (and their WALs) older than the fallback window.
+        Pure cleanup — a crash here leaves extra, still-valid generations."""
+        keep = {current_id - k for k in range(KEEP_GENERATIONS)}
+        for gid in _generation_ids(path):
+            if gid in keep:
+                continue
+            shutil.rmtree(os.path.join(path, f"gen-{gid:06d}"),
+                          ignore_errors=True)
+            wal = os.path.join(path, f"wal-{gid:06d}.log")
+            if os.path.exists(wal):
+                os.remove(wal)
+
+    @classmethod
+    def load(cls, path: str) -> "DumpyIndex":
+        """Load the newest intact generation and replay its write-ahead log.
+
+        The ``CURRENT`` pointer names the committed generation; if that
+        generation fails verification (checksum mismatch, missing or
+        inconsistent files) the remaining generations are tried newest-first,
+        so a flipped bit degrades to the previous save instead of a crash
+        deep inside ``flatten_tree``.  Raises :class:`IndexCorruptionError`
+        when no generation verifies.  The loaded index is clean: layout
+        current, no device state (``device_index()`` builds it anew)."""
+        if not os.path.isdir(path):
+            raise FileNotFoundError(f"no index at {path!r}")
+        gens = sorted(_generation_ids(path), reverse=True)
+        if not gens and os.path.exists(os.path.join(path, "arrays.npz")):
+            return cls._load_legacy(path)     # pre-generation flat layout
+        if not gens:
+            raise FileNotFoundError(f"no index generations under {path!r}")
+
+        candidates: list[str] = []
+        current = _read_current(path)
+        if current is not None:
+            candidates.append(current)
+        candidates += [f"gen-{g:06d}" for g in gens
+                       if f"gen-{g:06d}" not in candidates]
+        errors: list[str] = []
+        for gen_name in candidates:
+            try:
+                failpoint("index.load.verify")
+                idx, manifest = cls._load_generation(
+                    os.path.join(path, gen_name))
+            except (IndexCorruptionError, OSError, ValueError, KeyError) as e:
+                errors.append(f"{gen_name}: {type(e).__name__}: {e}")
+                continue
+            idx._attach_store(path, manifest.get("wal", f"{gen_name}.wal"))
+            return idx
+        raise IndexCorruptionError(
+            f"no intact generation under {path!r}; tried: " + "; ".join(errors))
+
+    @classmethod
+    def _load_generation(cls, gen_dir: str) -> tuple["DumpyIndex", dict]:
+        with open(os.path.join(gen_dir, "manifest.json"), "rb") as fh:
+            manifest = json.load(fh)
+        if manifest.get("format_version") != FORMAT_VERSION:
+            raise IndexCorruptionError(
+                f"{gen_dir}: format_version {manifest.get('format_version')!r}"
+                f" != {FORMAT_VERSION}")
+        blobs: dict[str, bytes] = {}
+        for fname, want in manifest["files"].items():
+            full = os.path.join(gen_dir, fname)
+            if not os.path.exists(full):
+                raise IndexCorruptionError(f"{gen_dir}: missing {fname}")
+            with open(full, "rb") as fh:
+                data = fh.read()
+            got = _sha256(data)
+            if got != want:
+                raise IndexCorruptionError(
+                    f"{gen_dir}/{fname}: sha256 mismatch "
+                    f"(manifest {want[:12]}…, file {got[:12]}…)")
+            blobs[fname] = data
+        arrs = dict(np.load(io.BytesIO(blobs.pop("arrays.npz"))))
+        for name, spec in manifest["arrays"].items():
+            if name not in arrs:
+                raise IndexCorruptionError(f"{gen_dir}: array {name!r} "
+                                           f"missing from arrays.npz")
+            a = arrs[name]
+            if list(a.shape) != spec["shape"] or str(a.dtype) != spec["dtype"]:
+                raise IndexCorruptionError(
+                    f"{gen_dir}: array {name!r} is {a.shape}/{a.dtype}, "
+                    f"manifest says {tuple(spec['shape'])}/{spec['dtype']}")
+        meta = json.loads(blobs["meta.json"])
+        return cls._from_loaded(arrs, meta, where=gen_dir), manifest
+
+    @classmethod
+    def _load_legacy(cls, path: str) -> "DumpyIndex":
+        """Pre-v2 layout: arrays.npz + meta.json directly under ``path``
+        (no manifest, no checksums — validation only)."""
+        arrs = dict(np.load(os.path.join(path, "arrays.npz")))
+        with open(os.path.join(path, "meta.json")) as fh:
+            meta = json.load(fh)
+        idx = cls._from_loaded(arrs, meta, where=path)
+        idx._attach_store(path, "wal-legacy.log")
+        return idx
+
+    @classmethod
+    def _from_loaded(cls, arrs: dict, meta: dict, where: str) -> "DumpyIndex":
+        params = _params_from_json(meta["params"])
+        root = _tree_from_json(meta["tree"])
+        stats = BuildStats(**meta["stats"])
+        _validate_arrays(arrs, params, where)
+        flat = flatten_tree(root, params.sax.b)
+        # the layout is re-derived from the tree; it must agree with what
+        # was saved or the tree and arrays are from different states
+        if not np.array_equal(flat.order, arrs["order"]) or \
+                not np.array_equal(flat.leaf_offsets, arrs["leaf_offsets"]):
+            raise IndexCorruptionError(
+                f"{where}: routing tree disagrees with saved leaf layout")
+        idx = cls(params, root, flat, arrs["db"], arrs["paa"], arrs["sax"],
+                  stats)
+        idx.alive = np.asarray(arrs["alive"], bool)
+        # a freshly loaded index is clean: layout current, no pending
+        # inserts, empty device cache (caches are per-process, not persisted)
+        idx._dirty = False
+        idx._device_cache.clear()
+        return idx
+
+    def _attach_store(self, path: str, wal_name: str) -> None:
+        """Bind this index to its on-disk store and replay any write-ahead
+        log the committed generation left behind (inserts that happened
+        after the save)."""
+        self._store_path = path
+        self._wal = WriteAheadLog(os.path.join(path, wal_name))
+        for batch in self._wal.replay():
+            self.insert_many(batch, log_wal=False)
+
+
+# -- persistence helpers -------------------------------------------------------
+
+def _sha256(data) -> str:
+    return hashlib.sha256(data).hexdigest()
+
+
+def _write_durable(path: str, data, site: str | None = None) -> None:
+    """Write + fsync a file; when ``site`` is given the write is a failpoint
+    and transient faults are retried with backoff."""
+    def _write():
+        if site is not None:
+            failpoint(site)
+        with open(path, "wb") as fh:
+            fh.write(data)
+            fh.flush()
+            os.fsync(fh.fileno())
+    if site is None:
+        _write()
+    else:
+        with_retries(_write, site=site)
+
+
+def _fsync_dir(path: str) -> None:
+    """Persist directory-entry renames (no-op on platforms without O_DIRECTORY
+    semantics)."""
+    try:
+        fd = os.open(path, os.O_RDONLY)
+    except OSError:
+        return
+    try:
+        os.fsync(fd)
+    except OSError:
+        pass
+    finally:
+        os.close(fd)
+
+
+def _generation_ids(path: str) -> list[int]:
+    out = []
+    try:
+        names = os.listdir(path)
+    except FileNotFoundError:
+        return out
+    for name in names:
+        m = _GEN_RE.match(name)
+        if m and os.path.isdir(os.path.join(path, name)):
+            out.append(int(m.group(1)))
+    return out
+
+
+def _read_current(path: str) -> str | None:
+    try:
+        with open(os.path.join(path, _CURRENT)) as fh:
+            name = fh.read().strip()
+    except OSError:
+        return None
+    return name if _GEN_RE.match(name) else None
+
+
+def _validate_arrays(arrs: dict, params: DumpyParams, where: str) -> None:
+    """Cross-consistency checks over the loaded arrays — precise
+    :class:`IndexCorruptionError` instead of an opaque failure deep inside
+    ``flatten_tree`` or the first search."""
+    def bad(msg: str):
+        raise IndexCorruptionError(f"{where}: {msg}")
+
+    for name in ("db", "paa", "sax", "alive", "leaf_sym", "leaf_card",
+                 "leaf_offsets", "order"):
+        if name not in arrs:
+            bad(f"array {name!r} missing")
+    db, paa, sax = arrs["db"], arrs["paa"], arrs["sax"]
+    alive, order = arrs["alive"], arrs["order"]
+    offsets = arrs["leaf_offsets"]
+    if db.ndim != 2 or db.dtype != np.float32:
+        bad(f"db must be [N, n] float32, got {db.shape}/{db.dtype}")
+    N, w = db.shape[0], params.sax.w
+    if paa.shape != (N, w):
+        bad(f"paa shape {paa.shape} != (N={N}, w={w})")
+    if sax.shape != (N, w):
+        bad(f"sax shape {sax.shape} != (N={N}, w={w})")
+    if alive.shape != (N,) or alive.dtype != np.bool_:
+        bad(f"alive must be [N] bool, got {alive.shape}/{alive.dtype}")
+    L = arrs["leaf_sym"].shape[0]
+    if arrs["leaf_sym"].shape != (L, w) or arrs["leaf_card"].shape != (L, w):
+        bad(f"leaf tables {arrs['leaf_sym'].shape}/"
+            f"{arrs['leaf_card'].shape} inconsistent with w={w}")
+    if offsets.shape != (L + 1,) or (np.diff(offsets) < 0).any():
+        bad(f"leaf_offsets must be [L+1] non-decreasing "
+            f"(L={L}, got {offsets.shape})")
+    if len(order) != (int(offsets[-1]) if len(offsets) else 0):
+        bad(f"order has {len(order)} entries, leaf_offsets expects "
+            f"{int(offsets[-1])}")
+    if len(order) and (order.min() < 0 or order.max() >= N):
+        bad(f"order references series id {int(order.max())} outside [0, {N})")
+
+
+# -- json helpers (no pickle) --------------------------------------------------
+
+def _params_to_json(p: DumpyParams) -> dict:
+    return {"w": p.sax.w, "b": p.sax.b, "th": p.split.th,
+            "alpha": p.split.alpha, "f_low": p.split.f_low,
+            "f_high": p.split.f_high, "r": p.r, "rho": p.rho,
+            "fuzzy_f": p.fuzzy_f, "max_replica": p.max_replica, "seed": p.seed}
+
+
+def _params_from_json(d: dict) -> DumpyParams:
+    from .sax import SaxParams
+    from .split import SplitParams
+    return DumpyParams(sax=SaxParams(w=d["w"], b=d["b"]),
+                       split=SplitParams(th=d["th"], alpha=d["alpha"],
+                                         f_low=d["f_low"], f_high=d["f_high"]),
+                       r=d["r"], rho=d["rho"], fuzzy_f=d["fuzzy_f"],
+                       max_replica=d["max_replica"], seed=d["seed"])
+
+
+def _tree_to_json(node: TreeNode) -> dict:
+    d = {"sym": node.sym.tolist(), "card": node.card.tolist(),
+         "size": node.size, "depth": node.depth, "n_leaves": node.n_leaves,
+         "is_pack": node.is_pack, "pack_mask": node.pack_mask,
+         "pack_value": node.pack_value}
+    if node.is_leaf:
+        d["series_ids"] = (node.series_ids.tolist()
+                           if node.series_ids is not None else [])
+    else:
+        d["csl"] = list(node.csl)
+        # pack nodes can be shared among sids: serialize each once
+        uniq: dict[int, int] = {}
+        nodes_json, edges = [], []
+        for sid, child in sorted(node.children.items()):
+            key = id(child)
+            if key not in uniq:
+                uniq[key] = len(nodes_json)
+                nodes_json.append(_tree_to_json(child))
+            edges.append([sid, uniq[key]])
+        d["child_nodes"] = nodes_json
+        d["edges"] = edges
+    return d
+
+
+def _tree_from_json(d: dict) -> TreeNode:
+    node = TreeNode(np.asarray(d["sym"], np.int64),
+                    np.asarray(d["card"], np.int64), d["depth"])
+    node.size = d["size"]
+    node.n_leaves = d["n_leaves"]
+    node.is_pack = d["is_pack"]
+    node.pack_mask = d["pack_mask"]
+    node.pack_value = d["pack_value"]
+    if "csl" in d:
+        node.csl = tuple(d["csl"])
+        kids = [_tree_from_json(c) for c in d["child_nodes"]]
+        for sid, ki in d["edges"]:
+            node.children[sid] = kids[ki]
+            node.routing[sid] = kids[ki]
+    else:
+        node.series_ids = np.asarray(d["series_ids"], np.int64)
+    return node

@@ -88,8 +88,11 @@ def test_insert_many_and_delete_keep_parity():
 
 def test_build_backend_choices():
     db = series.random_walks(300, 64, seed=1)
-    with pytest.raises(NotImplementedError, match="device"):
-        DumpyIndex.build(db, DumpyParams(), backend="device")
+    host = DumpyIndex.build(db, DumpyParams())
+    dev = DumpyIndex.build(db, DumpyParams(), backend="device", device="cpu")
+    np.testing.assert_array_equal(dev.flat.order, host.flat.order)
+    np.testing.assert_array_equal(dev.flat.leaf_offsets,
+                                  host.flat.leaf_offsets)
     with pytest.raises(ValueError, match="unknown build backend"):
         DumpyIndex.build(db, DumpyParams(), backend="gpu")
 

@@ -45,6 +45,8 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
         "import repro_torch.core.search_device, repro_torch.kernels.ops\n"
         "import repro_torch.core.device_index, repro_torch.data.series\n"
         "import repro_torch.serving.batching, repro_torch.serving.knn_softmax\n"
+        "import repro_torch.core.build_device, repro_torch.robustness.wal\n"
+        "import repro_torch.robustness.smoke\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r}]\n"
         "assert not bad, bad\n"
