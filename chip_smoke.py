@@ -105,7 +105,37 @@ Phases, each printed with its seconds:
    equal to phase 5's; (d) 1 000 inserts through the write-ahead log, a
    save crashed at ``index.save.commit``, a load that replays the log: the
    pre-crash ``db`` and ``alive``, 8 inserted series found at distance 0;
-   (e) ``repro_torch.robustness.smoke`` on the card.
+   (e) ``repro_torch.robustness.smoke`` on the card;
+12. distributed build and search, and the baseline indexes, on the same
+   collection: (a) ``build_distributed`` on the mesh ``[cuda:0]``: its
+   table bitwise ``sax_encode`` over the same rows, each symbol that
+   differs from ``sax_encode_np`` borderline as in 11 (b), every row in
+   its leaf, the leaf count of 11 (b)'s kernel-encoder build; four row
+   shards (``encode_distributed``) give the same table and a histogram
+   summing to N that equals the host bincount of the next-bit codes;
+   seconds beside phase 11's builds; (b) ``search_distributed``: batch 0
+   of exact ED on ``[cuda:0]`` bitwise phase 5's; on ``[cuda:0] x 4``
+   (four shards through the per-device code) exact ED, extended ED nbr=4
+   with re-rank, approximate nbr=4 on the placed ``DeviceIndex`` and one
+   DTW batch bitwise phases 5, 9 and 7's; shard 3 dead: the coverage
+   equals ``shard_coverage`` and the answers a float64 top-k over the
+   live shards' rows; two cards where there are two, else "cross-device:
+   not run (1 device)"; the launches of every kernel on (b); (c)
+   ``search_step`` over the whole collection ``[64, N, 256]``: one
+   ``pairwise_l2`` and one ``lb_paa_interval`` launch, the ids phase 5's
+   up to ties and the distances within rtol 1e-5 of phase 5's, each d²
+   also within 1e-5·(|q|² + |x|²) of its float64 value (ids swapped only
+   inside that rounding), ``sqrt(lbs) <= d[:, 0]``; ``pairwise_l2``
+   at that shape against its twin on three column slices and bitwise a
+   call over each slice alone, timed beside its bound, its twin and
+   ``torch.cdist(q, x).square()``; (d) Dumpy, iSAX2+ and TARDIS over the
+   first 1 M series (w=16, b=8, th=10 000): host build seconds, leaves,
+   height, fill factor, ``DeviceIndex`` set-up, exact ED batch 0 against a
+   float64 brute force over those series with its launches, recall@10 of
+   extended search at nbr 1, 4, 16 against it, and ``lb_paa_interval`` at
+   each structure's leaf and routing edge tables (bitwise the in-order
+   sum, timed beside its bound and twin).  The ``kernels`` line gives
+   each kernel's rows at these new shapes under ``new_shapes``.
 """
 from __future__ import annotations
 
@@ -172,6 +202,9 @@ LBPAA_EDGES = [(1, 1, 1), (5, 333, 3), (9, 77, 64), (33, 1500, 33),
 # the leaf table at scale: the shard-0 table repeated, 757 x 25 = 18 925
 # leaves, as a 100 M-series collection at th = 10 000 has
 LB_SCALE = 25
+# phase 12 (d): the structure comparison runs on the first 1 M series (the
+# iSAX2+ host build grows faster than linearly in the collection)
+BASELINE_ROWS = 1_000_000
 # phase 10, serving: the knob bounds, coalescing settings and rates of
 # benchmarks/bench_serving.py
 SERVE_K_MAX, SERVE_NBR_MAX = 10, 4
@@ -1005,12 +1038,15 @@ def dtw_float64_check(torch, dev, q32, d_port, r, k, rows_of=None):
     return bd, bi, len(rows)
 
 
-def brute_force(torch, dev, q32, k, rows_of=None):
+def brute_force(torch, dev, q32, k, rows_of=None, live=None):
     """Exact top-(k+1) of ``q32 [Q, n]`` in float64 by direct differences
-    over every live row of shard 0, or with ``rows_of(qi)`` over the live
-    rows it gives for query ``qi`` (the leaves a search scheduled):
-    ``(d [Q, k+1] f64, ids [Q, k+1])``, padded with ``inf / -1``."""
+    over every live row of shard 0 (and of ``live``, a bool mask of its
+    rows, where given), or with ``rows_of(qi)`` over the live rows it
+    gives for query ``qi`` (the leaves a search scheduled): ``(d [Q, k+1]
+    f64, ids [Q, k+1])``, padded with ``inf / -1``."""
     db0, ids0, alive0 = dev.db[0], dev.ids[0], dev.alive[0]
+    if live is not None:
+        alive0 = alive0 & live
     q = q32.double()
     if rows_of is not None:
         Q = q32.shape[0]
@@ -1466,7 +1502,7 @@ def search_paths_phase(torch, np, sd, hs, ops, ref, gather, dtw_np, index,
     if index._n_device_builds != builds:
         fail("phase 9 built another DeviceIndex layout")
     print("  no DeviceIndex built by phase 9")
-    return summary
+    return summary, {key: res[0] for key, res in out.items()}
 
 
 class recorded_calls:
@@ -2293,6 +2329,376 @@ def lifecycle_phase(torch, np, sd, ops, mods, DumpyIndex, device_build,
     return out
 
 
+def next_bit_hist(np, sax, w: int, b: int):
+    """The root histogram recounted on the host: ``np.bincount`` of every
+    row's first bit of each segment, segment 0 the most significant."""
+    bits = (sax.astype(np.int64) >> (b - 1)) & 1
+    codes = (bits << np.arange(w - 1, -1, -1)).sum(axis=1)
+    return np.bincount(codes, minlength=1 << w)
+
+
+def step_against_exact(np, db, qb, ids, d, ex_ids, ex_d) -> tuple:
+    """Hold ``search_step``'s ``[Q, k]`` answer (``d`` from the one-pass
+    ``|q|² + |x|² - 2 q·x`` form, as the reference's ``search_step``
+    computes it) against the exact answer ``ex_ids / ex_d``: each d² within
+    1e-5·(|q|² + |x|²) of the float64 d² of its id (the rounding bound of
+    that form, ``pairwise_l2``'s tolerance), and each position's float64 d²
+    within twice that of the exact one (ids swap only inside the rounding).
+    Fails the run on a miss; returns the number of ids that differ."""
+    q = qb.astype(np.float64)
+    x = db[ids].astype(np.float64)                            # [Q, k, n]
+    true2 = ((x - q[:, None, :]) ** 2).sum(-1)
+    scale = (q * q).sum(-1)[:, None] + (x * x).sum(-1)
+    if not (np.abs(d.astype(np.float64) ** 2 - true2) <= 1e-5 * scale).all():
+        fail("search_step's d² is not within 1e-5·(|q|² + |x|²) of float64")
+    if not (np.abs(true2 - ex_d.astype(np.float64) ** 2)
+            <= 2e-5 * scale).all():
+        fail("search_step's ids are not the exact top-k up to rounding")
+    return int((ids != ex_ids).sum())
+
+
+def distributed_phase(torch, np, sd, ops, ref, mods, dist, sharding,
+                      breakpoints, params, index, dev, db, batches,
+                      dtw_batches, exact_ed, exact_dtw, paths_b0, lifecycle,
+                      floor, smi) -> tuple[dict, dict]:
+    """Phase 12 (a)–(c): ``build_distributed``, ``search_distributed`` on
+    meshes of one and four entries against earlier phases' results, and
+    ``search_step`` over the whole collection.  Every check fails the run
+    on a miss; returns ``(summary, kernel rows at the new shape)``."""
+    out = {}
+    w, b = params.sax.w, params.sax.b
+    N, n = db.shape
+    qb = batches[0]
+    q32 = torch.from_numpy(qb).cuda()
+    mesh1 = sharding.make_mesh(["cuda:0"])
+    mesh4 = sharding.make_mesh(["cuda:0"] * 4)
+
+    # -- (a) build_distributed: the kernel's table, the summed histogram ----
+    t1 = time.perf_counter()
+    for m in mods.values():
+        m.launches = 0
+    idx_d = dist.build_distributed(db, params, mesh=mesh1)
+    torch.cuda.synchronize()
+    out["build_s"] = time.perf_counter() - t1
+    la = {name: m.launches for name, m in mods.items()}
+    if la["sax_encode"] <= 0:
+        fail("build_distributed launched no sax_encode")
+    ids0 = dev.ids[0][:N].long()
+    paa_k, sax_k = ops.sax_encode(dev.db[0][:N], w, b)      # row order: ids0
+    paa_o = torch.empty_like(paa_k)
+    sax_o = torch.empty_like(sax_k)
+    paa_o[ids0], sax_o[ids0] = paa_k, sax_k
+    if not (torch.equal(torch.from_numpy(idx_d.paa).cuda(), paa_o)
+            and torch.equal(torch.from_numpy(idx_d.sax).cuda().int(),
+                            sax_o)):
+        fail("build_distributed's table differs from sax_encode over the "
+             "same rows")
+    del paa_k, sax_k, paa_o, sax_o
+    differ = int((idx_d.sax != index.sax).sum())
+    worst = borderline_symbols(np, breakpoints, db, idx_d.sax, index.sax,
+                               w, b)
+    outside = rows_outside_leaves(np, idx_d.flat, idx_d.sax, b)
+    if outside:
+        fail(f"{outside} rows of the distributed build lie outside their "
+             f"leaf's SAX region")
+    leaves = idx_d.flat.n_leaves
+    if leaves != lifecycle["kernel_leaves"]:
+        fail(f"build_distributed gives {leaves} leaves, the kernel-encoder "
+             f"device build {lifecycle['kernel_leaves']}")
+    t2 = time.perf_counter()
+    paa4, sax4, hist = dist.encode_distributed(db, w, b, mesh=mesh4)
+    enc4_s = time.perf_counter() - t2
+    hist = hist.cpu().numpy()
+    if not (np.array_equal(paa4, idx_d.paa) and np.array_equal(sax4,
+                                                               idx_d.sax)):
+        fail("the table of four row shards differs from one shard's")
+    if int(hist.sum()) != N or not np.array_equal(
+            hist, next_bit_hist(np, idx_d.sax, w, b)):
+        fail("the summed histogram is not the bincount of the next-bit "
+             "codes")
+    del paa4, sax4
+    out.update(launches_build=la, symbols_differ=differ,
+               symbols_differ_worst_share=worst, leaves=leaves,
+               height=idx_d.stats.height, encode_4_shards_s=enc4_s,
+               hist_nonzero=int((hist > 0).sum()))
+    print(f"  (a) build_distributed on mesh [cuda:0]: {out['build_s']:.3f} s "
+          f"(phase 11: host build {lifecycle['host_build_s']:.3f} s, device "
+          f"build {lifecycle['device_build_np_s']:.3f} s with sax_encode_np "
+          f"and {lifecycle['device_build_kernel_s']:.3f} s with the kernel),"
+          f" launches {la}; the table bitwise sax_encode over the same rows;"
+          f" {differ} symbols differ from sax_encode_np, each borderline "
+          f"(farthest at {worst:.3f} of its float32 gap); {leaves} leaves, "
+          f"height {idx_d.stats.height}, every row inside its leaf; four "
+          f"row shards ({enc4_s:.3f} s) give the same table and a histogram"
+          f" summing to {int(hist.sum())} ({out['hist_nonzero']} of "
+          f"{1 << w} codes used) equal to the host bincount [{smi}]")
+    del idx_d
+    torch.cuda.empty_cache()
+
+    # -- (b) search_distributed against phases 5, 7 and 9 -------------------
+    def same(got, want, what):
+        if not all(np.array_equal(a, b) for a, b in zip(got, want)):
+            fail(f"{what} differs from the earlier result")
+
+    for m in mods.values():
+        m.launches = 0
+    t1 = time.perf_counter()
+    same(dist.search_distributed(index, qb, K, mesh=mesh1), exact_ed[0][:2],
+         "exact ED on the mesh [cuda:0]")
+    for key in [k for k in index._device_cache if k[3] is mesh1]:
+        del index._device_cache[key]           # free that layout's 4 GB
+    torch.cuda.empty_cache()
+    t_m1 = time.perf_counter() - t1
+    times = {}
+    for label, fn, want in (
+            ("exact ED", lambda: dist.search_distributed(
+                index, qb, K, mesh=mesh4), exact_ed[0][:2]),
+            ("extended ED nbr=4 rerank", lambda: dist.search_distributed(
+                index, qb, K, nbr=4, mesh=mesh4),
+             paths_b0[("ED", "extended", 4, True)][:2]),
+            ("approximate ED nbr=4", lambda: sd.approximate_search_device_batch(
+                index, qb, K, nbr=4,
+                dev=index.device_index(chunk=CHUNK, mesh=mesh4)),
+             paths_b0[("ED", "approximate", 4, None)]),
+            ("exact DTW band 25 cluster", lambda: dist.search_distributed(
+                index, dtw_batches[0], K, metric="dtw", band=BAND,
+                mesh=mesh4), exact_dtw[0][:2])):
+        t2 = time.perf_counter()
+        same(fn(), want, f"{label} on the mesh [cuda:0] x 4")
+        times[label] = time.perf_counter() - t2
+    dev4 = index.device_index(chunk=CHUNK, mesh=mesh4)
+    if not (isinstance(dev4.db, tuple) and dev4.n_shards == 4):
+        fail("the four-entry mesh did not place four shards")
+    health = (True, True, True, False)
+    t2 = time.perf_counter()
+    ids, d, cov = dist.search_distributed(index, qb, K, shard_health=health,
+                                          mesh=mesh4)
+    times["degraded exact ED"] = time.perf_counter() - t2
+    want_cov = sd.shard_coverage(index, dev4.with_shard_health(health))
+    if cov != want_cov or not 0.0 < cov < 1.0:
+        fail(f"degraded coverage {cov} != shard_coverage {want_cov}")
+    live = torch.zeros(dev.db[0].shape[0], dtype=torch.bool, device="cuda")
+    live[:dev4.row_bounds[3]] = True
+    bd, bi = brute_force(torch, dev, q32, K, live=live)
+    tied = check_exact(
+        np, ids, d, bd.cpu().numpy(), bi.cpu().numpy(),
+        lambda qi, i: np.sqrt(((db[i].astype(np.float64)
+                                - qb[qi].astype(np.float64)) ** 2).sum()), K)
+    lb = {name: m.launches for name, m in mods.items()}
+    for name, count in lb.items():
+        if count <= 0:
+            fail(f"kernel {name} was not launched by phase 12 (b)")
+    if torch.cuda.device_count() >= 2:
+        mesh2 = sharding.make_mesh(["cuda:0", "cuda:1"])
+        same(dist.search_distributed(index, qb, K, mesh=mesh2),
+             exact_ed[0][:2], "exact ED across two cards")
+        cross = "exact ED on [cuda:0, cuda:1] bitwise phase 5's"
+    else:
+        cross = "cross-device: not run (1 device)"
+    out.update(mesh1_exact_s=t_m1, mesh4_s=times, launches_search=lb,
+               coverage=cov, degraded_tied=tied, cross_device=cross)
+    print(f"  (b) search_distributed on [cuda:0]: batch 0 of exact ED "
+          f"bitwise phase 5's ({t_m1:.3f} s with its layout); on "
+          f"[cuda:0] x 4, bitwise: exact ED and DTW (phases 5, 7), "
+          f"extended ED nbr=4 with re-rank and approximate nbr=4 on the "
+          f"placed DeviceIndex (phase 9); seconds {times}; shard 3 dead: "
+          f"coverage {cov:.7f} = shard_coverage, answers equal the float64 "
+          f"top-{K} over the live shards' rows (tied {tied}); launches "
+          f"{lb}; {cross} [{smi}]")
+    for key in [k for k in index._device_cache if k[3] is not None]:
+        del index._device_cache[key]
+    del dev4
+    torch.cuda.empty_cache()
+
+    # -- (c) search_step over the whole collection ---------------------------
+    x = dev.db[0][:N]
+    lo, hi = dev.leaf_lo_g, dev.leaf_hi_g
+    for m in mods.values():
+        m.launches = 0
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    pos, dd, lbs = dist.search_step(q32, x, lo, hi, K)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t1
+    lc = {name: m.launches for name, m in mods.items()}
+    if lc["pairwise_l2"] != 1 or lc["lb_paa_interval"] != 1:
+        fail(f"search_step launches {lc}, not one pairwise_l2 and one "
+             f"lb_paa_interval")
+    ids = dev.ids[0][pos].cpu().numpy().astype(np.int64)
+    dd, lbs = dd.cpu().numpy(), lbs.cpu().numpy()
+    ok, gap = ties_only(np, ids, dd, *exact_ed[0][:2])
+    if not ok:
+        fail(f"search_step's answer is not phase 5's up to ties at rtol "
+             f"1e-5 (max rel gap in d {gap:.3e})")
+    swapped = step_against_exact(np, db, qb, ids, dd, *exact_ed[0][:2])
+    if not (np.sqrt(lbs) <= dd[:, 0]).all():
+        fail("search_step's sqrt(lbs) exceeds a nearest distance")
+    Q = q32.shape[0]
+    err = 0.0
+    d2 = ops.pairwise_l2(q32, x)
+    for s0 in (0, N // 2, N - 4096):
+        xs = x[s0:s0 + 4096]
+        want = ref.pairwise_l2_ref(q32, xs)
+        scale = (q32 * q32).sum(1)[:, None] + (xs * xs).sum(1)[None, :]
+        part = d2[:, s0:s0 + 4096]
+        if not bool(((part - want).abs() <= 1e-5 * scale).all()):
+            fail(f"pairwise_l2 at [{Q},{N},{n}] disagrees with its twin at "
+                 f"columns {s0}..")
+        if not torch.equal(part, ops.pairwise_l2(q32, xs)):
+            fail(f"pairwise_l2 at [{Q},{N},{n}] is not bitwise a call over "
+                 f"columns {s0}.. alone")
+        err = max(err, float((part - want).abs().max()))
+    del d2
+    ms, host = time_ms(torch, ops.pairwise_l2, [(q32, x)] * 5, warmup=1)
+    plain, _ = time_ms(torch, ref.pairwise_l2_ref, [(q32, x)] * 3, warmup=1)
+    lib, _ = time_ms(torch, lambda q, y: torch.cdist(q, y).square(),
+                     [(q32, x)] * 3, warmup=1)
+    b_ms, b_by = bound(4 * (Q * n + N * n + Q * N),
+                       2 * Q * N * n + 2 * (Q + N) * n + 4 * Q * N)
+    torch.cuda.empty_cache()
+    out.update(search_step_s=step_s, search_step_launches=lc,
+               search_step_gap=gap, search_step_swapped=swapped,
+               pairwise_l2_ms=ms, pairwise_l2_bound_ms=b_ms,
+               pairwise_l2_plain_ms=plain, pairwise_l2_library_ms=lib)
+    print(f"  (c) search_step at [{Q},{N},{n}]: {step_s:.3f} s (one "
+          f"pairwise_l2, one lb_paa_interval: {lc}); the ids phase 5's "
+          f"up to ties and the distances within rtol 1e-5 of phase 5's "
+          f"(max rel gap in d {gap:.3e}, {swapped} ids swapped); every d² "
+          f"within 1e-5·(|q|² + |x|²) of its float64 value; sqrt(lbs) <= "
+          f"d[:, 0]; pairwise_l2 at that shape: "
+          f"within 1e-5 of its twin on three column slices (max |err| "
+          f"{err:.3e}) and bitwise a call over each slice; kernel "
+          f"{ms:.5f} ms (host {host:.4f} ms a call), twin {plain:.5f} ms, "
+          f"torch.cdist(q, x).square() {lib:.5f} ms, bound {b_ms:.6f} ms "
+          f"({b_by}), {100 * b_ms / ms:.1f}% of the bound [{smi}]")
+    new_rows = {"pairwise_l2": [dict(
+        shape=[Q, N, n], path="search_step (12 c)", launches=1, ms=ms,
+        plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib,
+        max_abs_err=err)]}
+    return out, new_rows
+
+
+def baselines_phase(torch, np, sd, ops, ref, mods, baselines, DumpyIndex,
+                    params, db, batches, floor, smi) -> tuple[dict, list]:
+    """Phase 12 (d): Dumpy, iSAX2+ and TARDIS over the first 1 M series,
+    each through the same device paths: its host build, structure, set-up,
+    exact ED batch 0 against a float64 brute force over those series, and
+    recall@10 of extended search at nbr 1, 4, 16 against it, with
+    ``lb_paa_interval`` timed at its leaf and routing edge tables.  Every
+    check fails the run on a miss; returns ``(summary, kernel rows)``."""
+    isax2plus, tardis = baselines
+    n_cut = min(BASELINE_ROWS, db.shape[0])
+    sub = db[:n_cut]
+    if n_cut < db.shape[0]:
+        print(f"  REDUCED: the first {n_cut} of {db.shape[0]} series (the "
+              f"iSAX2+ host build grows faster than linearly)")
+    qb = batches[0]
+    q32 = torch.from_numpy(qb).cuda()
+    paa, _ = ops.sax_encode(q32, params.sax.w, params.sax.b)
+    w, n = params.sax.w, sub.shape[1]
+    builders = (("dumpy", lambda: DumpyIndex.build(sub, params)),
+                ("isax2plus", lambda: isax2plus.build_isax2plus(sub, params)),
+                ("tardis", lambda: tardis.build_tardis(sub, params)))
+    summary, kernel_rows, gt = {}, [], None
+    for name, build in builders:
+        t1 = time.perf_counter()
+        idx = build()
+        build_s = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        dev_s = idx.device_index(chunk=CHUNK, device="cuda")
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t1
+        if gt is None:
+            bd, bi = brute_force(torch, dev_s, q32, K)
+            gt = (bd.cpu().numpy(), bi.cpu().numpy())
+        sd.exact_search_device_batch(idx, qb, K, dev=dev_s)      # warm-up
+        for m in mods.values():
+            m.launches = 0
+        t1 = time.perf_counter()
+        ids, d, vis = sd.exact_search_device_batch(idx, qb, K, dev=dev_s)
+        exact_s = time.perf_counter() - t1
+        la = {k: m.launches for k, m in mods.items()}
+        for k in ("sax_encode", "lb_paa_interval", "pairwise_l2"):
+            if la[k] <= 0:
+                fail(f"kernel {k} was not launched on {name}'s exact batch")
+        tied = check_exact(
+            np, ids, d, gt[0], gt[1],
+            lambda qi, i: np.sqrt(((sub[i].astype(np.float64)
+                                    - qb[qi].astype(np.float64)) ** 2
+                                   ).sum()), K)
+        truth = [set(r.tolist()) for r in ids]
+        ext = {}
+        for nbr in NBRS:
+            for m in mods.values():
+                m.launches = 0
+            t1 = time.perf_counter()
+            with recorded_calls(ops, keep=8) as rec:
+                e_ids = sd.extended_search_device_batch(idx, qb, K, nbr=nbr,
+                                                        dev=dev_s)[0]
+            ext_s = time.perf_counter() - t1
+            recall = float(np.mean([len(g & set(r[r >= 0].tolist())) / K
+                                    for g, r in zip(truth, e_ids)]))
+            ext[nbr] = dict(recall=recall, s=ext_s, launches={
+                k: m.launches for k, m in mods.items()})
+        # the last batch's lb_paa_interval launches, table by table
+        per_table = {
+            label: sum(a[2] is lo for a, _ in rec.calls["lb_paa_interval"])
+            for label, lo in (("leaf table", dev_s.leaf_lo_g),
+                              ("routing edges", dev_s.rt_lo))}
+        if sum(per_table.values()) != ext[NBRS[-1]]["launches"][
+                "lb_paa_interval"]:
+            fail(f"{name}: lb_paa_interval launches at nbr {NBRS[-1]} "
+                 f"{ext[NBRS[-1]]['launches']['lb_paa_interval']} are not "
+                 f"those on its two tables {per_table}")
+        recalls = [ext[nbr]["recall"] for nbr in NBRS]
+        if recalls != sorted(recalls):
+            fail(f"{name}: recall is not monotone in nbr: {recalls}")
+        tables = {}
+        for label, lo, hi in (("leaf table", dev_s.leaf_lo_g,
+                               dev_s.leaf_hi_g),
+                              ("routing edges", dev_s.rt_lo, dev_s.rt_hi)):
+            a = (paa, paa, lo, hi, n)
+            lbpaa_bitwise(torch, ops, ref, a, f"{name} {label}")
+            ms, host = time_ms(torch, ops.lb_paa_interval, [a] * 20)
+            plain, _ = time_ms(torch, ref.lb_paa_interval_ref, [a] * 20)
+            Q, L = paa.shape[0], lo.shape[0]
+            b_ms, b_by = bound(4 * (2 * Q * w + 2 * L * w + Q * L),
+                               7 * Q * L * w + Q * L)
+            tables[label] = dict(shape=[Q, L, w], ms=ms, plain_ms=plain,
+                                 bound_ms=b_ms, bound_by=b_by,
+                                 launches=per_table[label])
+            kernel_rows.append(dict(
+                shape=[Q, L, w], path=f"{name} {label} (12 d)",
+                launches=per_table[label],
+                ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None))
+            print(f"    {name} lb_paa_interval {label} [{Q},{L},{w}]: "
+                  f"bitwise equal to the in-order sum; kernel {ms:.5f} ms "
+                  f"(host {host:.4f} ms a call; launch floor {floor:.5f} "
+                  f"ms), twin {plain:.5f} ms, bound {b_ms:.6f} ms ({b_by})"
+                  f" [{smi}]")
+        st = idx.stats
+        summary[name] = dict(
+            build_s=build_s, leaves=idx.flat.n_leaves, height=st.height,
+            fill_factor=st.fill_factor, routing_edges=int(dev_s.rt_lo.shape[0]),
+            lmax=dev_s.lmax, setup_s=setup_s, exact_s=exact_s,
+            exact_launches=la, exact_tied=tied,
+            spans_visited=float(vis.mean()), extended=ext,
+            lb_paa_interval=tables)
+        print(f"  (d) {name}: host build {build_s:.3f} s; {idx.flat.n_leaves}"
+              f" leaves, height {st.height}, fill factor "
+              f"{st.fill_factor:.7f}, {dev_s.rt_lo.shape[0]} routing edges, "
+              f"lmax {dev_s.lmax}; DeviceIndex {setup_s:.3f} s; exact ED "
+              f"batch 0 {exact_s:.3f} s, equal to the float64 brute force "
+              f"over the {n_cut} series (tied {tied}), mean spans visited "
+              f"{float(vis.mean()):.2f}, launches {la}; extended recall@{K}"
+              f" at nbr {NBRS}: {recalls} (seconds "
+              f"{[round(ext[x]['s'], 4) for x in NBRS]}) [{smi}]")
+        del idx, dev_s
+        torch.cuda.empty_cache()
+    return summary, kernel_rows
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n-series", type=int, default=4_000_000,
@@ -2315,7 +2721,10 @@ def main() -> None:
                                      dtw_np)
     from repro_torch.core.metric import query_prep, resolve
     from repro_torch.core.sax import SaxParams, breakpoints
+    from repro_torch.core import distributed as dist
     from repro_torch.core import search, search_device
+    from repro_torch.core.baselines import isax2plus, tardis
+    from repro_torch.distributed import sharding
     from repro_torch.core.search_device import exact_search_device_batch
     from repro_torch.core.split import SplitParams
     from repro_torch.data.series import query_workload, random_walks
@@ -2535,7 +2944,7 @@ def main() -> None:
     # ---- 9. approximate and extended search (paper Alg. 4) -------------------
     print(f"[phase] phases 1-8: {time.perf_counter() - t_run:.3f} s")
     t0 = time.perf_counter()
-    paths = search_paths_phase(
+    paths, paths_b0 = search_paths_phase(
         torch, np, search_device, search, ops, ref, dtw2_masked_gather,
         dtw_np, index, dev, db, batches, dtw_batches, results, dtw_results,
         mods, floor, clock_hz, smi)
@@ -2559,15 +2968,32 @@ def main() -> None:
         index, dev, db, batches, results, host_build_s, args.seed)
     print(json.dumps({"lifecycle": lifecycle}))
     phase("index lifecycle", t0)
+
+    # ---- 12. distributed and baselines -----------------------------------------
+    t0 = time.perf_counter()
+    for key in [k for k in index._device_cache if k[:2] != (CHUNK, 1)]:
+        del index._device_cache[key]       # phase 5's four-shard layout
+    torch.cuda.empty_cache()
+    distributed, new_shapes = distributed_phase(
+        torch, np, search_device, ops, ref, mods, dist, sharding, breakpoints,
+        params, index, dev, db, batches, dtw_batches, results, dtw_results,
+        paths_b0, lifecycle, floor, smi)
+    print(json.dumps({"distributed": distributed}))
+    base, new_shapes["lb_paa_interval"] = baselines_phase(
+        torch, np, search_device, ops, ref, mods, (isax2plus, tardis),
+        DumpyIndex, params, db, batches, floor, smi)
+    print(json.dumps({"baselines": base}))
+    phase("distributed and baselines", t0)
     print(f"[phase] whole run: {time.perf_counter() - t_run:.3f} s")
 
     for r in rows:
         r["launches"] = (launches if r["name"] in ed_kernels
                          else dtw_launches)[r["name"]]
         r["floor_ms"] = floor
+        r["new_shapes"] = new_shapes.get(r["name"], [])
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "floor_ms")
+            "floor_ms", "new_shapes")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

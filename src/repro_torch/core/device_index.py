@@ -6,7 +6,10 @@ frozen dataclass of torch tensors (port of ``repro.core.device_index``).
   ``S`` contiguous groups cut only at leaf boundaries (so every leaf pack
   stays contiguous inside one shard) and each shard is padded to the common
   row count ``Tp`` (pad rows: ``alive=False``, ``id=-1``, zero series).
-  ``S`` is a leading batch axis on one device;
+  ``S`` is a leading batch axis on one device, or, once the index is
+  placed on a mesh (:meth:`DeviceIndex.shard`), a tuple of ``S`` tensors
+  ``[Tp, ...]``, shard ``s`` on ``mesh.devices[s]`` (``dev.db[s]`` reads
+  the same in both forms);
 * per-shard leaf MINDIST envelopes (``+inf`` pad leaf) and the fixed-size
   span schedule (windows + (leaf, window)-intersection edges) let each
   shard run the windowed-pruning loop on its own;
@@ -15,8 +18,10 @@ frozen dataclass of torch tensors (port of ``repro.core.device_index``).
   descent and the sibling schedule of ``search_device``); the layout
   equals the reference's field by field.
 
-Index tables keep the reference's ``int32`` storage; the search casts to
-``int64`` only where torch indexes with them.
+On a mesh every global table sits on each distinct device of the mesh
+(:meth:`DeviceIndex.on`), the first device being the index's ``device``,
+where the merges run.  Index tables keep the reference's ``int32``
+storage; the search casts to ``int64`` only where torch indexes with them.
 """
 from __future__ import annotations
 
@@ -43,6 +48,8 @@ _ARRAY_FIELDS = (
     "node_begin", "node_end", "leaf_parent",
     "grp_off", "grp_begin", "grp_end", "grp_lo", "grp_hi",
 )
+#: the per-shard fields: [S, ...] tensors, or tuples of S tensors on a mesh
+_SHARDED_FIELDS = _ARRAY_FIELDS[:10]
 _META_FIELDS = ("n", "w", "chunk", "depth", "lmax", "total",
                 "has_duplicates", "max_replica", "row_bounds",
                 "gmax", "leaf_bounds", "shard_health")
@@ -70,7 +77,7 @@ def _to_tensor(a, device: torch.device) -> torch.Tensor:
 
 @dataclasses.dataclass(frozen=True)
 class DeviceIndex:
-    # -- per shard ([S, ...], leaf-aligned) ----------------------------------
+    # -- per shard ([S, ...], leaf-aligned; S-tuples on a mesh) --------------
     db: torch.Tensor          # [S, Tp, n] f32 ordered collection (zero pad)
     alive: torch.Tensor       # [S, Tp] bool tombstone mask (False pad)
     ids: torch.Tensor         # [S, Tp] i32 original ids (-1 pad)
@@ -122,19 +129,39 @@ class DeviceIndex:
     # ``None`` = all shards healthy; a tuple of S bools masks dead shards
     # out of every merge (degraded mode)
     shard_health: tuple | None = None
+    # the mesh the shards are placed on (``None``: every field on one
+    # device), and the global tables' copies on its other distinct devices
+    mesh: object = None
+    replicas: dict = dataclasses.field(default_factory=dict, repr=False,
+                                       compare=False)
 
     # -- shapes --------------------------------------------------------------
     @property
     def device(self) -> torch.device:
-        return self.db.device
+        """Where the global tables live and the shard results merge (the
+        mesh's first device)."""
+        return self.leaf_start.device
 
     @property
     def n_shards(self) -> int:
-        return self.db.shape[0]
+        return len(self.row_bounds) - 1
 
     @property
     def shard_rows(self) -> int:
-        return self.db.shape[1]
+        rb = self.row_bounds
+        return max(max(rb[s + 1] - rb[s] for s in range(self.n_shards)), 1)
+
+    def shard_device(self, s: int) -> torch.device:
+        """The device that holds shard ``s``."""
+        return self.mesh.devices[s] if self.mesh is not None else self.device
+
+    def on(self, device: torch.device) -> "DeviceIndex":
+        """This index with its global tables on ``device`` (one of the
+        mesh's devices): the copies :meth:`shard` made, no new one."""
+        device = torch.device(device)
+        if device == self.device:
+            return self
+        return dataclasses.replace(self, **self.replicas[device])
 
     @property
     def n_leaves(self) -> int:
@@ -205,6 +232,26 @@ class DeviceIndex:
         arrays["db"] = _shard_rows(rows, meta["row_bounds"])
         return cls.from_arrays(arrays, meta, device)
 
+    # -- placement -------------------------------------------------------------
+    def shard(self, mesh) -> "DeviceIndex":
+        """Place the index on ``mesh`` (the reference's ``shard``): shard
+        ``s`` of every per-shard field goes to ``mesh.devices[s]`` as a
+        ``[Tp, ...]`` tensor (a view where it is already there), and every
+        global table is copied once to each distinct device of the mesh.
+        ``n_shards`` must equal the mesh's size."""
+        if mesh.size != self.n_shards:
+            raise ValueError(
+                f"a mesh of {mesh.size} devices for {self.n_shards} shards")
+        home = mesh.devices[0]
+        kw = {f: tuple(getattr(self, f)[s].to(d)
+                       for s, d in enumerate(mesh.devices))
+              for f in _SHARDED_FIELDS}
+        glob = _ARRAY_FIELDS[len(_SHARDED_FIELDS):]
+        kw.update({f: getattr(self, f).to(home) for f in glob})
+        replicas = {d: {f: kw[f].to(d) for f in glob}
+                    for d in mesh.distinct[1:]}
+        return dataclasses.replace(self, mesh=mesh, replicas=replicas, **kw)
+
     # -- incremental state ---------------------------------------------------
     def with_shard_health(self, health) -> "DeviceIndex":
         """Mark shards dead/alive for degraded-mode search.  ``health`` is a
@@ -228,12 +275,16 @@ class DeviceIndex:
         """Re-derive the padded tombstone mask from the host per-id ``alive``
         vector (deletions/undeletions without rebuilding the layout).  Every
         fuzzy replica of a dead id dies with it."""
-        ids_np = self.ids.cpu().numpy()
+        ids_np = np.stack([t.cpu().numpy() for t in self.ids])
         new = np.zeros(ids_np.shape, bool)
         m = ids_np >= 0
         new[m] = np.asarray(alive_by_id, bool)[ids_np[m]]
-        return dataclasses.replace(
-            self, alive=torch.from_numpy(new).to(self.device))
+        if self.mesh is None:
+            alive = torch.from_numpy(new).to(self.device)
+        else:
+            alive = tuple(torch.from_numpy(new[s]).to(d)
+                          for s, d in enumerate(self.mesh.devices))
+        return dataclasses.replace(self, alive=alive)
 
 
 def _shard_rows(rows: torch.Tensor, row_bounds: tuple) -> torch.Tensor:

@@ -292,7 +292,7 @@ class DumpyIndex:
         self._db_ordered_dev: torch.Tensor | None = None   # device build's rows
         self._n_layout_builds = 0              # observability (tests)
         self._n_device_builds = 0              # cache-miss DeviceIndex builds
-        # (chunk, n_shards, device) → (DeviceIndex, alive snapshot);
+        # (chunk, n_shards, device, mesh) → (DeviceIndex, alive snapshot);
         # invalidated by updates (insert rebuilds the layout; delete
         # refreshes the alive mask per entry)
         self._device_cache: dict = {}
@@ -467,25 +467,43 @@ class DumpyIndex:
         return self._routing_flat
 
     def device_index(self, chunk: int = 2048, n_shards: int = 1,
-                     device: str | torch.device = "cuda"):
+                     device: str | torch.device = "cuda", mesh=None):
         """The cached :class:`~repro_torch.core.device_index.DeviceIndex` for
         this layout on ``device`` (built lazily per (chunk, n_shards,
-        device); ``insert`` invalidates wholesale, tombstone drift is
+        device, mesh); ``insert`` invalidates wholesale, tombstone drift is
         detected against the ``alive`` snapshot and refreshed without
         rebuilding the layout).  ``device`` defaults to CUDA and raises
-        where CUDA is absent unless ``"cpu"`` is asked for."""
+        where CUDA is absent unless ``"cpu"`` is asked for.
+
+        With ``mesh`` (``repro_torch.distributed.sharding.Mesh``) the index
+        has one shard per mesh entry, placed by ``DeviceIndex.shard``, and
+        ``device`` is the mesh's first device; the mesh is part of the
+        cache key, so the same shard count on another (or no) mesh never
+        reuses a stale placement."""
         from .device_index import DeviceIndex, resolve_device
+        if mesh is not None:
+            if int(n_shards) not in (1, mesh.size):
+                raise ValueError(f"n_shards={n_shards} on a mesh of "
+                                 f"{mesh.size} devices")
+            n_shards, device = mesh.size, mesh.devices[0]
         device = resolve_device(device)
-        key = (int(chunk), int(n_shards), str(device))
+        key = (int(chunk), int(n_shards), str(device), mesh)
         cached = self._device_cache.get(key)
         if cached is None:
             # device-built indexes keep db_ordered on the device: assemble
             # the DeviceIndex from those rows without a host round-trip
+            # a mesh over several devices lays the shards out on the host
+            # and sends each to its own device: the first card never holds
+            # the whole collection
+            build_on = (device if mesh is None or len(mesh.distinct) == 1
+                        else torch.device("cpu"))
+
             def _build():
                 failpoint("device.put")
-                return DeviceIndex.from_index(
-                    self, chunk=chunk, n_shards=n_shards, device=device,
+                dev = DeviceIndex.from_index(
+                    self, chunk=chunk, n_shards=n_shards, device=build_on,
                     db_device=self._db_ordered_dev)
+                return dev.shard(mesh) if mesh is not None else dev
 
             # transient upload failures (device OOM races, injected faults)
             # are retried with backoff before giving up

@@ -205,3 +205,22 @@ def extract_bits_np(codes: np.ndarray, positions: list[int] | np.ndarray, m: int
         bit = (codes >> (m - 1 - p)) & 1
         out |= bit << (k - 1 - i)
     return out
+
+
+# ---------------------------------------------------------------------------
+# Device-side helper of the distributed build
+# ---------------------------------------------------------------------------
+
+def next_bit_codes_t(sax: torch.Tensor, card: torch.Tensor, w: int, b: int
+                     ) -> torch.Tensor:
+    """Vectorized ``next_bits`` + ``pack_bits`` on the symbols' device (the
+    twin of ``repro.core.sax.next_bit_codes_jnp``): ``[N, w]`` symbols at
+    cardinalities ``card [w]`` → ``[N]`` int32 codes, segment 0 the most
+    significant bit.  Feeds the ``2**w`` root histogram of
+    ``core.distributed.build_step``."""
+    shift = torch.clamp_min(b - 1 - card.to(torch.int32), 0)
+    bits = (sax.to(torch.int32) >> shift[None, :]) & 1
+    weights = torch.bitwise_left_shift(
+        torch.ones(w, dtype=torch.int32, device=sax.device),
+        torch.arange(w - 1, -1, -1, dtype=torch.int32, device=sax.device))
+    return (bits * weights[None, :]).sum(dim=1, dtype=torch.int32)

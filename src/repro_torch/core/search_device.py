@@ -15,9 +15,12 @@ Per shard of the ``[S, Tp, n]`` layout, the same plan as the reference:
 then the per-shard top-k lists merge with an in-merge fuzzy-duplicate dedup,
 and a k-sized host re-rank (direct-difference ED, or the float64 ``dtw_np``
 DP) restores bitwise id/distance parity with the host ``search.exact_search``.
-Shards run one after another on one device; each shard's early termination
-uses its local kth-best bound (≥ the global bound), so the merged result does
-not depend on the shard count.
+Shards run one after another from one host thread, on one device or, on a
+mesh (``DeviceIndex.shard``), each on its own device with its own copy of
+the queries, their shard-local results moved to the mesh's first device for
+the merge (the all-gather).  Each shard's early termination uses its local
+kth-best bound (≥ the global bound), so the merged result does not depend
+on the shard count or the placement.
 
 DTW (``metric="dtw"``) shares the ED layout.  Its candidate distance is the
 cascade LB_Keogh → LB_Improved → masked banded DP (the ``lb_keogh``,
@@ -66,6 +69,8 @@ next bucket while this one computes.
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -106,6 +111,27 @@ def _prep_batch(metric: Metric, qs_dev: torch.Tensor, w: int, b: int
     with ``prep = (seg_lo, seg_hi, env_lo, env_hi)`` (see ``core.metric``)."""
     paa_q, sax_q = ops.sax_encode(qs_dev, w, b)
     return query_prep(metric, qs_dev, paa_q), sax_q.to(torch.int32)
+
+
+def _to_device(tree, device: torch.device):
+    """A tensor, or a nested tuple of tensors and ``None``, on ``device``."""
+    if isinstance(tree, tuple):
+        return tuple(_to_device(t, device) for t in tree)
+    return None if tree is None else tree.to(device)
+
+
+def _replicator(tree, home: torch.device):
+    """``on(device)`` → ``tree`` on ``device``, copied once a device: the
+    query side of a search replicated over the devices of a mesh (``home``
+    holds the original)."""
+    copies = {torch.device(home): tree}
+
+    def on(device: torch.device):
+        if device not in copies:
+            copies[device] = _to_device(tree, device)
+        return copies[device]
+
+    return on
 
 
 def _cascade_stats(valid: torch.Tensor, lbk2: torch.Tensor,
@@ -298,7 +324,7 @@ def _shard_knn(dev: DeviceIndex, s: int, prep: tuple, qs: torch.Tensor,
     chunk, n = dev.chunk, dev.n
     device = qs.device
     db_s, alive_s, ids_s = dev.db[s], dev.alive[s], dev.ids[s]
-    W = dev.win_start.shape[1]
+    W = dev.win_start[s].shape[0]
     # sub-blocking needs exact tiling; an odd explicit chunk (or one
     # already at/below DTW_SUB) runs the slab whole, as the reference does
     n_sub = chunk // DTW_SUB if (
@@ -360,13 +386,22 @@ def _exact_knn_sharded(dev: DeviceIndex, prep: tuple, qs: torch.Tensor, *,
     runs the span loop (:func:`_shard_knn`; ED and the DTW ``"shared"``
     order) or the lane-ordered DTW program (:func:`_lane_knn`).
 
+    On a mesh each shard runs on its own device with its own copy of the
+    queries and their prep, and its ``[Q, k]`` locals move to ``dev.device``
+    before the merge (the reference's all-gather).
+
     Early termination is per query *and* per shard: each shard prunes
     against its local kth best (≥ the global one), so every shard's local
     top-k is a superset of its contribution to the global top-k."""
     Q = qs.shape[0]
-    lanes = metric.is_dtw and metric.order != "shared"
-    parts = [(_lane_knn if lanes else _shard_knn)(dev, s, prep, qs, k, metric)
-             for s in range(dev.n_shards)]
+    home = dev.device
+    knn = _lane_knn if metric.is_dtw and metric.order != "shared" \
+        else _shard_knn
+    inputs = _replicator((prep, qs), home)
+    parts = []
+    for s in range(dev.n_shards):
+        p = knn(dev, s, *inputs(dev.shard_device(s)), k, metric)
+        parts.append(_to_device(p[:4], home) + p[4:])
     topd = torch.stack([p[0] for p in parts])                    # [S, Q, k]
     topi = torch.stack([p[1] for p in parts])
     vis = torch.stack([p[2] for p in parts])
@@ -564,7 +599,8 @@ def exact_search_device_batch(index: DumpyIndex, qs: np.ndarray, k: int,
                               order: str | None = None,
                               return_stats: bool = False,
                               shard_health=None,
-                              device: str | torch.device = "cuda"):
+                              device: str | torch.device = "cuda",
+                              mesh=None):
     """Batched exact kNN: ``qs [Q, n]`` → ``(ids [Q, k], d [Q, k],
     spans_visited [Q])``.  Results match ``search.exact_search`` per query
     (fuzzy duplicates deduplicated on device, tombstones skipped,
@@ -574,6 +610,9 @@ def exact_search_device_batch(index: DumpyIndex, qs: np.ndarray, k: int,
     where CUDA is absent), or on the device of a given ``dev``.
     ``n_shards`` picks the ``[S, ...]`` layout of the cached
     ``DeviceIndex``; the result is bitwise the same for every shard count.
+    With ``mesh`` (``repro_torch.distributed.sharding.Mesh``), or a ``dev``
+    placed on one, the index has one shard per mesh entry and each shard's
+    span loop runs on its own device; the result is the same bitwise.
     ``shard_health`` (a length-``n_shards`` bool sequence, or a ``dev``
     whose ``shard_health`` is set) enables degraded mode: dead shards are
     masked out of the merge and the return tuple gains a trailing
@@ -589,7 +628,7 @@ def exact_search_device_batch(index: DumpyIndex, qs: np.ndarray, k: int,
     met = resolve(metric, qs.shape[1], band, order)
     if dev is None:
         dev = index.device_index(chunk=chunk, n_shards=n_shards,
-                                 device=device)
+                                 device=device, mesh=mesh)
     want_cov = shard_health is not None or dev.shard_health is not None
     if shard_health is not None:
         dev = dev.with_shard_health(shard_health)
@@ -729,9 +768,24 @@ def _leaf_topk_device(dev: DeviceIndex, qs: torch.Tensor, prep: tuple,
     region holds the query).  Leaves are scanned one rank at a time with a
     running top-k merge, so the peak temporary is ``[Q, lmax, n]``, never
     ``[Q, nbr, lmax, n]``; the running k-th best feeds the DTW cutoff, so
-    later ranks prune against what earlier ranks found."""
+    later ranks prune against what earlier ranks found.
+
+    The flattened view needs the shards as one ``[S, Tp, n]`` tensor; a
+    placed index holds them as separate tensors (on the devices of a mesh),
+    so its ranks are scanned shard by shard (:func:`_scan_leaf_schedule`,
+    local top-``kk`` lists merged by the same dedup), which gives the same
+    result bitwise.  One view is kept for the unplaced layout: each rank is
+    one gather there, where the shard-by-shard scan makes one a shard
+    (``scripts/probe_leaf_scan.py``)."""
     Q = qs.shape[0]
     lmax, device = dev.lmax, qs.device
+    scores = lbq.clone()
+    scores[torch.arange(Q, device=device), routed] = -_INF
+    leaves = torch.sort(scores, dim=1, stable=True).indices[:, :nbr]
+    if not isinstance(dev.db, torch.Tensor):
+        d2f, idf = _scan_leaf_schedule(dev, leaves, _gather_dist2(metric),
+                                       (qs, prep), k=kk)
+        return idf[:, :k], d2f[:, :k], leaves.to(torch.int32)
     db_flat = dev.db.reshape(-1, dev.n)
     ids_flat = dev.ids.reshape(-1)
     alive_flat = dev.alive.reshape(-1)
@@ -741,16 +795,10 @@ def _leaf_topk_device(dev: DeviceIndex, qs: torch.Tensor, prep: tuple,
         # tombstoned, so their candidates never enter a merge
         alive_flat = alive_flat & hm[:, None].expand(
             -1, dev.shard_rows).reshape(-1)
-    scores = lbq.clone()
-    scores[torch.arange(Q, device=device), routed] = -_INF
-    leaves = torch.sort(scores, dim=1, stable=True).indices[:, :nbr]
     cols = torch.arange(lmax, device=device)
     topd = torch.full((Q, kk), _INF, dtype=torch.float32, device=device)
     topi = torch.full((Q, kk), -1, dtype=torch.int32, device=device)
-
-    def dist2(cand, valid, cutoff2):
-        return _dist2_gather(metric, qs, prep, cand, valid, cutoff2)
-
+    dist2 = functools.partial(_gather_dist2(metric), (qs, prep))
     for j in range(nbr):
         starts = dev.leaf_start[leaves[:, j]].long()         # [Q] flattened
         topd, topi = _merge_leaf_rank(
@@ -758,6 +806,15 @@ def _leaf_topk_device(dev: DeviceIndex, qs: torch.Tensor, prep: tuple,
             dev.leaf_size[leaves[:, j]], cols, topd, topi)
     d2f, idf = _dedup_topk(topd, topi, k)                    # segment-min dedup
     return idf, d2f, leaves.to(torch.int32)
+
+
+def _gather_dist2(metric: Metric):
+    """The ``dist2(inputs, cand, valid, cutoff2)`` of a leaf scan at one
+    metric, ``inputs = (qs, prep)`` on the candidates' device."""
+    def dist2(inputs, cand, valid, cutoff2):
+        qs, prep = inputs
+        return _dist2_gather(metric, qs, prep, cand, valid, cutoff2)
+    return dist2
 
 
 def _approx_knn_device(dev: DeviceIndex, prep: tuple, sax_q: torch.Tensor,
@@ -902,8 +959,9 @@ def _sibling_schedule(dev: DeviceIndex, prep: tuple, lbq: torch.Tensor,
     return order[:, :nbr].to(torch.int32)
 
 
-def _scan_leaf_schedule(dev: DeviceIndex, leaves: torch.Tensor, dist2, *,
-                        k: int, lane_nbr: torch.Tensor | None = None
+def _scan_leaf_schedule(dev: DeviceIndex, leaves: torch.Tensor, dist2,
+                        inputs: tuple, *, k: int,
+                        lane_nbr: torch.Tensor | None = None
                         ) -> tuple[torch.Tensor, torch.Tensor]:
     """Visit the per-query leaf schedule shard by shard and merge.
 
@@ -913,30 +971,40 @@ def _scan_leaf_schedule(dev: DeviceIndex, leaves: torch.Tensor, dist2, *,
     The ``[S, Q, k]`` locals then merge exactly like the exact path (dead
     shards masked, segment-min dedup, top-k), so results are bitwise
     invariant to the shard count.  Candidate distances go through
-    ``dist2(cand, valid, cutoff2)`` (:func:`_merge_leaf_rank`), so DTW
+    ``dist2(inputs, cand, valid, cutoff2)`` (:func:`_merge_leaf_rank`),
+    ``inputs`` being the query-side tensors on the shard's device, so DTW
     candidates prune against the shard-local running k-th best.
     ``lane_nbr [Q]`` (a serving bucket's per-lane budgets) scans rank ``j``
-    of lane ``q`` only while ``j < lane_nbr[q]``."""
+    of lane ``q`` only while ``j < lane_nbr[q]``.
+
+    On a mesh each shard scans on its own device, with the schedule and
+    ``inputs`` copied there once and the global tables read from that
+    device's copy (``dev.on``); its ``[Q, k]`` locals move to
+    ``dev.device`` for the merge."""
     Q, nbr = leaves.shape
     lmax, L = dev.lmax, dev.n_leaves
-    Tp, device = dev.shard_rows, leaves.device
-    cols = torch.arange(lmax, device=device)
-    lfc = leaves.clamp(0, L - 1).long()
+    Tp, home = dev.shard_rows, dev.device
+    on = _replicator((leaves, leaves.clamp(0, L - 1).long(),
+                      torch.arange(lmax, device=home), lane_nbr, inputs),
+                     home)
     parts = []
     for s in range(dev.n_shards):
+        device = dev.shard_device(s)
+        loc = dev.on(device)
+        leaves_s, lfc, cols, lane_nbr_s, inputs_s = on(device)
         a, z = dev.leaf_bounds[s], dev.leaf_bounds[s + 1]
         topd = torch.full((Q, k), _INF, dtype=torch.float32, device=device)
         topi = torch.full((Q, k), -1, dtype=torch.int32, device=device)
         for j in range(nbr):
-            mine = (leaves[:, j] >= a) & (leaves[:, j] < z)
-            if lane_nbr is not None:
-                mine &= j < lane_nbr
-            starts = dev.leaf_start[lfc[:, j]].long() - s * Tp  # shard-local
-            sizes = torch.where(mine, dev.leaf_size[lfc[:, j]], 0)
+            mine = (leaves_s[:, j] >= a) & (leaves_s[:, j] < z)
+            if lane_nbr_s is not None:
+                mine &= j < lane_nbr_s
+            starts = loc.leaf_start[lfc[:, j]].long() - s * Tp  # shard-local
+            sizes = torch.where(mine, loc.leaf_size[lfc[:, j]], 0)
             topd, topi = _merge_leaf_rank(
-                dist2, dev.db[s], dev.ids[s], dev.alive[s], starts, sizes,
-                cols, topd, topi)
-        parts.append((topd, topi))
+                functools.partial(dist2, inputs_s), dev.db[s], dev.ids[s],
+                dev.alive[s], starts, sizes, cols, topd, topi)
+        parts.append(_to_device((topd, topi), home))
     topd = torch.stack([p[0] for p in parts])                 # [S, Q, k]
     topi = torch.stack([p[1] for p in parts])
     topd, topi, _, _ = _mask_dead_shards(dev, topd, topi)
@@ -968,10 +1036,8 @@ def _extended_knn_sharded(dev: DeviceIndex, prep: tuple,
         order = torch.sort(lbq, dim=1, stable=True).indices  # stable → id
         leaves = order[:, :nbr].to(torch.int32)
 
-    def dist2(cand, valid, cutoff2):
-        return _dist2_gather(metric, qs, prep, cand, valid, cutoff2)
-
-    d2, ids = _scan_leaf_schedule(dev, leaves, dist2, k=k)
+    d2, ids = _scan_leaf_schedule(dev, leaves, _gather_dist2(metric),
+                                  (qs, prep), k=k)
     return d2, ids, leaves
 
 
@@ -983,7 +1049,8 @@ def extended_search_device_batch(index: DumpyIndex, qs: np.ndarray, k: int,
                                  metric: str | Metric = "ed",
                                  band: int | None = None,
                                  shard_health=None,
-                                 device: str | torch.device = "cuda"):
+                                 device: str | torch.device = "cuda",
+                                 mesh=None):
     """Batched extended approximate kNN (paper Alg. 4, vectorized over
     queries): ``qs [Q, n]`` → ``(ids [Q, k], d [Q, k], leaves [Q, nbr'])``
     with ``nbr' = min(nbr, n_leaves)``; short results pad ``id -1 / d inf``.
@@ -994,7 +1061,8 @@ def extended_search_device_batch(index: DumpyIndex, qs: np.ndarray, k: int,
     answer and the k-th distance is monotone in ``nbr``.  ``n_shards``
     picks the cached ``[S, ...]`` layout: the leaf scan runs shard by shard
     and merges through the same segment-min dedup as the exact path,
-    bitwise invariant to the shard count.
+    bitwise invariant to the shard count.  ``mesh`` places one shard on
+    each of its entries, as in :func:`exact_search_device_batch`.
 
     ``rerank=True`` (default) finishes with the k-sized host re-rank
     (:func:`_finalize_exact`) for bitwise (ids, dists) parity with
@@ -1011,7 +1079,7 @@ def extended_search_device_batch(index: DumpyIndex, qs: np.ndarray, k: int,
     met = resolve(metric, qs.shape[1], band)
     if dev is None:
         dev = index.device_index(chunk=chunk, n_shards=n_shards,
-                                 device=device)
+                                 device=device, mesh=mesh)
     want_cov = shard_health is not None or dev.shard_health is not None
     if shard_health is not None:
         dev = dev.with_shard_health(shard_health)
@@ -1075,11 +1143,13 @@ def _scan_bucket_schedule(dev: DeviceIndex, qs: torch.Tensor, prep: tuple,
     over clamped rows, but every candidate masks to ``+inf / -1``), and the
     candidate distance blends ED and the DTW cascade per lane
     (:func:`_dist2_gather_mixed`)."""
-    def dist2(cand, valid, cutoff2):
+    def dist2(inputs, cand, valid, cutoff2):
+        qs, prep, lane_dtw = inputs
         return _dist2_gather_mixed(qs, prep, cand, valid, cutoff2, lane_dtw,
                                    band, has_dtw)
 
-    return _scan_leaf_schedule(dev, leaves, dist2, k=k, lane_nbr=lane_nbr)
+    return _scan_leaf_schedule(dev, leaves, dist2, (qs, prep, lane_dtw),
+                               k=k, lane_nbr=lane_nbr)
 
 
 def _bucket_knn_sharded(dev: DeviceIndex, prep_ed: tuple, prep_dtw: tuple,
@@ -1220,7 +1290,8 @@ def bucket_search_device_batch(index: DumpyIndex, qs, ks, nbrs,
                                n_shards: int = 1,
                                dev: DeviceIndex | None = None,
                                shard_health=None,
-                               device: str | torch.device = "cuda"):
+                               device: str | torch.device = "cuda",
+                               mesh=None):
     """Coalesced mixed-knob kNN: one device program per batch, every
     per-request knob a lane array — the blocking entry point behind the
     serving front-end (``repro_torch.serving.batching``).
@@ -1244,8 +1315,8 @@ def bucket_search_device_batch(index: DumpyIndex, qs, ks, nbrs,
     ``shard_health`` enables degraded mode exactly as in
     :func:`exact_search_device_batch` (dead shards masked from scan and
     merge; a trailing ``coverage`` float joins the return tuple).  Runs on
-    ``device`` (CUDA unless the caller asks for ``"cpu"``), or on the
-    device of a given ``dev``."""
+    ``device`` (CUDA unless the caller asks for ``"cpu"``), on ``mesh``, or
+    on the device of a given ``dev``."""
     qs = _validate_queries(qs, index.n)   # one vectorized check per batch
     Q = qs.shape[0]
     ks = np.asarray(ks, np.int64).reshape(-1)
@@ -1280,7 +1351,7 @@ def bucket_search_device_batch(index: DumpyIndex, qs, ks, nbrs,
             f"lanes {over[:8].tolist()} request k > k_max={k_max}")
     if dev is None:
         dev = index.device_index(chunk=chunk, n_shards=n_shards,
-                                 device=device)
+                                 device=device, mesh=mesh)
     want_cov = shard_health is not None or dev.shard_health is not None
     if shard_health is not None:
         dev = dev.with_shard_health(shard_health)

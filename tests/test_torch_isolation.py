@@ -47,6 +47,11 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
         "import repro_torch.serving.batching, repro_torch.serving.knn_softmax\n"
         "import repro_torch.core.build_device, repro_torch.robustness.wal\n"
         "import repro_torch.robustness.smoke\n"
+        "import repro_torch.core.distributed, repro_torch.distributed.sharding\n"
+        "import repro_torch.core.baselines.brute\n"
+        "import repro_torch.core.baselines.dstree\n"
+        "import repro_torch.core.baselines.isax2plus\n"
+        "import repro_torch.core.baselines.tardis\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r}]\n"
         "assert not bad, bad\n"
