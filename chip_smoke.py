@@ -135,7 +135,26 @@ Phases, each printed with its seconds:
    extended search at nbr 1, 4, 16 against it, and ``lb_paa_interval`` at
    each structure's leaf and routing edge tables (bitwise the in-order
    sum, timed beside its bound and twin).  The ``kernels`` line gives
-   each kernel's rows at these new shapes under ``new_shapes``.
+   each kernel's rows at these new shapes under ``new_shapes``;
+13. the analysis gates (``repro_torch.analysis``): (a) the lint over
+   ``src/repro_torch`` and this script, 0 findings, its suppressions
+   counted; (b) every registered entry at the audit shapes under a census
+   on the card, against the CPU golden ``contracts_torch.json``: no
+   float64 on a device path, no host sync in a sync-free entry, and for
+   the ``shape_fixed`` entries the golden's kernel calls and host syncs
+   exactly; every kernel call the census counts is a launch (all six
+   kernels run); (c) the steady-state sweep on the card (the k/nbr/metric/
+   batch grid and the bucket ladder twice: nothing built on the warm pass,
+   every call's kernel calls, aten ops and syncs repeated, one launch
+   sequence per bucket shape, no sync in a bucket launch); (d) a census of
+   one batch of each main-path entry on phase 3's ``DeviceIndex`` (not
+   rebuilt): exact ED, exact DTW ``cluster``, approximate nbr 4, extended
+   nbr 4 (ED with re-rank, DTW) and a 64-lane mixed bucket — kernel calls,
+   eager aten ops, host syncs and peak bytes (over the resident index) of
+   each, each answer bitwise the earlier phase's, exact ED's syncs equal
+   to its reported ``host_syncs`` plus the query upload and three result
+   downloads, no sync inside the bucket launch.  No timing is taken under
+   a census.
 """
 from __future__ import annotations
 
@@ -225,6 +244,9 @@ SERVING_KERNELS = ("sax_encode", "lb_paa_interval", "lb_keogh",
 # the kNN-softmax head at OLMo-1B's published width
 # (src/repro/configs/olmo_1b.py: d_model 2048, vocab 50 304)
 OLMO_D, OLMO_VOCAB = 2048, 50_304
+# phase 13 (d): the leaf budget of the approximate, extended and bucket
+# censuses
+CENSUS_NBR = 4
 
 
 def fail(msg: str) -> None:
@@ -1187,6 +1209,7 @@ def profile_batch(torch, search, index, qb, **kw) -> None:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
+        # lint: allow-timing: the search returns host arrays (synced)
         search(index, qb, K, chunk=CHUNK, **kw)
         wall = time.perf_counter() - t0
     events = prof.key_averages()
@@ -1784,6 +1807,7 @@ def open_loop(np, fe, pool, rate: float, n_req: int, mix, seed: int,
     Fails the run if any request fails."""
     fe.stats = stats_cls()
     rng = np.random.default_rng(seed)
+    # lint: allow-timing: an arrival schedule; latency ends at t_done
     sched = time.perf_counter() + 0.005 + np.cumsum(
         rng.exponential(1.0 / rate, size=n_req))
     futs = []
@@ -1821,6 +1845,7 @@ def closed_loop_qps(np, fn, batches) -> float:
     ``QPS_MIN_PASSES`` passes and ``QPS_WINDOW_S`` seconds), as phase 9
     times its configurations."""
     fn(batches[0])
+    # lint: allow-timing: fn returns host arrays (synced)
     rates, t1 = [], time.perf_counter()
     while (len(rates) < QPS_MIN_PASSES
            or time.perf_counter() - t1 < QPS_WINDOW_S):
@@ -1846,6 +1871,7 @@ def open_loop_load(torch, np, sd, mods, frontend_cls, stats_cls, index, dev,
     closed = next(x["qps"] for x in paths
                   if (x["metric"], x["path"], x["nbr"], x["rerank"])
                   == ("ED", "extended", SERVE_NBR_MAX, False))
+    # lint: allow-timing: set-up seconds; the load's times end at t_done
     t1 = time.perf_counter()
     fe = frontend_cls(index, k_max=SERVE_K_MAX, nbr_max=SERVE_NBR_MAX,
                       max_batch=SERVE_MAX_BATCH, max_wait=SERVE_MAX_WAIT,
@@ -2050,6 +2076,7 @@ def serving_phase(torch, np, sd, hs, ops, ref, gather, dtw_np, mods,
                                          paths, smi)),
             ("e", lambda: knn_softmax_phase(torch, np, sd, hs, head_cls,
                                             seed + 1))):
+        # lint: allow-timing: each part ends on host results (synced)
         t1 = time.perf_counter()
         out[part] = fn()
         print(f"  [10{part}] {time.perf_counter() - t1:.3f} s")
@@ -2699,6 +2726,173 @@ def baselines_phase(torch, np, sd, ops, ref, mods, baselines, DumpyIndex,
     return summary, kernel_rows
 
 
+def census_kernels(mods, calls: dict) -> None:
+    """Fail unless the census's kernel calls are the kernels' own launch
+    counts (each wrapper counts where it launches): a call the census did
+    not see, or one it saw that launched nothing."""
+    launches = {name: m.launches for name, m in mods.items()}
+    seen = {name: calls.get(name, 0) for name in mods}
+    if seen != launches:
+        fail(f"census kernel calls {seen} differ from the launches {launches}")
+
+
+def analysis_phase(torch, np, sd, mods, index, dev, batches, dtw_batches,
+                   results, dtw_results, paths_b0, smi) -> dict:
+    """Phase 13: the analysis gates on the card, parts (a)–(d) (see the
+    module docstring)."""
+    from collections import Counter
+
+    from repro_torch.analysis import (audit, contracts, lint, recompile,
+                                      registry)
+    out = {}
+    # (a) the lint
+    t1 = time.perf_counter()
+    paths = lint.default_paths()
+    findings = lint.lint_paths(paths)
+    for f in findings:
+        print(f"  {f}")
+    if findings:
+        fail(f"the lint found {len(findings)} finding(s)")
+    out["lint_suppressions"] = lint.count_suppressions(paths)
+    print(f"  (a) lint: 0 findings, {out['lint_suppressions']} suppressions "
+          f"({time.perf_counter() - t1:.3f} s)")
+
+    # (b) every registered entry on the card against the CPU golden
+    t1 = time.perf_counter()
+    state = registry.audit_state("cuda")
+    for e in registry.entries():
+        e.setup(state)()                # the first launches load modules
+    torch.cuda.synchronize()
+    for m in mods.values():
+        m.launches = 0
+    contracts_b, calls = {}, Counter()
+    for e in registry.entries():
+        c = contracts.run_entry(e, "cuda", warm=False)[1].contract()
+        contracts_b[e.name] = c
+        calls.update(c["kernel_calls"]["histogram"])
+        print(f"  (b) {e.name:26s} {audit.summary(c)}")
+    census_kernels(mods, calls)
+    for name in mods:
+        if not calls[name]:
+            fail(f"kernel {name} was not launched by phase 13 (b)")
+    if audit.run_audit(device="cuda", results=contracts_b) != 0:
+        fail("the audit on the card failed (see DRIFT / POLICY above)")
+    out["audit"] = {n: {k: c[k] for k in ("kernel_calls", "host_syncs",
+                                          "eager_launches", "peak_bytes")}
+                    for n, c in contracts_b.items()}
+    print(f"  (b) audit on the card: {len(contracts_b)} entries, kernel "
+          f"calls {dict(calls)} ({time.perf_counter() - t1:.3f} s)")
+
+    # (c) the steady-state sweep on the card
+    t1 = time.perf_counter()
+    rep = recompile.verify_sweep(device="cuda")
+    out["sweep"] = {"combos": rep.combos, "builds": rep.builds,
+                    "loads": rep.loads, "launch_syncs": rep.launch_syncs}
+    print(f"  (c) sweep: {rep.combos} combinations twice, steady; "
+          f"DeviceIndex builds {rep.builds}, library builds {rep.loads}, "
+          f"syncs inside bucket launches {rep.launch_syncs} "
+          f"({time.perf_counter() - t1:.3f} s)")
+
+    # (d) one batch of each main-path entry at the collection's size
+    t1 = time.perf_counter()
+    builds = index._n_device_builds
+    ks, nbrs, mets = serving_knobs(SERVE_MAX_BATCH, 0)
+    qs64 = np.concatenate(batches)[:SERVE_MAX_BATCH]
+    launch_censuses = []
+
+    def bucket():
+        orig = sd.bucket_search_launch
+
+        def launch(*a, **kw):
+            with contracts.Census("cuda") as c:
+                res = orig(*a, **kw)
+            launch_censuses.append(c)
+            return res
+
+        sd.bucket_search_launch = launch
+        try:
+            return sd.bucket_search_device_batch(
+                index, qs64, ks, nbrs, mets, k_max=SERVE_K_MAX,
+                nbr_max=SERVE_NBR_MAX, band=BAND, dev=dev)
+        finally:
+            sd.bucket_search_launch = orig
+
+    runs = (
+        ("exact ED", lambda: sd.exact_search_device_batch(
+            index, batches[0], K, chunk=CHUNK, return_stats=True)),
+        ("exact DTW cluster", lambda: sd.exact_search_device_batch(
+            index, dtw_batches[0], K, chunk=CHUNK, metric="dtw", band=BAND,
+            return_stats=True)),
+        ("approximate nbr 4", lambda: sd.approximate_search_device_batch(
+            index, batches[0], K, nbr=CENSUS_NBR, dev=dev)),
+        ("extended ED nbr 4", lambda: sd.extended_search_device_batch(
+            index, batches[0], K, nbr=CENSUS_NBR, chunk=CHUNK)),
+        ("extended DTW nbr 4", lambda: sd.extended_search_device_batch(
+            index, dtw_batches[0], K, nbr=CENSUS_NBR, chunk=CHUNK,
+            metric="dtw", band=BAND)),
+        ("bucket 64 mixed", bucket))
+    phase9 = {"approximate nbr 4": ("ED", "approximate", CENSUS_NBR, None),
+              "extended ED nbr 4": ("ED", "extended", CENSUS_NBR, True),
+              "extended DTW nbr 4": ("DTW", "extended", CENSUS_NBR, True)}
+    out["main_path"] = {}
+    for label, fn in runs:
+        for m in mods.values():
+            m.launches = 0
+        with contracts.Census("cuda") as c:
+            res = fn()
+        census_kernels(mods, c.kernel_calls)
+        row = {"kernel_calls": dict(c.kernel_calls),
+               "eager_launches": c.eager_launches,
+               "aten_ops": sum(c.aten_ops.values()),
+               "host_syncs": dict(c.host_syncs), "syncs": c.n_syncs,
+               "peak_bytes": c.peak_bytes,
+               "peak_over_resident": c.peak_bytes - c.base_bytes}
+        out["main_path"][label] = row
+        print(f"  (d) {label}: kernel calls {row['kernel_calls']}, eager "
+              f"launches {row['eager_launches']} (aten ops "
+              f"{row['aten_ops']}), host syncs {row['syncs']} "
+              f"{row['host_syncs']}, peak {row['peak_bytes']} bytes "
+              f"({row['peak_over_resident']} over the resident)")
+        if "float64" in c.dtypes:
+            fail(f"phase 13 (d) {label}: a float64 result on the device")
+        if label == "exact ED":
+            want = st_syncs = res[3]["host_syncs"]
+            want += 1 + 3           # the query upload, three downloads
+            if c.n_syncs != want:
+                fail(f"exact ED census: {c.n_syncs} syncs, the search "
+                     f"reports {st_syncs} (+ 1 upload, 3 downloads)")
+            if not all(np.array_equal(a, b)
+                       for a, b in zip(res[:3], results[0])):
+                fail("exact ED under the census differs from phase 5")
+            row["reported_host_syncs"] = st_syncs
+        elif label == "exact DTW cluster":
+            if not all(np.array_equal(a, b)
+                       for a, b in zip(res[:3], dtw_results[0])):
+                fail("exact DTW under the census differs from phase 7")
+            row["reported_host_syncs"] = res[3]["host_syncs"]
+        elif label in phase9:
+            if not all(np.array_equal(a, b)
+                       for a, b in zip(res, paths_b0[phase9[label]])):
+                fail(f"{label} under the census differs from phase 9")
+        elif label == "bucket 64 mixed":
+            want = sd.bucket_search_device_batch(
+                index, qs64, ks, nbrs, mets, k_max=SERVE_K_MAX,
+                nbr_max=SERVE_NBR_MAX, band=BAND, dev=dev)
+            if not all(np.array_equal(a, b) for a, b in zip(res, want)):
+                fail("the bucket under the census differs from one without")
+            (lc,) = launch_censuses
+            row["launch_syncs"] = lc.n_syncs
+            row["launch_eager_launches"] = lc.eager_launches
+            if lc.n_syncs:
+                fail(f"the 64-lane bucket launch synced: {lc.host_syncs}")
+    if index._n_device_builds != builds:
+        fail("phase 13 (d) built another DeviceIndex layout")
+    print(f"  (d) {len(runs)} censused batches on the resident "
+          f"DeviceIndex, no layout built ({time.perf_counter() - t1:.3f} s)"
+          f"; card: {smi}")
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n-series", type=int, default=4_000_000,
@@ -2984,6 +3178,14 @@ def main() -> None:
         DumpyIndex, params, db, batches, floor, smi)
     print(json.dumps({"baselines": base}))
     phase("distributed and baselines", t0)
+
+    # ---- 13. the analysis gates ------------------------------------------------
+    t0 = time.perf_counter()
+    analysis = analysis_phase(
+        torch, np, search_device, mods, index, dev, batches, dtw_batches,
+        results, dtw_results, paths_b0, smi)
+    print(json.dumps({"analysis": analysis}))
+    phase("analysis gates", t0)
     print(f"[phase] whole run: {time.perf_counter() - t_run:.3f} s")
 
     for r in rows:

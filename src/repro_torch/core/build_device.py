@@ -263,7 +263,7 @@ def device_build(db: np.ndarray, params: DumpyParams | None = None, *,
         for ws, ex in leaf_atoms[id(leaf)]:
             atom_rank_of_word[ws] = len(atoms_flat)
             atoms_flat.append((ws, ex))
-            leaf_sizes[i] += int(wcount[ws].sum()) + len(ex)
+            leaf_sizes[i] += int(wcount[ws].sum()) + len(ex)  # lint: allow-sync: wcount is a host array
             if len(ex):
                 has_extras = True
 
@@ -281,7 +281,7 @@ def device_build(db: np.ndarray, params: DumpyParams | None = None, *,
         parts = []
         off = 0
         for ws, ex in atoms_flat:
-            cnt = int(wcount[ws].sum())
+            cnt = int(wcount[ws].sum())  # lint: allow-sync: wcount is a host array
             parts.append(order_nat[off:off + cnt])
             off += cnt
             if len(ex):

@@ -49,8 +49,12 @@ def build_step(db_shard: torch.Tensor, w: int, b: int
     codes are each row's first bit of every segment (cardinality 0)."""
     paa, sax = ops.sax_encode(db_shard, w, b)
     card = torch.zeros(w, dtype=torch.int32, device=sax.device)
-    codes = next_bit_codes_t(sax, card, w, b)
-    return paa, sax, torch.bincount(codes, minlength=1 << w)
+    codes = next_bit_codes_t(sax, card, w, b).long()
+    # a scatter-add, not torch.bincount: on a CUDA tensor bincount reads the
+    # codes' min and max on the host (two syncs), and every code is below
+    # 2**w already
+    hist = torch.zeros(1 << w, dtype=torch.int64, device=sax.device)
+    return paa, sax, hist.index_add_(0, codes, torch.ones_like(codes))
 
 
 def _topk_lowest(d2: torch.Tensor, k: int) -> torch.Tensor:
@@ -106,8 +110,8 @@ def encode_distributed(db: np.ndarray, w: int, b: int, mesh=None
     for s, d in enumerate(mesh.devices):
         x = torch.from_numpy(db[cuts[s]:cuts[s + 1]]).to(d)
         p, q, h = build_step(x, w, b)
-        paa.append(p.cpu().numpy())
-        sax.append(q.cpu().numpy().astype(np.uint8))
+        paa.append(p.cpu().numpy())  # lint: allow-sync: the table's gather
+        sax.append(q.cpu().numpy().astype(np.uint8))  # lint: allow-sync: ditto
         h = h.to(home)
         hist = h if hist is None else hist + h          # the all-reduce
     return np.concatenate(paa), np.concatenate(sax), hist

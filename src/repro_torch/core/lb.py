@@ -300,7 +300,7 @@ def _dtw2_masked_scan(qs: torch.Tensor, xs: torch.Tensor, r: int,
         return 0 if full else _dtw_base(d, r, n)
 
     for d in range(2 * n - 1):
-        if not bool(alive.any()):
+        if not bool(alive.any()):  # lint: allow-sync: the twin's early exit
             break
         if return_steps:
             steps += alive

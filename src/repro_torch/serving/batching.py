@@ -276,6 +276,7 @@ class CoalescingFrontend:
                 while not self._queue and not self._closing:
                     self._lock.wait()
             else:
+                # lint: allow-timing: deadlines on the host clock, no window
                 give_up = time.perf_counter() + patience
                 while not self._queue and not self._closing:
                     rem = give_up - time.perf_counter()
