@@ -3,6 +3,8 @@
 
     python3 chip_smoke.py                  # the full run: 4 M x 256 series
     python3 chip_smoke.py --n-series 200000   # a shorter rehearsal
+    python3 chip_smoke.py --lm-only        # phases 1 and 14 alone (no
+                                           # kernels, no ok line)
 
 Phases, each printed with its seconds:
 
@@ -154,7 +156,29 @@ Phases, each printed with its seconds:
    each, each answer bitwise the earlier phase's, exact ED's syncs equal
    to its reported ``host_syncs`` plus the query upload and three result
    downloads, no sync inside the bucket launch.  No timing is taken under
-   a census.
+   a census;
+14. the LM substrate (``repro_torch.models``; it reaches none of the six
+   kernels): (a) each of the ten architectures at ``reduced(...)`` in
+   float32 (TF32 asserted off), parameters from ``--seed`` on the host:
+   ``forward_train`` + ``loss_fn``, ``forward_prefill`` of S-1 tokens and
+   one ``forward_decode`` at B=2, S=32 on the card against the same on the
+   CPU (logits, loss, every cache leaf: atol = rtol = 1e-3; the recurrent
+   xlstm and recurrentgemma, whose reduced models amplify rounding, within
+   10% of each array's magnitude, and each of their blocks run alone on
+   the CPU's inputs within 1e-3 of its outputs' magnitude), decode at S-1
+   against ``forward_train`` (the reference test's 2e-2 prefill, 7e-2 /
+   5e-2 decode), gradients of ``loss_fn`` finite and nonzero; (b) OLMo-1B
+   at full width (16 x 2048, 16 x 128 heads, d_ff 8192, vocab 50 304,
+   float32 parameters made on the card, bfloat16 compute): prefill of
+   4 x 2048 tokens, 64 decode steps from that cache pre-sized to 2112,
+   ``forward_train`` + loss at 4 x 2048, each timed beside its bound
+   (prefill and train: model FLOPs over the dense bf16 peak; a decode
+   step: the parameter and cache bytes it must read over the HBM rate);
+   decode logits at 8 positions against ``forward_train``'s (argmax
+   agreement >= 7/8, max |d| over the logits' RMS within 2e-2 or twice
+   the same positions' bf16-vs-float32 gap of ``forward_train``), the
+   bf16 model against float32 compute on B=1, S=256, every value finite,
+   peak memory.
 """
 from __future__ import annotations
 
@@ -247,6 +271,22 @@ OLMO_D, OLMO_VOCAB = 2048, 50_304
 # phase 13 (d): the leaf budget of the approximate, extended and bucket
 # censuses
 CENSUS_NBR = 4
+# phase 14: the dense bf16 peak of the card (the prefill and train bound);
+# (a)'s batch and length (tests/test_models.py's) and card-vs-CPU tolerance
+BF16_OPS_PER_S = 989e12
+LM_B, LM_S, LM_TOL = 2, 32, 1e-3
+# the recurrent reduced models amplify float32 order differences through
+# their std-1 weights (the CPU tests: the reference's xlstm moves 7.4e-3
+# when its embedding is scaled by one ulp; RG-LRU's sqrt(1 - a²) at
+# a ≈ 0.999 turns an ulp of a into ~6e-5 of b), so their whole-model
+# arrays are held to 10% of their magnitude and each block, run alone on
+# the CPU run's own inputs, to LM_BLOCK_TOL of its outputs' magnitude
+LM_BLOCKWISE = ("xlstm-1.3b", "recurrentgemma-9b")
+LM_WHOLE_TOL, LM_BLOCK_TOL = 0.1, 1e-3
+# (b): OLMo-1B's prefill batch and length, decode steps, positions checked
+# against forward_train, and the bf16-vs-float32 comparison's shape
+OLMO_B, OLMO_S, OLMO_STEPS, OLMO_CHECKS = 4, 2048, 64, 8
+OLMO_F32_B, OLMO_F32_S = 1, 256
 
 
 def fail(msg: str) -> None:
@@ -2893,11 +2933,378 @@ def analysis_phase(torch, np, sd, mods, index, dev, batches, dtw_batches,
     return out
 
 
+def lm_batch(np, cfg, B: int, S: int, seed: int) -> dict:
+    """A batch of numpy arrays as ``tests/test_models.py`` makes it."""
+    rng = np.random.default_rng(seed)
+    batch = {"tokens": rng.integers(0, cfg.vocab, (B, S)).astype(np.int64)}
+    if cfg.family == "encdec":
+        batch["frames"] = rng.standard_normal(
+            (B, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
+    if cfg.family == "vlm":
+        batch["patches"] = rng.standard_normal(
+            (B, cfg.vision_tokens, cfg.d_model)).astype(np.float32)
+    return batch
+
+
+def lm_run(torch, tfm, registry, model, batch: dict) -> dict:
+    """One reduced model's train logits, loss, prefill of S-1 tokens and
+    one decode step (of token S-1 into the prefill cache grown by a slot),
+    as CPU tensors; then the gradients of the loss."""
+    S = batch["tokens"].shape[1]
+    with torch.no_grad():
+        logits = tfm.forward_train(model, batch)
+        loss = registry.loss_fn(model, batch)
+        pre = dict(batch, tokens=batch["tokens"][:, :S - 1])
+        last, caches = tfm.forward_prefill(model, pre)
+        caches = tfm.grow_cache(caches, S - 1, S)
+        dec, caches = tfm.forward_decode(
+            model, caches, batch["tokens"][:, S - 1:], S - 1)
+    model.zero_grad()
+    registry.loss_fn(model, batch).backward()
+    grads = [p.grad for p in model.parameters()]
+    host = lambda t: t.detach().float().cpu()          # noqa: E731
+    flat = {}
+
+    def walk(tree, at):
+        for k, v in (tree.items() if isinstance(tree, dict)
+                     else enumerate(tree)):
+            if isinstance(v, (dict, list)):
+                walk(v, f"{at}/{k}")
+            else:
+                flat[f"{at}/{k}"] = host(v)
+    walk(caches, "cache")
+    return {"logits": host(logits), "loss": host(loss),
+            "prefill_logits": host(last), "decode_logits": host(dec),
+            **flat, "grad_finite": all(bool(torch.isfinite(g).all())
+                                       for g in grads),
+            "grad_abs_sum": float(sum(g.abs().sum() for g in grads))}
+
+
+def lm_blocks(torch, tfm, cpu_model, card_model, batch: dict,
+              device: str) -> float:
+    """Each block of the card's model run alone on the inputs its CPU twin
+    saw (prefill of S-1 tokens, then the decode step), against the CPU
+    block's outputs: the largest max |d| over an output's magnitude."""
+    def snap(t):   # a copy: the decode step updates attention caches in place
+        if isinstance(t, torch.Tensor):
+            return t.clone()
+        if isinstance(t, (tuple, list)):
+            return type(t)(snap(v) for v in t)
+        if isinstance(t, dict):
+            return {k: snap(v) for k, v in t.items()}
+        return t
+
+    seen = []
+    hooks = [blk.register_forward_hook(
+        lambda mod, args, out, name=name: seen.append(
+            (name, snap(args), snap(out))))
+        for name, blk in cpu_model.named_modules()
+        if isinstance(blk, tuple(tfm.BLOCKS.values()))]
+    S = batch["tokens"].shape[1]
+    with torch.no_grad():
+        _, caches = tfm.forward_prefill(
+            cpu_model, dict(batch, tokens=batch["tokens"][:, :S - 1]))
+        caches = tfm.grow_cache(caches, S - 1, S)
+        tfm.forward_decode(cpu_model, caches, batch["tokens"][:, S - 1:],
+                           S - 1)
+    for h in hooks:
+        h.remove()
+    blocks = dict(card_model.named_modules())
+    to = lambda t: (t.to(device) if isinstance(t, torch.Tensor) else   # noqa
+                    {k: to(v) for k, v in t.items()} if isinstance(t, dict)
+                    else t)
+    # the card's block gets its own copy of the input cache, as it too
+    # writes in place
+    worst = 0.0
+    for name, (x, ctx, cache), (y, st) in seen:
+        with torch.no_grad():
+            gy, gst = blocks[name](to(x), ctx, to(cache))
+        for what, g, w in [("y", gy, y)] + [(k, gst[k], st[k]) for k in st]:
+            rel = float((g.cpu() - w).abs().max()) / max(
+                float(w.abs().max()), 1.0)
+            worst = max(worst, rel)
+            if rel > LM_BLOCK_TOL:
+                fail(f"block {name} ({ctx.mode}) {what}: card vs CPU max |d|"
+                     f" {rel:.3g} of its magnitude, beyond {LM_BLOCK_TOL}")
+    return worst
+
+
+def lm_reduced(torch, np, copy, reduced, tfm, registry, seed: int,
+               device: str) -> dict:
+    """Phase 14 (a): every architecture at ``reduced(...)`` on the card
+    against the same parameters and batch on the CPU."""
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("TF32 is on for float32 matmuls: the card's float32 checks "
+             "need it off")
+    out = {}
+    for name in registry.ARCH_NAMES:
+        # lint: allow-timing: each architecture's seconds end on host copies
+        t1 = time.perf_counter()
+        cfg = reduced(registry.get_config(name))
+        cpu_model = tfm.init_params(cfg, torch.Generator().manual_seed(seed),
+                                    "cpu")
+        card_model = copy.deepcopy(cpu_model).to(device)
+        nb = lm_batch(np, cfg, LM_B, LM_S, seed)
+        batch = {k: torch.from_numpy(v) for k, v in nb.items()}
+        want = lm_run(torch, tfm, registry, cpu_model, batch)
+        got = lm_run(torch, tfm, registry, card_model,
+                     {k: v.to(device) for k, v in batch.items()})
+        blockwise = name in LM_BLOCKWISE
+        tol = LM_TOL
+        worst = 0.0
+        for key, w in want.items():
+            if not isinstance(w, torch.Tensor):
+                continue
+            g = got[key]
+            if g.shape != w.shape or not bool(torch.isfinite(g).all()):
+                fail(f"{name} {key}: shape {tuple(g.shape)} vs "
+                     f"{tuple(w.shape)} or not finite on the card")
+            err = float((g - w).abs().max()) if g.numel() else 0.0
+            worst = max(worst, err)
+            if blockwise:
+                scale = max(float(w.abs().max()) if w.numel() else 0.0, 1.0)
+                if err > LM_WHOLE_TOL * scale:
+                    fail(f"{name} {key}: card vs CPU max |d| {err:.3g}, "
+                         f"beyond {LM_WHOLE_TOL} of its magnitude {scale:.3g}")
+            elif not torch.allclose(g, w, atol=tol, rtol=tol):
+                fail(f"{name} {key}: card vs CPU max |d| {err:.3g} beyond "
+                     f"atol = rtol = {tol}")
+        full, last, dec = (got["logits"], got["prefill_logits"],
+                           got["decode_logits"])
+        if not torch.allclose(last[:, 0], full[:, LM_S - 2], atol=2e-2,
+                              rtol=2e-2):
+            fail(f"{name}: prefill's last logits differ from forward_train "
+                 f"beyond 2e-2 on the card")
+        if not torch.allclose(dec[:, 0], full[:, LM_S - 1], atol=7e-2,
+                              rtol=5e-2):
+            fail(f"{name}: decode at S-1 differs from forward_train beyond "
+                 f"7e-2 / 5e-2 on the card")
+        if not got["grad_finite"] or not got["grad_abs_sum"] > 0:
+            fail(f"{name}: gradients on the card not finite or all zero")
+        block_rel = (lm_blocks(torch, tfm, cpu_model, card_model, batch,
+                               device) if blockwise else None)
+        out[name] = {"max_abs_err": worst,
+                     "tol": f"{LM_WHOLE_TOL} of magnitude" if blockwise
+                     else tol,
+                     "block_max_rel": block_rel,
+                     "loss": float(got["loss"]),
+                     "s": time.perf_counter() - t1}
+        held = (f"each array within {LM_WHOLE_TOL} of its magnitude; each "
+                f"block alone within {LM_BLOCK_TOL}: worst {block_rel:.3g}"
+                if blockwise else f"atol = rtol = {tol}")
+        print(f"  (a) {name}: card vs CPU max |d| {worst:.3g} ({held}), "
+              f"loss {float(got['loss']):.6f}, grads finite, "
+              f"{out[name]['s']:.3f} s")
+    return out
+
+
+def olmo_bytes_flops(cfg, B: int, S: int, cache_len: int) -> tuple:
+    """(prefill FLOPs, train FLOPs, decode-step bytes) of OLMo-1B: 2 per
+    multiply-add of every weight product, causal attention (QK and PV over
+    the S²/2 pairs), the head on the last position (prefill) or all of them
+    (train); a decode step reads every weight but the embedding table once
+    (float32) and ``cache_len`` positions of K and V (bfloat16)."""
+    d, f, L = cfg.d_model, cfg.d_ff, cfg.n_layers
+    layer = 4 * d * d + 3 * d * f
+    attn = L * 2 * 2 * B * (S * S / 2) * d
+    prefill = 2 * L * layer * B * S + attn + 2 * d * cfg.vocab * B
+    train = 2 * (L * layer + d * cfg.vocab) * B * S + attn
+    weights = (L * layer + d * cfg.vocab) * 4
+    cache = L * 2 * B * cache_len * cfg.kv_dim * 2
+    return prefill, train, weights + cache
+
+
+def lm_olmo(torch, np, copy, dataclasses, tfm, registry, seed: int, smi,
+            device: str, n_layers: int | None = None) -> dict:
+    """Phase 14 (b): OLMo-1B at full width on the card (``n_layers`` cuts
+    the depth for a rehearsal only)."""
+    cfg = registry.get_config("olmo-1b")
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    cuda = device == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    resident = None
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+    B, S, T = OLMO_B, OLMO_S, OLMO_STEPS
+    # lint: allow-timing: sync() is torch.cuda.synchronize on the card
+    t1 = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(seed)
+    model = tfm.init_params(cfg, gen, device)
+    n_params = sum(p.numel() for p in model.parameters())
+    sync()
+    print(f"  (b) olmo-1b: {n_params} parameters ({n_params * 4 / 1e9:.3f} GB"
+          f" float32) made on the card in {time.perf_counter() - t1:.3f} s")
+    rng = np.random.default_rng(seed)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (B, S + T))
+                              ).to(device)
+    prompt = {"tokens": tokens[:, :S]}
+
+    def timed(fn):
+        # lint: allow-timing: sync() is torch.cuda.synchronize on the card
+        sync()
+        t = time.perf_counter()
+        out = fn()
+        sync()
+        return out, (time.perf_counter() - t) * 1e3
+
+    with torch.no_grad():
+        timed(lambda: tfm.forward_prefill(model, prompt))     # warm-up
+        (last, caches), prefill_ms = timed(
+            lambda: tfm.forward_prefill(model, prompt))
+        caches = tfm.grow_cache(caches, S, S + T)
+        step_ms, dec = [], []
+        for i in range(T):
+            (lg, caches), ms = timed(lambda: tfm.forward_decode(
+                model, caches, tokens[:, S + i:S + i + 1], S + i))
+            step_ms.append(ms)
+            dec.append(lg[:, 0].float())
+        dec = torch.stack(dec, 1)                         # [B, T, V]
+        timed(lambda: tfm.forward_train(model, prompt))       # warm-up
+        _, train_ms = timed(lambda: registry.loss_fn(model, prompt))
+        loss = float(registry.loss_fn(model, prompt))
+        full = tfm.forward_train(model, {"tokens": tokens}).float()
+        m32 = copy.copy(model)                 # the same parameters
+        m32.cfg = dataclasses.replace(cfg, compute_dtype="float32")
+        full32 = tfm.forward_train(m32, {"tokens": tokens}).float()
+        small = {"tokens": tokens[:OLMO_F32_B, :OLMO_F32_S]}
+        lo = tfm.forward_train(model, small).float()
+        hi = tfm.forward_train(m32, small).float()
+        profiles = {}
+        if cuda:
+            profiles["prefill"] = profile_lm(
+                torch, f"prefill {B} x {S}",
+                lambda: tfm.forward_prefill(model, prompt), 1)
+            last_tok = tokens[:, S + T - 1:S + T]
+            profiles["decode_step"] = profile_lm(
+                torch, "a decode step (rewriting the last position)",
+                lambda: tfm.forward_decode(model, caches, last_tok,
+                                           S + T - 1), 4)
+    peak = torch.cuda.max_memory_allocated() if cuda else None
+    for what, t in (("prefill logits", last), ("decode logits", dec),
+                    ("train logits", full), ("float32 logits", full32)):
+        if not bool(torch.isfinite(t.float()).all()):
+            fail(f"olmo-1b: {what} not finite")
+    if not np.isfinite(loss):
+        fail(f"olmo-1b: loss {loss} not finite")
+    pos = [round(j * (T - 1) / (OLMO_CHECKS - 1)) for j in range(OLMO_CHECKS)]
+    d_dec = dec[:, pos]
+    d_full = full[:, [S + j for j in pos]]
+    d_f32 = full32[:, [S + j for j in pos]]
+    rms = float(d_full.pow(2).mean().sqrt())
+    rel = float((d_dec - d_full).abs().max()) / rms
+    gap = float((d_full - d_f32).abs().max()) / rms
+    agree = float((d_dec.argmax(-1) == d_full.argmax(-1)).float().mean())
+    limit = max(2e-2, 2 * gap)
+    if agree < 7 / 8:
+        fail(f"olmo-1b: decode's argmax agrees with forward_train's at "
+             f"{agree:.3f} of {B} x {OLMO_CHECKS} positions, below 7/8")
+    if rel > limit:
+        fail(f"olmo-1b: decode vs forward_train max |d| / RMS {rel:.4g} "
+             f"beyond {limit:.4g} (2e-2, or twice bf16's own gap {gap:.4g})")
+    f32_rel = float((lo - hi).abs().max() / hi.pow(2).mean().sqrt())
+    f32_rms = float((lo - hi).pow(2).mean().sqrt() / hi.pow(2).mean().sqrt())
+    f32_agree = float((lo.argmax(-1) == hi.argmax(-1)).float().mean())
+    prefill_f, train_f, step_b = olmo_bytes_flops(cfg, B, S, S + T // 2)
+    dec_ms = float(np.median(step_ms))
+    out = {
+        "card": smi, "params": n_params, "B": B, "S": S, "steps": T,
+        "prefill_ms": prefill_ms,
+        "prefill_tok_s": B * S / prefill_ms * 1e3,
+        "prefill_bound_ms": prefill_f / BF16_OPS_PER_S * 1e3,
+        "decode_step_ms_median": dec_ms,
+        "decode_step_ms_mean": float(np.mean(step_ms)),
+        "decode_tok_s": B * T / sum(step_ms) * 1e3,
+        "decode_step_bound_ms": step_b / HBM_BYTES_PER_S * 1e3,
+        "decode_tok_s_bound": B / (step_b / HBM_BYTES_PER_S),
+        "train_loss_ms": train_ms,
+        "train_bound_ms": train_f / BF16_OPS_PER_S * 1e3,
+        "loss": loss, "max_memory_allocated": peak,
+        "allocated_before": resident,
+        "decode_vs_train_max_over_rms": rel,
+        "bf16_vs_f32_gap_same_positions": gap,
+        "decode_vs_train_argmax_agree": agree,
+        "bf16_vs_f32_small_max_over_rms": f32_rel,
+        "bf16_vs_f32_small_rms_rel": f32_rms,
+        "bf16_vs_f32_small_argmax_agree": f32_agree,
+        "profiles": profiles,
+    }
+    print(f"  (b) prefill {B} x {S}: {prefill_ms:.3f} ms, "
+          f"{out['prefill_tok_s']:.1f} tokens/s (bound "
+          f"{out['prefill_bound_ms']:.3f} ms: {prefill_f / 1e12:.2f} TFLOP at"
+          f" the bf16 peak) [{smi}]")
+    print(f"  (b) decode {T} steps x {B}: median {dec_ms:.3f} ms a step, "
+          f"{out['decode_tok_s']:.1f} tokens/s (bound "
+          f"{out['decode_step_bound_ms']:.3f} ms a step: {step_b / 1e9:.3f} "
+          f"GB at {HBM_BYTES_PER_S / 1e12} TB/s, "
+          f"{out['decode_tok_s_bound']:.1f} tokens/s) [{smi}]")
+    print(f"  (b) forward_train + loss {B} x {S}: {train_ms:.3f} ms (bound "
+          f"{out['train_bound_ms']:.3f} ms), loss {loss:.4f}; peak memory "
+          f"{peak} B ({resident} B allocated before the phase) [{smi}]")
+    print(f"  (b) decode vs forward_train at {OLMO_CHECKS} positions: max |d|"
+          f" / RMS {rel:.4g} (limit {limit:.4g}; bf16 vs float32 there "
+          f"{gap:.4g}), argmax agreement {agree:.3f}")
+    print(f"  (b) bf16 vs float32 compute at {OLMO_F32_B} x {OLMO_F32_S}: "
+          f"max |d| / RMS {f32_rel:.4g}, RMS(d) / RMS {f32_rms:.4g}, argmax "
+          f"agreement {f32_agree:.4f}")
+    del model, m32, caches
+    if cuda:
+        torch.cuda.empty_cache()
+    return out
+
+
+def profile_lm(torch, label: str, fn, n: int) -> dict:
+    """``n`` calls of ``fn`` under ``torch.profiler``: the device's busy
+    share of their wall time (a lower bound: the profiler lengthens the
+    wall), kernel launches a call, and the kernels taking most device
+    time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev = [e for e in prof.key_averages() if e.device_type != DeviceType.CPU]
+    busy = sum(e.self_device_time_total for e in dev) / 1e6
+    launches = sum(e.count for e in dev) / n
+    top = sorted(dev, key=lambda e: e.self_device_time_total,
+                 reverse=True)[:6]
+    print(f"  (b) profile of {label}: wall {wall / n * 1e3:.3f} ms a call, "
+          f"device busy {100 * busy / wall:.1f}% (not measured if 0), "
+          f"{launches:.0f} device ops a call")
+    for e in top:
+        print(f"      {e.key[:70]:70s} {e.count / n:6.1f} a call, "
+              f"{e.self_device_time_total / 1e3 / n:9.3f} ms")
+    return {"wall_ms": wall / n * 1e3, "busy_share": busy / wall,
+            "device_ops": launches,
+            "top": [[e.key[:70], e.self_device_time_total / 1e3 / n]
+                    for e in top]}
+
+
+def lm_phase(torch, np, seed: int, smi, device: str = "cuda") -> dict:
+    import copy
+    import dataclasses
+    from repro_torch.configs.base import reduced
+    from repro_torch.models import registry, transformer as tfm
+    return {"reduced": lm_reduced(torch, np, copy, reduced, tfm, registry,
+                                  seed, device),
+            "olmo_1b": lm_olmo(torch, np, copy, dataclasses, tfm, registry,
+                               seed, smi, device)}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n-series", type=int, default=4_000_000,
                     help="collection size (default: the paper-scale 4 M)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--lm-only", action="store_true",
+                    help="run phases 1 and 14 alone (prints no ok line)")
     args = ap.parse_args()
 
     import torch
@@ -2938,6 +3345,11 @@ def main() -> None:
           f"{sys.version.split()[0]}, device {torch.cuda.get_device_name(0)}"
           f", {torch.cuda.device_count()} visible")
     phase("environment", t0)
+    if args.lm_only:
+        t0 = time.perf_counter()
+        print(json.dumps({"lm": lm_phase(torch, np, args.seed, smi)}))
+        phase("LM substrate", t0)
+        return
 
     # ---- 2. build the kernels --------------------------------------------
     t0 = time.perf_counter()
@@ -3186,6 +3598,13 @@ def main() -> None:
         results, dtw_results, paths_b0, smi)
     print(json.dumps({"analysis": analysis}))
     phase("analysis gates", t0)
+
+    # ---- 14. the LM substrate ---------------------------------------------------
+    t0 = time.perf_counter()
+    del index, dev
+    torch.cuda.empty_cache()
+    print(json.dumps({"lm": lm_phase(torch, np, args.seed, smi)}))
+    phase("LM substrate", t0)
     print(f"[phase] whole run: {time.perf_counter() - t_run:.3f} s")
 
     for r in rows:

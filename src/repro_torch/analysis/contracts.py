@@ -72,7 +72,7 @@ KERNELS = ("sax_encode", "pairwise_l2", "lb_paa_interval", "lb_keogh",
 #: ``kernels.ref``: guarded so a call that bypasses ``ops`` is an error
 _IMPLS = {"sax_encode": ("sax_encode", "sax_encode_ref"),
           "pairwise_l2": ("pairwise_l2", "pairwise_l2_ref"),
-          "lb_paa_interval": ("lb_isax", "lb_paa_interval_ref"),
+          "lb_paa_interval": ("lb_isax", "lb_paa_interval_in_order"),
           "lb_keogh": ("lb_keogh", "lb_keogh_ref"),
           "lb_improved": ("lb_improved", "lb_improved_ref"),
           "dtw_band": ("dtw_band", "dtw_band_ref")}

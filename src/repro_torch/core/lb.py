@@ -68,6 +68,21 @@ def node_bounds_np(sym: np.ndarray, card: np.ndarray, b: int,
             np.clip(hi, -clamp, clamp).astype(np.float32))
 
 
+def sum_last_fixed(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis in one fixed order: halves added elementwise
+    until one column is left (an odd column joins the last add).  Each
+    step is an IEEE add of two tensors, so every device gives the same
+    bits, which ``.sum(-1)`` (an order of each backend's choosing) does not
+    promise."""
+    while x.shape[-1] > 1:
+        h = x.shape[-1] // 2
+        odd = x[..., 2 * h:]
+        x = x[..., :h] + x[..., h:2 * h]
+        if odd.shape[-1]:
+            x = torch.cat([x[..., :-1], x[..., -1:] + odd], dim=-1)
+    return x[..., 0]
+
+
 def lb_interval(seg_lo: torch.Tensor, seg_hi: torch.Tensor, lo: torch.Tensor,
                 hi: torch.Tensor, n: int) -> torch.Tensor:
     """Interval MINDIST, batched + squared: query intervals

@@ -78,7 +78,7 @@ from ..kernels import ops
 from ..robustness.failpoints import failpoint, with_retries
 from .device_index import DeviceIndex
 from .index import DumpyIndex
-from .lb import dtw_np_batch
+from .lb import dtw_np_batch, sum_last_fixed
 from .metric import ED, Metric, default_band, query_prep, resolve
 
 #: steps between two host-side stop tests of the span loop and of the DTW
@@ -938,11 +938,13 @@ def _sibling_schedule(dev: DeviceIndex, prep: tuple, lbq: torch.Tensor,
         0, dev.grp_begin.shape[0] - 1).long()                 # [Q, gmax]
     valid = gpos[None, :] < gcnt[:, None]
     m_begin = torch.where(valid, dev.grp_begin[gi], i32max)
-    # member interval MINDIST (squared — order-equal to the host sqrt form)
+    # member interval MINDIST (squared — order-equal to the host sqrt form),
+    # summed in one fixed order, so the CPU and the card rank near-tied
+    # members alike
     below = torch.clamp_min(dev.grp_lo[gi] - seg_hi[:, None, :], 0.0)
     above = torch.clamp_min(seg_lo[:, None, :] - dev.grp_hi[gi], 0.0)
     d = torch.maximum(below, above)
-    sib_lb = (dev.n / dev.w) * (d * d).sum(-1)                # [Q, gmax]
+    sib_lb = (dev.n / dev.w) * sum_last_fixed(d * d)         # [Q, gmax]
     sib_lb = torch.where(valid, sib_lb, _INF)
     sib_lb = torch.where(m_begin == tb[:, None], -_INF, sib_lb)
     # member visit rank: (LB, span begin), target forced first by the -inf

@@ -35,10 +35,12 @@ def pairwise_l2(q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 def lb_paa_interval(seg_lo: torch.Tensor, seg_hi: torch.Tensor,
                     lo: torch.Tensor, hi: torch.Tensor, n: int
                     ) -> torch.Tensor:
-    """Squared interval MINDIST ``[Q, L]`` — the pruning scan."""
+    """Squared interval MINDIST ``[Q, L]`` — the pruning scan.  The CPU
+    twin is the kernel's own in-order sum, so the CPU and the card rank
+    near-tied leaves alike, bit for bit."""
     if seg_lo.is_cuda:
         return _lb.lb_paa_interval(seg_lo, seg_hi, lo, hi, n)
-    return ref.lb_paa_interval_ref(seg_lo, seg_hi, lo, hi, n)
+    return ref.lb_paa_interval_in_order(seg_lo, seg_hi, lo, hi, n)
 
 
 def lb_isax(paa_q: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,

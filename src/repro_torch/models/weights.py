@@ -1,0 +1,114 @@
+"""Carrying the reference's parameters and caches across.
+
+``jax.random`` streams cannot be reproduced in torch, so the tests hold
+the port against the reference on the reference's own parameters: its
+tree, given as numpy arrays, becomes the port's model here.  The stacked
+``[n_units, ...]`` leaves are sliced into the units of the model's
+``ModuleList`` (and the encoder's ``[encoder_layers, ...]`` leaves into its
+layers).  Caches go both ways, so a prefill cache of one package feeds the
+other's decode and caches compare leaf by leaf.
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.core.device_index import resolve_device
+from .common import map_tree
+from .transformer import Transformer
+
+
+def _split(tree: Any, n: int) -> list:
+    """A tree of stacked leaves → ``n`` trees of their slices."""
+    return [map_tree(lambda a: a[i], tree) for i in range(n)]
+
+
+def _stack(trees: list) -> Any:
+    """``n`` trees of equal structure → one tree of stacked numpy leaves."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _stack([t[k] for t in trees]) for k in first}
+    return np.stack([_np(t) for t in trees])
+
+
+def _np(t) -> np.ndarray:
+    """A tensor as numpy (bfloat16, which numpy lacks, as float32)."""
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def _tensor(a, device: torch.device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":          # ml_dtypes' bfloat16 from JAX
+        return torch.from_numpy(a.astype(np.float32)).to(
+            device=device, dtype=torch.bfloat16)
+    return torch.from_numpy(np.array(a)).to(device)
+
+
+def params_from_reference(cfg: ArchConfig, tree: dict,
+                          device: str | torch.device = "cuda") -> dict:
+    """The reference's parameter tree (numpy leaves) in the port's layout,
+    as tensors on ``device``."""
+    device = resolve_device(device)
+    t = map_tree(lambda a: _tensor(a, device), tree)
+    out = {k: v for k, v in t.items() if k not in ("stack", "encoder")}
+    out["units"] = _split(t["stack"], cfg.n_units)
+    if "encoder" in t:
+        out["encoder"] = {"layers": _split(t["encoder"]["stack"],
+                                           cfg.encoder_layers),
+                          "final_norm": t["encoder"]["final_norm"]}
+    return out
+
+
+def model_from_reference(cfg: ArchConfig, tree: dict,
+                         device: str | torch.device = "cuda") -> Transformer:
+    """The port's model holding the reference's parameters."""
+    return Transformer(cfg, params_from_reference(cfg, tree, device))
+
+
+def params_to_reference(model: Transformer, grads: bool = False) -> dict:
+    """The model's parameters (or, with ``grads``, their gradients) as the
+    reference's stacked tree of numpy arrays."""
+    def tree(mod) -> dict:
+        out = {}
+        for name, p in mod.named_parameters(recurse=False):
+            out[name] = p.grad if grads else p
+        for name, child in mod.named_children():
+            out[name] = tree(child)
+        return out
+    t = tree(model)
+    units = t.pop("units")
+    out = map_tree(_np, {k: v for k, v in t.items()
+                         if k not in ("rem", "encoder")})
+    out["stack"] = _stack([units[str(i)] for i in range(len(units))])
+    if t.get("rem"):
+        out["rem"] = map_tree(_np, t["rem"])
+    if "encoder" in t:
+        layers = t["encoder"]["layers"]
+        out["encoder"] = {
+            "stack": _stack([layers[str(i)] for i in range(len(layers))]),
+            "final_norm": _np(t["encoder"]["final_norm"])}
+    return out
+
+
+def cache_from_reference(cfg: ArchConfig, tree: dict,
+                         device: str | torch.device = "cuda") -> dict:
+    """The reference's cache tree (numpy leaves; ``stack`` stacked
+    ``[n_units, ...]``) as the port's caches on ``device``."""
+    device = resolve_device(device)
+    t = map_tree(lambda a: _tensor(a, device), tree)
+    out = {"units": _split(t["stack"], cfg.n_units)}
+    if "rem" in t:
+        out["rem"] = t["rem"]
+    return out
+
+
+def cache_to_reference(caches: dict) -> dict:
+    """The port's caches as the reference's tree of numpy arrays."""
+    out = {"stack": _stack(caches["units"])}
+    if "rem" in caches:
+        out["rem"] = map_tree(_np, caches["rem"])
+    return out

@@ -183,3 +183,53 @@ def test_degenerate_tree_and_nbr_past_leaves():
                                                    device=CPU)
     assert leaves.shape == (4, L)
     assert all(sorted(row) == list(range(L)) for row in leaves)
+
+
+def test_near_tied_leaf_bounds_rank_as_the_kernel_does():
+    """ROADMAP C8: query 5 of this case has leaves 25 and 129 a few ulps
+    apart in torch's ``.sum(-1)`` order and equal in the kernel's in-order
+    sum.  The CPU twin of ``lb_paa_interval`` is that in-order sum, so:
+
+    * every approximate schedule is bitwise the stable ranking of the
+      in-order bounds (routed leaf first), as the card's kernel gives it;
+    * it equals the reference's schedule except where two leaves' in-order
+      bounds lie within 4 ulps (here: nowhere, at nbr 184 and 185, where
+      the pair straddles the budget);
+    * wherever the visited sets are equal, so are the answers (approximate
+      by the rtol 1e-5 tie rule, extended bitwise after the re-rank)."""
+    import torch
+    from repro.core.search_device import extended_search_device_batch as r_ext
+    from repro_torch.core import search_device as sd
+    from repro_torch.core.metric import resolve
+    from repro_torch.kernels import ops, ref
+    ri, pi = build_pair(random_walks(1800, 96, seed=1800), w=12, th=40,
+                        fuzzy_f=0.2)
+    qs = random_walks(9, 96, seed=1801)
+    dev = pi.device_index(device=CPU)
+    prep, _ = sd._prep_batch(resolve("dtw", 96, 3), torch.from_numpy(qs),
+                             pi.params.sax.w, pi.params.sax.b)
+    args = (prep[0], prep[1], dev.leaf_lo_g, dev.leaf_hi_g, dev.n)
+    lb = ref.lb_paa_interval_in_order(*args)
+    assert torch.equal(ops.lb_paa_interval(*args), lb)
+    # the pair of the fault: apart in torch's order, equal in order
+    old = ref.lb_paa_interval_ref(*args)
+    assert old[5, 25] != old[5, 129] and lb[5, 25] == lb[5, 129]
+    for nbr in (184, 185):
+        ids, d, leaves = approximate_search_device_batch(
+            pi, qs, 7, nbr=nbr, metric="dtw", band=3, device=CPU)
+        routed = torch.from_numpy(leaves[:, :1]).long()
+        want = torch.sort(lb.scatter(1, routed, -np.inf), stable=True)[1]
+        np.testing.assert_array_equal(leaves, want[:, :nbr].numpy())
+        r_ids, r_d, r_leaves = r_apx(ri, qs, 7, nbr=nbr, metric="dtw", band=3)
+        for i, j in np.argwhere(leaves != r_leaves):
+            a, b = lb[i, leaves[i, j]], lb[i, r_leaves[i, j]]
+            assert abs(float(a - b)) <= 4 * float(torch.finfo().eps) * \
+                float(max(a, b)), (nbr, i, j)
+        same = [set(leaves[i]) == set(r_leaves[i]) for i in range(len(qs))]
+        assert_ties_only(ids[same], d[same], r_ids[same], r_d[same])
+    e = sd.extended_search_device_batch(pi, qs, 7, nbr=1000, metric="dtw",
+                                        band=3, device=CPU)
+    r = r_ext(ri, qs, 7, nbr=1000, metric="dtw", band=3)
+    np.testing.assert_array_equal(e[2], r[2])
+    np.testing.assert_array_equal(e[0], r[0])
+    np.testing.assert_array_equal(e[1], r[1])

@@ -52,6 +52,16 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
         "import repro_torch.core.baselines.dstree\n"
         "import repro_torch.core.baselines.isax2plus\n"
         "import repro_torch.core.baselines.tardis\n"
+        "import repro_torch.analysis.lint, repro_torch.analysis.audit\n"
+        "import repro_torch.analysis.contracts\n"
+        "import repro_torch.analysis.recompile\n"
+        "import repro_torch.analysis.registry, repro_torch.analysis.guards\n"
+        "import repro_torch.configs.base, repro_torch.models.registry\n"
+        "import repro_torch.models.common, repro_torch.models.moe\n"
+        "import repro_torch.models.griffin, repro_torch.models.xlstm\n"
+        "import repro_torch.models.transformer, repro_torch.models.weights\n"
+        "from repro_torch.models.registry import ARCH_NAMES, get_config\n"
+        "[get_config(n) for n in ARCH_NAMES]   # every config module\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r}]\n"
         "assert not bad, bad\n"
@@ -98,6 +108,18 @@ def test_approx_and_extended_default_to_cuda_and_raise_without_it(no_cuda):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             search(pi, qs, 5)
     assert pi._n_device_builds == 0        # nothing ran on the CPU instead
+
+
+def test_model_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
+    from repro_torch.configs.base import reduced
+    from repro_torch.models import registry, transformer as tfm, weights
+    cfg = reduced(registry.get_config("olmo-1b"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tfm.init_params(cfg, torch.Generator())
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tfm.init_cache(cfg, 2, 8)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        weights.model_from_reference(cfg, {})
 
 
 def test_chip_smoke_fails_alone_and_without_cuda(no_cuda, tmp_path):
