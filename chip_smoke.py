@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py                  # the full run: 4 M x 256 series
     python3 chip_smoke.py --n-series 200000   # a shorter rehearsal
-    python3 chip_smoke.py --lm-only        # phases 1 and 14 alone (no
-                                           # kernels, no ok line)
+    python3 chip_smoke.py --lm-only        # phases 1, 14 and 15 alone
+                                           # (no kernel checks, no ok line)
 
 Phases, each printed with its seconds:
 
@@ -178,12 +178,42 @@ Phases, each printed with its seconds:
    agreement >= 7/8, max |d| over the logits' RMS within 2e-2 or twice
    the same positions' bf16-vs-float32 gap of ``forward_train``), the
    bf16 model against float32 compute on B=1, S=256, every value finite,
-   peak memory.
+   peak memory;
+15. the LM entry points (``repro_torch.launch``, ``repro_torch.train``;
+   the kNN-softmax head reaches ``sax_encode`` and ``lb_paa_interval``
+   through the coalescing front-end at every decode step): (a)
+   ``serve.generate`` on olmo-1b's smoke preset (float32, TF32 off), seed-0
+   parameters made on the CPU and moved, B 4, prompt 32, 32 tokens: plain
+   tokens on the card equal the CPU's; with the head (th 64, 64
+   candidates, nbr 8) ``step_batch_via == step_batch`` at each card step
+   and the tokens equal the CPU's (a differing token passes only where the
+   two candidate sets differ by ties at rtol 1e-5, and is printed); (b)
+   OLMo-1B at full width through ``generate`` with ``serve.main``'s
+   defaults, without and with the head: prefill seconds, decode tokens/s
+   and median ms a step beside the step's bound (the float32 weights but
+   the embedding, and the cache, read once), every logit finite, the
+   head's build seconds, kernel launches a decode step (the wrappers'
+   counts) and device ms a step (profiled), its stats and the front-end's;
+   (c) ``launch.train``'s ``100m`` preset of olmo-1b (float32, TF32 off)
+   as its ``main`` trains it, 40 steps of 8 x 512 with checkpoints every
+   20 under ``build/``, under ``torch.use_deterministic_algorithms(True)``:
+   steps/s and tokens/s beside the bound (model FLOPs over the float32 67
+   TFLOP/s), peak memory, the last 4 losses below the first 4 by more
+   than 0.05; the resume (20 steps, a blocking checkpoint, a new
+   ``Trainer`` to 40) bitwise that run (within atol 1e-5 with default
+   algorithms, the op printed, if one refuses determinism); a
+   checkpoint's save and restore (seconds, bytes, bitwise); a profile of
+   one step; (d) OLMo-1B at full width
+   (``remat="full"``), train steps of 4 x 2048: ms a step beside the bound
+   (model FLOPs over the bf16 989 TFLOP/s), peak memory beside the
+   parameters, gradients and moments alone, loss and grad norm finite, a
+   profile of one step by kernel name.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import subprocess
 import sys
 import time
@@ -287,6 +317,13 @@ LM_WHOLE_TOL, LM_BLOCK_TOL = 0.1, 1e-3
 # against forward_train, and the bf16-vs-float32 comparison's shape
 OLMO_B, OLMO_S, OLMO_STEPS, OLMO_CHECKS = 4, 2048, 64, 8
 OLMO_F32_B, OLMO_F32_S = 1, 256
+# phase 15: launch/serve.py's defaults (batch, prompt, tokens) and its
+# kNN-softmax head; launch/train.py's 100m preset at its docstring's batch
+# and length, with a checkpoint half way; one full-width OLMo-1B train step
+SERVE_B, SERVE_P, SERVE_T = 4, 32, 32
+SERVE_HEAD = dict(th=64, r_candidates=64, nbr_nodes=8)
+TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_CKPT = 8, 512, 40, 20
+FULL_B, FULL_S, FULL_STEPS = 4, 2048, 3
 
 
 def fail(msg: str) -> None:
@@ -3255,11 +3292,11 @@ def lm_olmo(torch, np, copy, dataclasses, tfm, registry, seed: int, smi,
     return out
 
 
-def profile_lm(torch, label: str, fn, n: int) -> dict:
+def profile_lm(torch, label: str, fn, n: int, part: str = "b") -> dict:
     """``n`` calls of ``fn`` under ``torch.profiler``: the device's busy
     share of their wall time (a lower bound: the profiler lengthens the
-    wall), kernel launches a call, and the kernels taking most device
-    time."""
+    wall), device ms and kernel launches a call, the port's kernels' device
+    ms a call by name, and the kernels taking most device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -3275,14 +3312,20 @@ def profile_lm(torch, label: str, fn, n: int) -> dict:
     launches = sum(e.count for e in dev) / n
     top = sorted(dev, key=lambda e: e.self_device_time_total,
                  reverse=True)[:6]
-    print(f"  (b) profile of {label}: wall {wall / n * 1e3:.3f} ms a call, "
-          f"device busy {100 * busy / wall:.1f}% (not measured if 0), "
-          f"{launches:.0f} device ops a call")
+    kernels = {name: sum(e.self_device_time_total for e in dev
+                         if f"{name}_" in e.key and "_kernel" in e.key)
+               / 1e3 / n for name in KERNELS}
+    kernels = {k: v for k, v in kernels.items() if v}
+    print(f"  ({part}) profile of {label}: wall {wall / n * 1e3:.3f} ms a "
+          f"call, device busy {100 * busy / wall:.1f}% (not measured if 0), "
+          f"{busy * 1e3 / n:.3f} device ms and {launches:.0f} device ops a "
+          f"call; the port's kernels {kernels} ms a call")
     for e in top:
         print(f"      {e.key[:70]:70s} {e.count / n:6.1f} a call, "
               f"{e.self_device_time_total / 1e3 / n:9.3f} ms")
     return {"wall_ms": wall / n * 1e3, "busy_share": busy / wall,
-            "device_ops": launches,
+            "device_ms": busy * 1e3 / n, "device_ops": launches,
+            "kernels": kernels,
             "top": [[e.key[:70], e.self_device_time_total / 1e3 / n]
                     for e in top]}
 
@@ -3298,15 +3341,453 @@ def lm_phase(torch, np, seed: int, smi, device: str = "cuda") -> dict:
                                seed, smi, device)}
 
 
+def lm_serve_small(torch, np, copy, serve, tfm, sd, head_cls, preset_config,
+                   smi, device: str) -> dict:
+    """Phase 15 (a): ``serve.generate`` on the smoke preset (float32, TF32
+    off) with the same seed-0 parameters on the CPU and the card: plain
+    tokens equal; with the head, ``step_batch_via == step_batch`` at each
+    card step and tokens equal to the CPU's, unless the first differing
+    step's candidate sets differ only by ties at rtol 1e-5 (then compared
+    up to that step)."""
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("TF32 is on for float32 matmuls: phase 15 (a) needs it off")
+    cfg = preset_config("olmo-1b", "smoke")
+    cpu_model = tfm.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    models = {"cpu": cpu_model, "card": copy.deepcopy(cpu_model).to(device)}
+    prompt = np.random.default_rng(0).integers(0, cfg.vocab,
+                                               (SERVE_B, SERVE_P))
+    plain = {d: serve.generate(cfg, m, prompt, SERVE_T)
+             for d, m in models.items()}
+    if not np.array_equal(plain["card"], plain["cpu"]):
+        fail(f"plain decode: the card's tokens differ from the CPU's in "
+             f"{int((plain['card'] != plain['cpu']).sum())} places")
+    lm_head = cpu_model.lm_head.detach().numpy()
+    heads, seen, toks = {}, {}, {}
+    for d, m in models.items():
+        head = heads[d] = head_cls(lm_head, device=m.embed.device,
+                                   **SERVE_HEAD)
+        seen[d] = []
+        via = head.step_batch_via
+
+        def record(fe, H, via=via, log=seen[d], **kw):
+            out = via(fe, H, **kw)
+            log.append((H.copy(), out))
+            return out
+        head.step_batch_via = record
+        with head.make_frontend(max_batch=max(SERVE_B, 4),
+                                max_wait=SERVE_MAX_WAIT) as fe:
+            toks[d] = serve.generate(cfg, m, prompt, SERVE_T,
+                                     knn_head=head, frontend=fe)
+    card = heads["card"]
+    for i, (H, t) in enumerate(seen["card"]):
+        if not np.array_equal(card.step_batch(H, track_exact=False), t):
+            fail(f"head decode step {i}: step_batch_via differs from "
+                 f"step_batch on the card")
+    same = toks["card"] == toks["cpu"]
+    upto = SERVE_T
+    if not same.all():
+        upto = int(np.nonzero(~same.all(axis=0))[0][0])
+        if upto == 0:
+            fail("the head path's first token (the prefill's) differs")
+        H = {d: seen[d][upto - 1][0] for d in heads}
+        ans = {d: sd.extended_search_device_batch(
+            heads[d].index, heads[d]._encode_queries(H[d]), heads[d].r,
+            nbr=heads[d].nbr, rerank=False, dev=heads[d].device_index,
+            metric=heads[d].metric)[:2] for d in heads}
+        ok, gap = ties_only(np, *ans["card"], *ans["cpu"])
+        rows = np.nonzero(~same[:, upto])[0]
+        lg = [(H["cpu"][r] @ lm_head[:, toks[d][r, upto]]) for r in rows
+              for d in heads]
+        tie = np.allclose(lg[0::2], lg[1::2], rtol=1e-5, atol=0)
+        if not (ok and tie):
+            fail(f"head decode: the card's tokens differ from the CPU's at "
+                 f"step {upto} beyond ties at rtol 1e-5 (candidates "
+                 f"{'tied' if ok else 'differ'}, max rel {gap:.3e})")
+        print(f"  (a) a tie at step {upto}, rows {rows.tolist()}: tokens "
+              f"{toks['card'][rows, upto].tolist()} (card) and "
+              f"{toks['cpu'][rows, upto].tolist()} (CPU), logits {lg}; "
+              f"compared up to it")
+    print(f"  (a) smoke preset, B {SERVE_B}, prompt {SERVE_P}, {SERVE_T} "
+          f"tokens: plain tokens on the card equal the CPU's; with the head "
+          f"step_batch_via == step_batch at all {len(seen['card'])} card "
+          f"steps and the tokens equal the CPU's over {upto} of {SERVE_T} "
+          f"positions [{smi}]")
+    return {"plain_equal": True, "head_equal_upto": upto,
+            "head_steps_checked": len(seen["card"])}
+
+
+def lm_serve_full(torch, np, serve, tfm, head_cls, preset_config, mods, smi,
+                  device: str) -> dict:
+    """Phase 15 (b): OLMo-1B at full width through ``serve.generate`` with
+    ``main``'s defaults, without and then with the head: prefill seconds,
+    decode tokens/s and ms a step beside the step's bound, the head's build
+    seconds, kernel launches a step (the wrappers' counts, as phase 13's
+    census checks them) and device ms a step (profiled), its stats."""
+    cfg = preset_config("olmo-1b", "full")
+    cuda = device == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    if cuda:
+        torch.cuda.empty_cache()
+    model = tfm.init_params(cfg, torch.Generator(device).manual_seed(0),
+                            device)
+    n_params = sum(p.numel() for p in model.parameters())
+    prompt = np.random.default_rng(0).integers(
+        0, cfg.vocab, (SERVE_B, SERVE_P)).astype(np.int32)
+    finite = [torch.ones((), dtype=torch.bool, device=device)]
+    plain_prefill, plain_decode = tfm.forward_prefill, tfm.forward_decode
+
+    def check(fn):
+        def run(*a, **kw):
+            out = fn(*a, **kw)
+            finite[0] &= torch.isfinite(out[0]).all()
+            return out
+        return run
+
+    _, _, bytes_step = olmo_bytes_flops(cfg, SERVE_B, SERVE_P,
+                                        SERVE_P + SERVE_T // 2)
+    bound_ms = bytes_step / HBM_BYTES_PER_S * 1e3
+    out = {"params": n_params, "step_bound_ms": bound_ms,
+           "step_bytes": bytes_step, "card": smi}
+    t_build = head = fe = None
+    for label in ("plain", "head"):
+        if label == "head":
+            # lint: allow-timing: sync() is torch.cuda.synchronize on the card
+            t1 = time.perf_counter()
+            head = head_cls(model.lm_head.detach().float().cpu().numpy(),
+                            device=device, **SERVE_HEAD)
+            sync()
+            t_build = time.perf_counter() - t1
+            fe = head.make_frontend(max_batch=max(SERVE_B, 4),
+                                    max_wait=SERVE_MAX_WAIT)
+        kw = dict(knn_head=head, frontend=fe)
+        tfm.forward_prefill = check(plain_prefill)    # warm-up, every logit
+        tfm.forward_decode = check(plain_decode)      # checked finite
+        seen = []
+        if head is not None:
+            via = head.step_batch_via
+            head.step_batch_via = lambda f, H, **k: (seen.append(H.copy()),
+                                                     via(f, H, **k))[1]
+        try:
+            serve.generate(cfg, model, prompt, SERVE_T, **kw)
+        finally:
+            tfm.forward_prefill, tfm.forward_decode = plain_prefill, plain_decode
+            if head is not None:
+                head.step_batch_via = via
+        if not bool(finite[0]):
+            fail(f"olmo-1b serving ({label}): a logit not finite")
+        for m in mods.values():
+            m.launches = 0
+        tm = {}
+        serve.generate(cfg, model, prompt, SERVE_T, timings=tm, **kw)
+        launches = {name: m.launches for name, m in mods.items()}
+        steps = SERVE_T - 1
+        step_ms = float(np.median(tm["step_s"])) * 1e3
+        row = {"prefill_s": tm["prefill_s"], "decode_s": tm["decode_s"],
+               "tok_s": SERVE_B * steps / tm["decode_s"],
+               "step_ms_median": step_ms,
+               "launches": launches,
+               "launches_per_step": {k: v / steps
+                                     for k, v in launches.items()}}
+        print(f"  (b) olmo-1b {label}: prefill {SERVE_P} x {SERVE_B} "
+              f"{tm['prefill_s']:.4f} s; decode {steps} steps "
+              f"{row['tok_s']:.2f} tokens/s, median {step_ms:.3f} ms a step "
+              f"(bound {bound_ms:.3f} ms: {bytes_step / 1e9:.3f} GB at "
+              f"{HBM_BYTES_PER_S / 1e12} TB/s); kernel launches {launches} "
+              f"[{smi}]")
+        if label == "head":
+            for name in ("sax_encode", "lb_paa_interval"):
+                if cuda and launches[name] <= 0:
+                    fail(f"kernel {name} was not launched on the LM serving "
+                         f"path with the head")
+            prof = (profile_lm(
+                torch, "the head alone, one decode step's hidden rows",
+                lambda: head.step_batch_via(fe, seen[len(seen) // 2]),
+                4, part="b") if cuda else {"device_ms": 0.0, "kernels": {}})
+            s = head.stats
+            fe.close()
+            row.update(build_s=t_build, profile=prof,
+                       exact_in_topr=s.exact_in_topr / s.tokens,
+                       agree_argmax=s.agree_argmax / s.tokens,
+                       frontend=fe.stats.snapshot())
+            print(f"  (b) head over lm_head [{cfg.d_model}, {cfg.vocab}] "
+                  f"({SERVE_HEAD}): build and upload {t_build:.3f} s; "
+                  f"{sum(row['launches_per_step'].values()):.2f} kernel "
+                  f"launches a step; device {prof['device_ms']:.3f} ms a "
+                  f"step, of which kernels {prof['kernels']} ms [{smi}]")
+            print(f"  (b) knn-softmax stats: recall@R="
+                  f"{row['exact_in_topr']:.4f} argmax-agree="
+                  f"{row['agree_argmax']:.4f} over {s.tokens} tokens")
+            print(f"  (b) frontend stats: {row['frontend']}")
+        out[label] = row
+    del model, head
+    if cuda:
+        torch.cuda.empty_cache()
+    return out
+
+
+def train_flops(cfg, B: int, S: int) -> float:
+    """A train step's model FLOPs: three times the forward's weight
+    products (2 a multiply-add, the head over every position) and causal
+    attention (QK and PV over S²/2 pairs), as ``olmo_bytes_flops``."""
+    _, fwd, _ = olmo_bytes_flops(cfg, B, S, S)
+    return 3 * fwd
+
+
+def lm_train_100m(torch, np, shutil, tfm, preset_config, pipeline, opt,
+                  ckpt_mod, trainer, make_train_step, param_tree, smi,
+                  device: str) -> dict:
+    """Phase 15 (c): the ``100m`` preset of the olmo-1b family (float32,
+    TF32 off) trained as ``launch.train.main`` trains it, 40 steps of
+    8 x 512 with checkpoints every 20 under ``build/``, under
+    ``torch.use_deterministic_algorithms(True)``; a profile of one step;
+    a checkpoint's save and restore; then the resume: 20 steps, a blocking
+    checkpoint, a new ``Trainer`` resuming to 40, against the 40-step run
+    (bitwise; within atol 1e-5, with default algorithms, if an op refuses
+    determinism, which is printed)."""
+    from repro_torch.models.common import leaves
+    cfg = preset_config("olmo-1b", "100m")
+    ocfg = opt.AdamWConfig(lr=3e-4, total_steps=TRAIN_STEPS,
+                           warmup_steps=max(TRAIN_STEPS // 20, 5),
+                           moment_dtype=cfg.moment_dtype)
+    pipe = pipeline.TokenPipeline(pipeline.TokenPipelineConfig(
+        vocab=cfg.vocab, seq_len=TRAIN_S, global_batch=TRAIN_B))
+    root = ROOT / "build" / "phase15"
+    cuda = device == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+
+    def run(total, sub, every, blocking=False):
+        model = tfm.init_params(cfg, torch.Generator(device).manual_seed(0),
+                                device)
+        t = trainer.Trainer(trainer.TrainerConfig(
+            total_steps=total, ckpt_every=every, ckpt_dir=str(root / sub),
+            async_ckpt=not blocking), make_train_step(cfg, ocfg),
+            pipe.batch_at)
+        return t.run(model, opt.init(param_tree(model), ocfg))
+
+    def runs():
+        """The timed 40-step run and the resumed one; the peak memory of
+        the first over what was allocated before it."""
+        shutil.rmtree(root, ignore_errors=True)
+        peak = None
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            peak = -torch.cuda.memory_allocated()
+        full = run(TRAIN_STEPS, "t", TRAIN_CKPT)
+        if cuda:
+            peak += torch.cuda.max_memory_allocated()
+        run(TRAIN_CKPT, "r", TRAIN_CKPT, blocking=True)
+        res = run(TRAIN_STEPS, "r", 10 * TRAIN_STEPS)
+        if res[2].resumed_from != TRAIN_CKPT:
+            fail(f"100m resume: resumed from {res[2].resumed_from}")
+        return full, res, peak
+
+    refused = None
+    torch.use_deterministic_algorithms(True)
+    try:
+        try:
+            full, res, peak = runs()
+        except RuntimeError as e:
+            if "deterministic" not in str(e):
+                raise
+            refused = str(e).splitlines()[0]
+            print(f"  (c) an op refuses determinism: {refused}")
+    finally:
+        torch.use_deterministic_algorithms(False)
+    if refused is not None:
+        full, res, peak = runs()
+    model, state, rep = full
+    n_params = sum(p.numel() for p in model.parameters())
+    if rep.steps_run != TRAIN_STEPS or len(rep.losses) != TRAIN_STEPS:
+        fail(f"100m: {rep.steps_run} steps, {len(rep.losses)} finite losses")
+    first, last = np.mean(rep.losses[:4]), np.mean(rep.losses[-4:])
+    if not last < first - 0.05:
+        fail(f"100m: the loss did not fall: first 4 {first:.4f}, last 4 "
+             f"{last:.4f}")
+    step_s = float(np.median(rep.step_times[1:]))
+    flops = train_flops(cfg, TRAIN_B, TRAIN_S)
+    bound_ms = flops / F32_OPS_PER_S * 1e3
+    out = {"params": n_params, "step_ms_median": step_s * 1e3,
+           "steps_per_s": 1 / step_s, "tokens_per_s": TRAIN_B * TRAIN_S / step_s,
+           "step_bound_ms": bound_ms, "flops": flops, "peak_bytes": peak,
+           "loss_first4": first, "loss_last4": last,
+           "deterministic": refused is None,
+           "stragglers": len(rep.straggler_events),
+           "checkpoints": sorted(p.name for p in (root / "t").iterdir())}
+    print(f"  (c) 100m ({n_params} parameters, float32), {TRAIN_STEPS} steps "
+          f"of {TRAIN_B} x {TRAIN_S} ({'deterministic' if refused is None else 'default'}"
+          f" algorithms): median {step_s * 1e3:.3f} ms a step, "
+          f"{out['steps_per_s']:.3f} steps/s, {out['tokens_per_s']:.1f} "
+          f"tokens/s (bound {bound_ms:.3f} ms: {flops / 1e12:.3f} TFLOP at "
+          f"the float32 {F32_OPS_PER_S / 1e12:.0f} TFLOP/s); loss {first:.4f}"
+          f" -> {last:.4f} (first and last 4); peak {peak} B over what was "
+          f"allocated before; checkpoints "
+          f"{out['checkpoints']} [{smi}]")
+    worst = max(float((a.detach().float() - b.detach().float()).abs().max())
+                for a, b in zip(leaves([param_tree(model), state]),
+                                leaves([param_tree(res[0]), res[1]])))
+    if refused is None and worst != 0.0:
+        fail(f"100m resume: parameters and state differ from the "
+             f"uninterrupted run's by {worst:.3g} under deterministic "
+             f"algorithms")
+    if refused is not None and worst > 1e-5:
+        fail(f"100m resume: {worst:.3g} from the uninterrupted run, beyond "
+             f"atol 1e-5")
+    out.update(resume_max_abs=worst, resume_refused_op=refused)
+    print(f"  (c) resume: 20 steps, a blocking checkpoint, a new Trainer to "
+          f"{TRAIN_STEPS}: parameters and AdamW state "
+          f"{'bitwise' if worst == 0 else f'within {worst:.3g} of'} the "
+          f"uninterrupted run's")
+    del res
+
+    tree = (param_tree(model), state)
+    mgr = ckpt_mod.CheckpointManager(str(root / "io"))
+    # lint: allow-timing: the save copies every leaf to the host, and
+    # sync() is torch.cuda.synchronize on the card
+    t1 = time.perf_counter()
+    mgr.save(TRAIN_STEPS, tree, blocking=True)
+    out["save_s"] = time.perf_counter() - t1
+    out["ckpt_bytes"] = store_bytes(root / "io")
+    t1 = time.perf_counter()
+    back, _ = mgr.restore(TRAIN_STEPS, tree)
+    sync()
+    out["restore_s"] = time.perf_counter() - t1
+    if not all(torch.equal(a, b) for a, b in zip(leaves(list(tree)),
+                                                  leaves(list(back)))):
+        fail("100m: a restored checkpoint differs from what was saved")
+    print(f"  (c) checkpoint of step {TRAIN_STEPS}: {out['ckpt_bytes']} B, "
+          f"blocking save {out['save_s']:.3f} s, restore to the card "
+          f"{out['restore_s']:.3f} s, bitwise")
+    del tree, back
+    if cuda:
+        step = make_train_step(cfg, ocfg)
+        out["profile"] = profile_lm(
+            torch, f"a 100m train step {TRAIN_B} x {TRAIN_S}",
+            lambda: step(model, state, pipe.batch_at(TRAIN_STEPS)), 1,
+            part="c")
+    shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def lm_train_full(torch, np, tfm, preset_config, pipeline, opt,
+                  make_train_step, param_tree, smi, device: str) -> dict:
+    """Phase 15 (d): OLMo-1B at full width (``remat="full"``, float32
+    parameters, bf16 compute), train steps of 4 x 2048: ms a step beside
+    its bound, peak memory beside the parameters, gradients and two moments
+    alone, loss and grad norm finite, a profile of one step."""
+    cfg = preset_config("olmo-1b", "full")
+    cuda = device == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    base = peak = None
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+    model = tfm.init_params(cfg, torch.Generator(device).manual_seed(0),
+                            device)
+    n_params = sum(p.numel() for p in model.parameters())
+    ocfg = opt.AdamWConfig(total_steps=100, warmup_steps=5,
+                           moment_dtype=cfg.moment_dtype)
+    state = opt.init(param_tree(model), ocfg)
+    pipe = pipeline.TokenPipeline(pipeline.TokenPipelineConfig(
+        vocab=cfg.vocab, seq_len=FULL_S, global_batch=FULL_B))
+    step = make_train_step(cfg, ocfg)
+    ms, losses, norms = [], [], []
+    for i in range(FULL_STEPS):
+        batch = pipe.batch_at(i)
+        # lint: allow-timing: sync() is torch.cuda.synchronize on the card
+        sync()
+        t1 = time.perf_counter()
+        model, state, m = step(model, state, batch)
+        sync()
+        ms.append((time.perf_counter() - t1) * 1e3)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    if cuda:
+        peak = torch.cuda.max_memory_allocated()
+    if not (np.isfinite(losses).all() and np.isfinite(norms).all()):
+        fail(f"olmo-1b train step: loss {losses} or grad norm {norms} not "
+             f"finite")
+    flops = train_flops(cfg, FULL_B, FULL_S)
+    attn = 3 * 2 * cfg.n_layers * FULL_B * FULL_S ** 2 * cfg.d_model
+    floor_bytes = 4 * n_params * 4
+    out = {"params": n_params, "step_ms": ms, "step_bound_ms":
+           flops / BF16_OPS_PER_S * 1e3, "flops": flops,
+           "attention_flops": attn, "peak_bytes": peak,
+           "allocated_before": base, "state_floor_bytes": floor_bytes,
+           "losses": losses, "grad_norms": norms}
+    print(f"  (d) olmo-1b full width ({n_params} parameters), train steps of "
+          f"{FULL_B} x {FULL_S}: {[round(x, 3) for x in ms]} ms (bound "
+          f"{out['step_bound_ms']:.3f} ms: {flops / 1e12:.2f} TFLOP, "
+          f"{attn / flops:.3f} of it attention, at the bf16 "
+          f"{BF16_OPS_PER_S / 1e12:.0f} TFLOP/s); loss {losses}, grad norm "
+          f"{norms}; peak {peak} B (parameters, gradients and two moments "
+          f"alone {floor_bytes} B; {base} B allocated before) [{smi}]")
+    if cuda:
+        out["profile"] = profile_lm(
+            torch, f"a train step {FULL_B} x {FULL_S}",
+            lambda: step(model, state, pipe.batch_at(FULL_STEPS)), 1,
+            part="d")
+    del model, state
+    if cuda:
+        torch.cuda.empty_cache()
+    return out
+
+
+def lm_entry_phase(torch, np, mods, smi, device: str = "cuda") -> dict:
+    """Phase 15: the LM entry points (``repro_torch.launch``,
+    ``repro_torch.train``), parts (a)–(d), each printed with its seconds."""
+    import copy
+    import shutil
+    from repro_torch.core import search_device
+    from repro_torch.data import tokens as pipeline
+    from repro_torch.kernels import _build
+    from repro_torch.launch import serve
+    from repro_torch.launch.train import preset_config
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.weights import param_tree
+    from repro_torch.serving.knn_softmax import KnnSoftmaxHead
+    from repro_torch.train import checkpoint, optimizer, trainer
+    from repro_torch.train.train_step import make_train_step
+    if device == "cuda":
+        # lint: allow-timing: the build is host work (nvcc)
+        t1 = time.perf_counter()
+        _build.lib()             # built in phase 2, or here with --lm-only
+        print(f"  kernel library ready ({time.perf_counter() - t1:.3f} s)")
+    out = {}
+    for part, fn in (
+            ("a", lambda: lm_serve_small(torch, np, copy, serve, tfm,
+                                         search_device, KnnSoftmaxHead,
+                                         preset_config, smi, device)),
+            ("b", lambda: lm_serve_full(torch, np, serve, tfm,
+                                        KnnSoftmaxHead, preset_config, mods,
+                                        smi, device)),
+            ("c", lambda: lm_train_100m(torch, np, shutil, tfm, preset_config,
+                                        pipeline, optimizer, checkpoint,
+                                        trainer, make_train_step, param_tree,
+                                        smi, device)),
+            ("d", lambda: lm_train_full(torch, np, tfm, preset_config,
+                                        pipeline, optimizer, make_train_step,
+                                        param_tree, smi, device))):
+        # lint: allow-timing: each part ends on host results (synced)
+        t1 = time.perf_counter()
+        out[part] = fn()
+        print(f"  [15{part}] {time.perf_counter() - t1:.3f} s")
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n-series", type=int, default=4_000_000,
                     help="collection size (default: the paper-scale 4 M)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--lm-only", action="store_true",
-                    help="run phases 1 and 14 alone (prints no ok line)")
+                    help="run phases 1, 14 and 15 alone (prints no ok line)")
     args = ap.parse_args()
 
+    # phase 15 (c) compares two training runs under deterministic
+    # algorithms, which cuBLAS allows only with this set before it starts
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
     if not torch.cuda.is_available():
         fail("no CUDA device: this smoke run needs one NVIDIA GPU")
@@ -3345,10 +3826,16 @@ def main() -> None:
           f"{sys.version.split()[0]}, device {torch.cuda.get_device_name(0)}"
           f", {torch.cuda.device_count()} visible")
     phase("environment", t0)
+    mods = {"sax_encode": sax_encode, "pairwise_l2": pairwise_l2,
+            "lb_paa_interval": lb_isax, "lb_keogh": lb_keogh,
+            "lb_improved": lb_improved, "dtw_band": dtw_band}
     if args.lm_only:
         t0 = time.perf_counter()
         print(json.dumps({"lm": lm_phase(torch, np, args.seed, smi)}))
         phase("LM substrate", t0)
+        t0 = time.perf_counter()
+        print(json.dumps({"lm_entry": lm_entry_phase(torch, np, mods, smi)}))
+        phase("LM entry points", t0)
         return
 
     # ---- 2. build the kernels --------------------------------------------
@@ -3417,9 +3904,6 @@ def main() -> None:
     t0 = time.perf_counter()
     batches = [qs[i:i + BATCH] for i in range(0, N_QUERIES, BATCH)]
     exact_search_device_batch(index, batches[0], K, chunk=CHUNK)  # warm-up
-    mods = {"sax_encode": sax_encode, "pairwise_l2": pairwise_l2,
-            "lb_paa_interval": lb_isax, "lb_keogh": lb_keogh,
-            "lb_improved": lb_improved, "dtw_band": dtw_band}
     ed_kernels = ("sax_encode", "pairwise_l2", "lb_paa_interval")
     for m in mods.values():
         m.launches = 0
@@ -3605,6 +4089,12 @@ def main() -> None:
     torch.cuda.empty_cache()
     print(json.dumps({"lm": lm_phase(torch, np, args.seed, smi)}))
     phase("LM substrate", t0)
+
+    # ---- 15. the LM entry points -------------------------------------------------
+    t0 = time.perf_counter()
+    lm_entry = lm_entry_phase(torch, np, mods, smi)
+    print(json.dumps({"lm_entry": lm_entry}))
+    phase("LM entry points", t0)
     print(f"[phase] whole run: {time.perf_counter() - t_run:.3f} s")
 
     for r in rows:
@@ -3612,9 +4102,12 @@ def main() -> None:
                          else dtw_launches)[r["name"]]
         r["floor_ms"] = floor
         r["new_shapes"] = new_shapes.get(r["name"], [])
+        # phase 15 (b): launches a decode step of OLMo-1B with the head
+        r["lm_decode_launches_per_step"] = \
+            lm_entry["b"]["head"]["launches_per_step"][r["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "floor_ms", "new_shapes")
+            "floor_ms", "new_shapes", "lm_decode_launches_per_step")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

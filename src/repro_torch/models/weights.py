@@ -5,8 +5,9 @@ the port against the reference on the reference's own parameters: its
 tree, given as numpy arrays, becomes the port's model here.  The stacked
 ``[n_units, ...]`` leaves are sliced into the units of the model's
 ``ModuleList`` (and the encoder's ``[encoder_layers, ...]`` leaves into its
-layers).  Caches go both ways, so a prefill cache of one package feeds the
-other's decode and caches compare leaf by leaf.
+layers).  Caches and the AdamW state go both ways, so a prefill cache of
+one package feeds the other's decode, one optimizer's state the other's
+step, and caches and states compare leaf by leaf.
 """
 from __future__ import annotations
 
@@ -69,29 +70,68 @@ def model_from_reference(cfg: ArchConfig, tree: dict,
     return Transformer(cfg, params_from_reference(cfg, tree, device))
 
 
-def params_to_reference(model: Transformer, grads: bool = False) -> dict:
-    """The model's parameters (or, with ``grads``, their gradients) as the
-    reference's stacked tree of numpy arrays."""
+def param_tree(model: Transformer, grads: bool = False) -> dict:
+    """The model's parameters in the port's layout, the one
+    :class:`Transformer` is built from: ``{"embed", "lm_head",
+    "final_norm"?, "units": [unit tree, ...], "rem"?, "encoder":
+    {"layers": [...], "final_norm"}?}``.  The leaves are the parameters
+    themselves (the optimizer writes them in place); with ``grads``, their
+    gradients, zeros where a parameter has none."""
     def tree(mod) -> dict:
         out = {}
         for name, p in mod.named_parameters(recurse=False):
-            out[name] = p.grad if grads else p
+            if grads:
+                p = p.grad if p.grad is not None else torch.zeros_like(p)
+            out[name] = p
         for name, child in mod.named_children():
             out[name] = tree(child)
         return out
     t = tree(model)
-    units = t.pop("units")
-    out = map_tree(_np, {k: v for k, v in t.items()
-                         if k not in ("rem", "encoder")})
-    out["stack"] = _stack([units[str(i)] for i in range(len(units))])
-    if t.get("rem"):
-        out["rem"] = map_tree(_np, t["rem"])
+    t["units"] = [t["units"][str(i)] for i in range(len(model.units))]
+    if not t.get("rem"):
+        t.pop("rem", None)
     if "encoder" in t:
         layers = t["encoder"]["layers"]
-        out["encoder"] = {
-            "stack": _stack([layers[str(i)] for i in range(len(layers))]),
-            "final_norm": _np(t["encoder"]["final_norm"])}
+        t["encoder"]["layers"] = [layers[str(i)] for i in range(len(layers))]
+    return t
+
+
+def tree_to_reference(tree: dict) -> dict:
+    """A tree in the port's parameter layout (parameters, gradients or an
+    AdamW moment) as the reference's stacked tree of numpy arrays."""
+    out = map_tree(_np, {k: v for k, v in tree.items()
+                         if k not in ("units", "encoder")})
+    out["stack"] = _stack(tree["units"])
+    if "encoder" in tree:
+        out["encoder"] = {"stack": _stack(tree["encoder"]["layers"]),
+                          "final_norm": _np(tree["encoder"]["final_norm"])}
     return out
+
+
+def params_to_reference(model: Transformer, grads: bool = False) -> dict:
+    """The model's parameters (or, with ``grads``, their gradients) as the
+    reference's stacked tree of numpy arrays."""
+    return tree_to_reference(param_tree(model, grads))
+
+
+def opt_state_from_reference(cfg: ArchConfig, state: dict,
+                             device: str | torch.device = "cuda") -> dict:
+    """The reference's AdamW state (``m``, ``v`` in its parameter layout,
+    ``step``; numpy leaves) as the port's ``train.optimizer`` state on
+    ``device``."""
+    device = resolve_device(device)
+    return {"m": params_from_reference(cfg, state["m"], device),
+            "v": params_from_reference(cfg, state["v"], device),
+            "step": torch.tensor(int(np.asarray(state["step"])),
+                                 dtype=torch.int32, device=device)}
+
+
+def opt_state_to_reference(state: dict) -> dict:
+    """The port's AdamW state as the reference's tree of numpy arrays
+    (bfloat16 moments as float32, which holds them exactly)."""
+    return {"m": tree_to_reference(state["m"]),
+            "v": tree_to_reference(state["v"]),
+            "step": np.asarray(int(state["step"]), np.int32)}
 
 
 def cache_from_reference(cfg: ArchConfig, tree: dict,

@@ -60,6 +60,12 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
         "import repro_torch.models.common, repro_torch.models.moe\n"
         "import repro_torch.models.griffin, repro_torch.models.xlstm\n"
         "import repro_torch.models.transformer, repro_torch.models.weights\n"
+        "import repro_torch.data.tokens\n"
+        "import repro_torch.train.optimizer, repro_torch.train.grad_compress\n"
+        "import repro_torch.train.train_step, repro_torch.train.checkpoint\n"
+        "import repro_torch.train.trainer\n"
+        "import repro_torch.launch.mesh, repro_torch.launch.train\n"
+        "import repro_torch.launch.serve, repro_torch.launch.summarize\n"
         "from repro_torch.models.registry import ARCH_NAMES, get_config\n"
         "[get_config(n) for n in ARCH_NAMES]   # every config module\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
