@@ -5,6 +5,8 @@
     python3 chip_smoke.py --n-series 200000   # a shorter rehearsal
     python3 chip_smoke.py --lm-only        # phases 1, 14 and 15 alone
                                            # (no kernel checks, no ok line)
+    python3 chip_smoke.py --dryrun-only    # phases 1 and 16 alone (no
+                                           # kernel rows, no ok line)
 
 Phases, each printed with its seconds:
 
@@ -207,7 +209,23 @@ Phases, each printed with its seconds:
    (``remat="full"``), train steps of 4 x 2048: ms a step beside the bound
    (model FLOPs over the bf16 989 TFLOP/s), peak memory beside the
    parameters, gradients and moments alone, loss and grad norm finite, a
-   profile of one step by kernel name.
+   profile of one step by kernel name;
+16. the dry run (``repro_torch.launch.dryrun``: fake tensors, DTensor
+   placement, per-device op cost, the H100 roofline; it reaches the six
+   kernels through their ``abstract`` functions): (a) in a child process,
+   OLMo-1B's train_4k and decode_32k and the Dumpy cells build, search,
+   search_approx, search_extended, search_bucket and serving on the
+   16 x 16 production mesh (a fake process group of 256 ranks): no record
+   has an error; each one's bottleneck, step bound and GiB a device; (b)
+   on a 1 x 1 mesh against the card: the ``100m`` train step at 8 x 512
+   and OLMo-1B's decode step at B 4 over a 64-position cache, the dry
+   run's FLOPs equal to ``FlopCounterMode`` over the real step, its peak
+   beside ``max_memory_allocated`` over the step, the measured step no
+   faster than the dry run's bound; the ``search`` cell at
+   ``[64, N, 256]``, its ``pairwise_l2`` term within 1% of phase 12 (c)'s
+   bound and no more than its time; (c) each kernel's ``abstract`` work at
+   its main shape (``dtw_band``: the wide path, every lane on) within 1% of
+   this run's bound there, the time measured there no less.
 """
 from __future__ import annotations
 
@@ -324,6 +342,14 @@ SERVE_B, SERVE_P, SERVE_T = 4, 32, 32
 SERVE_HEAD = dict(th=64, r_candidates=64, nbr_nodes=8)
 TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_CKPT = 8, 512, 40, 20
 FULL_B, FULL_S, FULL_STEPS = 4, 2048, 3
+# phase 16: the dry run's production cells (16 x 16), their time limit,
+# the steps timed against the 1 x 1 bounds, and PERF.md's hand bound of
+# OLMo-1B's decode step (the float32 weights read once)
+DRYRUN_SHAPES = ("train_4k", "decode_32k")
+DRYRUN_KINDS = ("build", "search", "search_approx", "search_extended",
+                "search_bucket", "serving")
+DRYRUN_TIMEOUT_S, DRYRUN_STEPS = 300, 3
+OLMO_DECODE_HAND_BOUND_MS = 1.413
 
 
 def fail(msg: str) -> None:
@@ -675,7 +701,7 @@ def check_kernels(torch, ops, ref, breakpoints, query_prep, dtw_metric,
     plain, _ = time_ms(torch, ref.sax_encode_ref, xs)
     b_ms, b_by = bound(4 * (B * n + 2 * B * 16 + 255),
                        B * n + B * 16 + B * 16 * 8)
-    rows.append(dict(name="sax_encode", route="cuda",
+    rows.append(dict(name="sax_encode", route="cuda", shape=(B, n),
                      source="src/repro_torch/kernels/csrc/sax_encode.cu",
                      replaces="src/repro/kernels/sax_encode.py:68",
                      max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
@@ -726,7 +752,7 @@ def check_kernels(torch, ops, ref, breakpoints, query_prep, dtw_metric,
     Q, X = B, CHUNK
     b_ms, b_by = bound(4 * (Q * n + X * n + Q * X),
                        2 * Q * X * n + 2 * (Q + X) * n + 4 * Q * X)
-    rows.append(dict(name="pairwise_l2", route="cuda",
+    rows.append(dict(name="pairwise_l2", route="cuda", shape=(Q, X, n),
                      source="src/repro_torch/kernels/csrc/pairwise_l2.cu",
                      replaces="src/repro/kernels/pairwise_l2.py:61",
                      max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
@@ -768,7 +794,7 @@ def check_kernels(torch, ops, ref, breakpoints, query_prep, dtw_metric,
         plain, _ = time_ms(torch, ref.lb_paa_interval_ref, args)
         if label == "ED":
             rows.append(dict(
-                name="lb_paa_interval", route="cuda",
+                name="lb_paa_interval", route="cuda", shape=(B, L, 16),
                 source="src/repro_torch/kernels/csrc/lb_paa_interval.cu",
                 replaces="src/repro/kernels/lb_isax.py:61", max_abs_err=err,
                 ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
@@ -959,7 +985,7 @@ def check_dtw_kernels(torch, ops, ref, envelope, gather, qs_main, dev,
         n_env = 2 if name == "lb_keogh" else 3
         b_ms, b_by = bound(4 * (m * n + n_env * Q * n + Q * m),
                            per_el * Q * m * n)
-        rows.append(dict(name=name, route="cuda",
+        rows.append(dict(name=name, route="cuda", shape=(Q, m, n),
                          source=f"src/repro_torch/kernels/csrc/{src}",
                          replaces=f"src/repro/kernels/{line}",
                          max_abs_err=errs[name], ms=ms, plain_ms=plain_ms,
@@ -1043,7 +1069,9 @@ def check_dtw_kernels(torch, ops, ref, envelope, gather, qs_main, dev,
     rows.append(dict(name="dtw_band", route="cuda",
                      source="src/repro_torch/kernels/csrc/dtw_band.cu",
                      replaces="src/repro/kernels/dtw_band.py:94",
-                     max_abs_err=0.0))
+                     max_abs_err=0.0,
+                     wide=dict(shape=DTW_WIDE, ms=ms, bound_ms=b_ms,
+                               bound_by=b_by)))
     return rows
 
 
@@ -3776,6 +3804,299 @@ def lm_entry_phase(torch, np, mods, smi, device: str = "cuda") -> dict:
     return out
 
 
+def dryrun_start(out_dir: Path, device: str = "cuda") -> subprocess.Popen:
+    """Phase 16 (a), started in the background: ``launch.dryrun`` on the
+    16 x 16 production mesh (a fake process group of 256 ranks, fake CUDA
+    tensors) for OLMo-1B's train_4k and decode_32k and six Dumpy cells."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    return subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         "olmo-1b,dumpy", "--shape", ",".join(DRYRUN_SHAPES), "--kinds",
+         ",".join(DRYRUN_KINDS), "--mesh", "single", "--out", str(out_dir),
+         "--device", device],
+        env=env, cwd=str(ROOT), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+
+
+def dryrun_cells(proc: subprocess.Popen, out_dir: Path, smi) -> dict:
+    """Phase 16 (a), collected: every record without ``error``, its
+    bottleneck, step bound and GiB a device printed."""
+    try:
+        log, _ = proc.communicate(timeout=DRYRUN_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        fail(f"the dry run took over {DRYRUN_TIMEOUT_S} s")
+    if proc.returncode != 0:
+        fail(f"the dry run failed ({proc.returncode}): {log[-2000:]}")
+    out = {}
+    tags = [f"olmo-1b__{s}__pod_16x16" for s in DRYRUN_SHAPES] + \
+        [f"dumpy-{k}__pod_16x16" for k in DRYRUN_KINDS]
+    for tag in tags:
+        path = out_dir / f"{tag}.json"
+        if not path.exists():
+            fail(f"the dry run wrote no record {path.name}")
+        rec = json.loads(path.read_text())
+        if "error" in rec or "skipped" in rec:
+            fail(f"dry run {tag}: {rec.get('error') or rec.get('skipped')}")
+        r = rec["roofline"]
+        gib = rec["memory"]["peak_per_device"] / 2**30
+        out[tag] = dict(bottleneck=r["bottleneck"], step_s=r["step_s"],
+                        gib_per_device=gib, analyze_s=rec["compile_s"],
+                        flops=rec["cost"]["flops_per_device"],
+                        collective_bytes=rec["collectives"]["total_bytes"])
+        print(f"  (a) {tag}: bottleneck {r['bottleneck']}, step bound "
+              f"{r['step_s'] * 1e3:.4f} ms (compute {r['compute_s'] * 1e3:.4f}"
+              f" / memory {r['memory_s'] * 1e3:.4f} / collective "
+              f"{r['collective_s'] * 1e3:.4f} ms), {gib:.3f} GiB a device, "
+              f"counted in {rec['compile_s']} s")
+    print(f"  (a) bounds from data-sheet peaks at 700 W; card here: {smi}")
+    return out
+
+
+def dryrun_one_device(torch, np, smi, device: str = "cuda") -> dict:
+    """Phase 16 (b): the dry run on a 1 x 1 mesh against the card: the
+    ``100m`` train step at 8 x 512 and OLMo-1B's decode step at B 4 over a
+    64-position cache.  Each: the dry run's FLOPs equal ``FlopCounterMode``
+    over the real step, its peak beside ``max_memory_allocated`` over the
+    step, and the measured step no faster than the dry run's bound."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs.base import RunShape
+    from repro_torch.data.tokens import (TokenPipeline,
+                                         TokenPipelineConfig)
+    from repro_torch.distributed import op_cost, roofline, sharding
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.train import preset_config
+    from repro_torch.models import registry, transformer as tfm
+    from repro_torch.models.weights import param_tree
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.train_step import make_train_step
+
+    cuda = device == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+
+    def predicted(cfg, shape):
+        with sharding.fake_world(1):
+            mesh = sharding.named_mesh((1, 1), ("data", "model"), device)
+            rules = dryrun.rules_for(cfg, shape, mesh)
+            step, args = dryrun.cell_program(cfg, shape, mesh, rules, device)
+            with dryrun.traced(mesh, rules):
+                cost = op_cost.analyze(step, *args)
+            del step, args
+        rl = roofline.analyze(
+            flops_per_device=cost.flops, bytes_per_device=cost.hbm_bytes,
+            collective_bytes_per_device=cost.collective_bytes, n_devices=1,
+            model_flops=0.0, flops_by_dtype=cost.flops_by_dtype,
+            inter_host_bytes=cost.inter_host_bytes)
+        return cost, rl
+
+    def measure(run, n=DRYRUN_STEPS):
+        run()                                          # warm
+        sync()
+        ms = []
+        for _ in range(n):
+            # lint: allow-timing: sync() is torch.cuda.synchronize on the
+            # card
+            t1 = time.perf_counter()
+            run()
+            sync()
+            ms.append((time.perf_counter() - t1) * 1e3)
+        return float(np.median(ms))
+
+    out = {}
+    for label, cfg, shape in (
+            ("100m train", preset_config("olmo-1b", "100m"),
+             RunShape("100m", TRAIN_S, TRAIN_B, "train")),
+            ("olmo-1b decode", registry.get_config("olmo-1b"),
+             RunShape("serve", SERVE_P + SERVE_T, SERVE_B, "decode"))):
+        # lint: allow-timing: the dry run runs on the host (fake tensors)
+        t1 = time.perf_counter()
+        cost, rl = predicted(cfg, shape)
+        t_dry = time.perf_counter() - t1
+        if cuda:
+            torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated() if cuda else 0
+        model = tfm.init_params(cfg, torch.Generator(device).manual_seed(0),
+                                device)
+        if shape.kind == "train":
+            ocfg = dryrun.adamw_for(cfg)
+            state = opt.init(param_tree(model), ocfg)
+            pipe = TokenPipeline(TokenPipelineConfig(
+                vocab=cfg.vocab, seq_len=shape.seq_len,
+                global_batch=shape.global_batch))
+            batch = pipe.batch_at(0)
+            step = make_train_step(cfg, ocfg)
+
+            def run():
+                step(model, state, batch)
+        else:
+            caches = tfm.init_cache(cfg, shape.global_batch, shape.seq_len,
+                                    device)
+            token = torch.zeros((shape.global_batch, 1), dtype=torch.int32,
+                                device=device)
+
+            @torch.no_grad()
+            def run():
+                tfm.forward_decode(model, caches, token, shape.seq_len - 1)
+        run()
+        sync()
+        with FlopCounterMode(display=False) as fc:
+            run()
+        real_flops = fc.get_total_flops()
+        sync()
+        peak = None
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+            run()
+            sync()
+            peak = torch.cuda.max_memory_allocated() - base
+        ms = measure(run)
+        bound_ms = rl.step_s * 1e3
+        row = dict(flops_dryrun=cost.flops, flops_card=real_flops,
+                   flops_by_dtype=cost.flops_by_dtype,
+                   hbm_bytes=cost.hbm_bytes, peak_dryrun=cost.peak_bytes,
+                   peak_card=peak,
+                   peak_ratio=cost.peak_bytes / peak if peak else None,
+                   step_ms=ms, bound_ms=bound_ms,
+                   bottleneck=rl.bottleneck, measured_over_bound=ms / bound_ms,
+                   dryrun_s=t_dry)
+        out[label] = row
+        extra = (f", PERF.md's hand bound {OLMO_DECODE_HAND_BOUND_MS} ms"
+                 if shape.kind == "decode" else "")
+        print(f"  (b) {label} [{shape.global_batch} x {shape.seq_len}] on a "
+              f"1 x 1 mesh: FLOPs {cost.flops:.6e} (dry run) vs "
+              f"{real_flops:.6e} (FlopCounterMode over the step on the "
+              f"card); peak {cost.peak_bytes} B predicted vs {peak} B "
+              f"max_memory_allocated (ratio {row['peak_ratio']}); step "
+              f"{ms:.4f} ms measured vs dry-run bound {bound_ms:.6f} ms "
+              f"({rl.bottleneck}){extra}; measured / bound "
+              f"{ms / bound_ms:.2f} (dry run {t_dry:.1f} s) [{smi}]")
+        if cost.flops != real_flops:
+            fail(f"{label}: the dry run counts {cost.flops} FLOPs, the "
+                 f"card's step {real_flops}")
+        if ms < bound_ms:
+            fail(f"{label}: the step took {ms:.4f} ms, under its dry-run "
+                 f"bound {bound_ms:.4f} ms")
+        del model, run
+        if shape.kind == "train":
+            del state, step
+        else:
+            del caches
+        if cuda:
+            torch.cuda.empty_cache()
+    return out
+
+
+def dryrun_kernels(torch, rows, distributed, n_series: int, smi,
+                   device: str = "cuda") -> dict:
+    """Phase 16 (b)'s search cell and (c): ``lower_search_oneshot`` on a
+    1 x 1 mesh at ``[64, n_series, 256]``, whose ``pairwise_l2`` term must
+    equal this run's bound of phase 12 (c)'s call within 1% and be no more
+    than its time; each kernel's ``abstract`` work at its main shape
+    (phases 4 and 7: ``rows``) within 1% of that bound, the time measured
+    there no less than it."""
+    from types import SimpleNamespace
+
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.core import distributed as D
+    from repro_torch.distributed import op_cost, roofline
+    from repro_torch.kernels import ops
+
+    out = {}
+    one = SimpleNamespace(mesh_dim_names=("data", "model"), shape=(1, 1))
+    cost = D.lower_search_oneshot(one, n_series=n_series, length=LENGTH,
+                                  w=16, k=50, q_batch=BATCH,
+                                  device=device).analyze()
+    k = cost.kernels["pairwise_l2"]
+    s, by = roofline.kernel_bound_s(k["flops"], k["bytes"])
+    want, ms = distributed["pairwise_l2_bound_ms"], distributed[
+        "pairwise_l2_ms"]
+    out["search"] = dict(pairwise_l2_bound_ms=s * 1e3, phase12_bound_ms=want,
+                         phase12_ms=ms, flops=cost.flops,
+                         hbm_bytes=cost.hbm_bytes)
+    print(f"  (b) search cell [{BATCH}, {n_series}, {LENGTH}] on a 1 x 1 "
+          f"mesh: pairwise_l2 term {s * 1e3:.6f} ms ({by}) vs phase 12's "
+          f"bound {want:.6f} ms; phase 12 measured {ms:.5f} ms [{smi}]")
+    if abs(s * 1e3 - want) > 0.01 * want:
+        fail(f"search cell: pairwise_l2 term {s * 1e3:.6f} ms is not within "
+             f"1% of {want:.6f} ms")
+    if ms < s * 1e3:
+        fail(f"search cell: phase 12 measured {ms:.5f} ms under the bound")
+
+    def fake(*shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device=device)
+
+    # the calls look ops.<name> up when they run: op_cost.analyze swaps in
+    # the abstract functions
+    byname = {r["name"]: r for r in rows}
+    for name in ("sax_encode", "pairwise_l2", "lb_paa_interval", "lb_keogh",
+                 "lb_improved", "dtw_band"):
+        r = byname[name]
+        with FakeTensorMode():
+            if name == "sax_encode":
+                B, n = r["shape"]
+                args, call = (fake(B, n),), lambda x: ops.sax_encode(x, 16, 8)
+            elif name == "pairwise_l2":
+                Q, X, n = r["shape"]
+                args = (fake(Q, n), fake(X, n))
+                call = lambda *a: ops.pairwise_l2(*a)  # noqa: E731
+            elif name == "lb_paa_interval":
+                Q, L, w = r["shape"]
+                args = (fake(Q, w), fake(Q, w), fake(L, w), fake(L, w))
+                call = lambda *a: ops.lb_paa_interval(*a, LENGTH)  # noqa: E731
+            elif name == "lb_keogh":
+                Q, m, n = r["shape"]
+                args = (fake(m, n), fake(Q, n), fake(Q, n))
+                call = lambda *a: ops.lb_keogh(*a)  # noqa: E731
+            elif name == "lb_improved":
+                Q, m, n = r["shape"]
+                args = (fake(m, n), fake(Q, n), fake(Q, n), fake(Q, n))
+                call = lambda *a: ops.lb_improved(*a, BAND)  # noqa: E731
+            else:
+                Q, m, n, rr = r["wide"]["shape"]
+                args = (fake(Q, n), fake(m, n),
+                        fake(Q, m, dtype=torch.bool), fake(Q))
+                call = lambda *a: ops.dtw_band(*a, rr)  # noqa: E731
+        c = op_cost.analyze(call, *args)
+        kk = c.kernels[name]
+        s, by = roofline.kernel_bound_s(kk["flops"], kk["bytes"])
+        ref_ms, ref_t = ((r["wide"]["bound_ms"], r["wide"]["ms"])
+                         if name == "dtw_band" else (r["bound_ms"], r["ms"]))
+        out[name] = dict(abstract_bound_ms=s * 1e3, bound_by=by,
+                         table_bound_ms=ref_ms, measured_ms=ref_t)
+        where = ("the wide path, every lane on" if name == "dtw_band"
+                 else f"{list(r['shape'])}")
+        print(f"  (c) {name} at {where}: abstract work {kk['flops']:.6e} "
+              f"operations, {kk['bytes']:.6e} B -> bound {s * 1e3:.6f} ms "
+              f"({by}) vs this run's bound {ref_ms:.6f} ms; measured "
+              f"{ref_t:.5f} ms [{smi}]")
+        if abs(s * 1e3 - ref_ms) > 0.01 * ref_ms:
+            fail(f"{name}: abstract bound {s * 1e3:.6f} ms is not within 1% "
+                 f"of {ref_ms:.6f} ms")
+        if ref_t < s * 1e3:
+            fail(f"{name}: measured {ref_t:.5f} ms under its abstract bound")
+    return out
+
+
+def dryrun_phase(torch, np, rows, distributed, n_series: int, smi,
+                 proc: subprocess.Popen, out_dir: Path) -> dict:
+    """Phase 16: the dry run, (b) and (c) while (a) runs in its own
+    process (killed if the phase fails first)."""
+    try:
+        out = {"one_device": dryrun_one_device(torch, np, smi)}
+        if rows is not None:
+            out["kernels"] = dryrun_kernels(torch, rows, distributed,
+                                            n_series, smi)
+        out["cells"] = dryrun_cells(proc, out_dir, smi)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n-series", type=int, default=4_000_000,
@@ -3783,6 +4104,9 @@ def main() -> None:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--lm-only", action="store_true",
                     help="run phases 1, 14 and 15 alone (prints no ok line)")
+    ap.add_argument("--dryrun-only", action="store_true",
+                    help="run phases 1 and 16 alone, without the kernel "
+                         "rows of phases 4, 7 and 12 (prints no ok line)")
     args = ap.parse_args()
 
     # phase 15 (c) compares two training runs under deterministic
@@ -3836,6 +4160,14 @@ def main() -> None:
         t0 = time.perf_counter()
         print(json.dumps({"lm_entry": lm_entry_phase(torch, np, mods, smi)}))
         phase("LM entry points", t0)
+        return
+    dry_dir = ROOT / "build" / "phase16"
+    if args.dryrun_only:
+        t0 = time.perf_counter()
+        proc = dryrun_start(dry_dir)
+        print(json.dumps({"dryrun": dryrun_phase(
+            torch, np, None, None, args.n_series, smi, proc, dry_dir)}))
+        phase("dry run", t0)
         return
 
     # ---- 2. build the kernels --------------------------------------------
@@ -4095,6 +4427,13 @@ def main() -> None:
     lm_entry = lm_entry_phase(torch, np, mods, smi)
     print(json.dumps({"lm_entry": lm_entry}))
     phase("LM entry points", t0)
+
+    # ---- 16. the dry run -----------------------------------------------------------
+    t0 = time.perf_counter()
+    proc = dryrun_start(dry_dir)
+    print(json.dumps({"dryrun": dryrun_phase(
+        torch, np, rows, distributed, args.n_series, smi, proc, dry_dir)}))
+    phase("dry run", t0)
     print(f"[phase] whole run: {time.perf_counter() - t_run:.3f} s")
 
     for r in rows:

@@ -422,3 +422,71 @@ def layout_arrays(index: "DumpyIndex", chunk: int = 2048, n_shards: int = 1
         leaf_bounds=tuple(int(c) for c in cut_leaf),
     )
     return arrays, meta
+
+
+def abstract_device_index(n_series: int, length: int, w: int, *,
+                          n_shards: int = 1, chunk: int = 4096,
+                          n_leaves: int = 4096, lam_max: int = 4,
+                          depth: int = 8, gmax: int = 64,
+                          shard_health: tuple | None = None,
+                          shard_local: bool = False,
+                          device: str | torch.device = "cuda"
+                          ) -> DeviceIndex:
+    """A ``DeviceIndex`` of fake tensors for the dry run (the reference's
+    ``ShapeDtypeStruct``-leaved index): equal-sized leaves, evenly divided
+    shards, shapes and dtypes only, made in the active ``FakeTensorMode``
+    or a new one.  With ``shard_local`` the per-shard fields hold one shard
+    (``[1, Tp, ...]``: one device's part of a mesh of ``n_shards``), the
+    global tables whole.  CUDA unless the caller asks for the CPU."""
+    from torch._guards import detect_fake_mode
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    device = resolve_device(device)
+    S = max(int(n_shards), 1)
+    Tp = math.ceil(n_series / S)
+    Ls = math.ceil(n_leaves / S)
+    Lp = Ls + 1
+    chunk_eff = max(min(int(chunk), Tp), 1)
+    W = math.ceil(Tp / chunk_eff)
+    E = Ls + W
+    M = max(n_leaves // 4, 1)
+    Eg = max(n_leaves, 1)
+    G = Eg + gmax
+    f32, i32, b8 = torch.float32, torch.int32, torch.bool
+    S_here = 1 if shard_local else S
+    with detect_fake_mode() or FakeTensorMode():
+        def t(shape, dtype):
+            return torch.empty(shape, dtype=dtype, device=device)
+        arrays = dict(
+            db=t((S_here, Tp, length), f32), alive=t((S_here, Tp), b8),
+            ids=t((S_here, Tp), i32),
+            leaf_lo=t((S_here, Lp, w), f32), leaf_hi=t((S_here, Lp, w), f32),
+            win_start=t((S_here, W), i32), win_lead=t((S_here, W), i32),
+            win_size=t((S_here, W), i32),
+            edge_leaf=t((S_here, E), i32), edge_win=t((S_here, E), i32),
+            leaf_start=t((n_leaves,), i32), leaf_size=t((n_leaves,), i32),
+            leaf_lo_g=t((n_leaves, w), f32), leaf_hi_g=t((n_leaves, w), f32),
+            inv_order=t((n_series,), i32),
+            node_csl=t((M, lam_max), i32), node_shift=t((M, lam_max), i32),
+            node_lam=t((M,), i32),
+            rt_parent=t((Eg,), i32), rt_sid=t((Eg,), i32),
+            rt_leaf=t((Eg,), i32), rt_child=t((Eg,), i32),
+            rt_lo=t((Eg, w), f32), rt_hi=t((Eg, w), f32),
+            rt_nl=t((Eg,), i32), rt_begin=t((Eg,), i32),
+            rt_end=t((Eg,), i32),
+            node_begin=t((M,), i32), node_end=t((M,), i32),
+            leaf_parent=t((n_leaves,), i32),
+            grp_off=t((M + 1,), i32),
+            grp_begin=t((G,), i32), grp_end=t((G,), i32),
+            grp_lo=t((G, w), f32), grp_hi=t((G, w), f32))
+    if shard_local:
+        row_bounds, leaf_bounds = (0, Tp), (0, Ls)
+        shard_health = None
+    else:
+        row_bounds = tuple(min(s * Tp, n_series) for s in range(S + 1))
+        leaf_bounds = tuple(min(s * Ls, n_leaves) for s in range(S + 1))
+    return DeviceIndex(
+        **arrays, n=length, w=w, chunk=chunk_eff, depth=depth,
+        lmax=max(math.ceil(n_series / max(n_leaves, 1)), 1),
+        total=n_series, has_duplicates=False, max_replica=3,
+        row_bounds=row_bounds, gmax=gmax, leaf_bounds=leaf_bounds,
+        shard_health=shard_health)

@@ -21,11 +21,23 @@ in the reference:
 
 One process drives every device, as the reference's single controller does;
 a device may repeat in a mesh (four shards on one card).  ``build_step`` and
-``search_step`` are the reference's one-shot device programs.  The
-reference's ``_abstract_prep``, ``lower_*`` and ``dryrun_cells`` lower XLA
-programs for its TPU dry-run and have no counterpart here.
+``search_step`` are the reference's one-shot device programs.
+
+For the dry run (``repro_torch.launch.dryrun``), the ``lower_*`` helpers
+give each cell's device program as a :class:`~repro_torch.distributed.
+op_cost.Program` whose ``.analyze()`` counts it on fake tensors (the
+counterpart of ``.lower(...).compile()`` and its analyses).  On a named
+production mesh (``launch.mesh.production_device_mesh``) a device runs one
+shard's program at the shard's shapes, the shard count being the mesh's
+pod × data (:func:`_mesh_shards`: 16 shards of 262 144 rows on 16×16, 32
+of 131 072 on 2×16×16), and the merge of the shards' ``[Q, k]`` lists
+counts as an all-gather of ``(S - 1)·Q·k·8`` bytes.  The exact searches
+(``search_sharded``, ``search_dtw``) are skipped: their span loop reads
+device values on the host, which fake tensors do not hold.
 """
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -168,3 +180,240 @@ def search_distributed(index: DumpyIndex, queries: np.ndarray, k: int,
     if shard_health is not None:
         return res[0], res[1], res[-1]
     return res[0], res[1]
+
+
+# ---------------------------------------------------------------------------
+# the dry run's device programs (counted on fake tensors)
+# ---------------------------------------------------------------------------
+
+#: why the exact cells have no dry run: the reads of device values that
+#: drive their host loops (ROADMAP B4, B5 make the step a fixed-shape
+#: program)
+EXACT_SKIP = ("the exact span loop reads the device on the host: the "
+              "sorted span schedule goes to the host once a shard "
+              "(core/search_device.py:347-348) and a bool stop test runs "
+              "every STOP_CHECK_EVERY spans (:357-360; the DTW lane walk's "
+              "bool(running), :459); fake tensors hold no values to read")
+
+
+def _mesh_shards(mesh) -> int:
+    """Shards of a Dumpy index on ``mesh``: its pod × data size (the model
+    axis replicates)."""
+    sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    return sizes.get("pod", 1) * sizes.get("data", 1)
+
+
+def _merge_collective(mesh, q_batch: int, k: int) -> tuple:
+    """The shards' ``[Q, k]`` (distance, id) lists all-gathered for the
+    merge: ``(S - 1)·Q·k·8`` bytes into each device."""
+    from ..distributed.roofline import GPUS_PER_HOST
+    S = _mesh_shards(mesh)
+    if S <= 1:
+        return ()
+    return (("all-gather", (S - 1) * q_batch * k * 8,
+             math.prod(mesh.shape) > GPUS_PER_HOST),)
+
+
+def _fake(shape, dtype, device):
+    return torch.empty(shape, dtype=dtype, device=device)
+
+
+def _abstract_prep(q_batch: int, w: int, length: int, device):
+    """Fake tensors of ``metric.query_prep``'s output (ED and DTW preps
+    have one shape: the segment interval and the envelope)."""
+    seg = _fake((q_batch, w), torch.float32, device)
+    env = _fake((q_batch, length), torch.float32, device)
+    return (seg, _fake((q_batch, w), torch.float32, device), env,
+            _fake((q_batch, length), torch.float32, device))
+
+
+def lower_build_step(mesh, *, n_series: int = 1 << 22, length: int = 256,
+                     w: int = 16, b: int = 8,
+                     device: str | torch.device = "cuda"):
+    """Stage 1 + the root histogram (:func:`build_step`) on one shard of
+    rows, the partial histograms all-reduced (``2**w`` int64)."""
+    from ..distributed.op_cost import Program
+    from .device_index import resolve_device
+    device = resolve_device(device)
+    Tp = math.ceil(n_series / _mesh_shards(mesh))
+    S = _mesh_shards(mesh)
+    coll = (("all-reduce", 8 * (1 << w), math.prod(mesh.shape) > 8),) \
+        if S > 1 else ()
+    return Program(lambda db: build_step(db, w, b),
+                   lambda: (_fake((Tp, length), torch.float32, device),),
+                   coll)
+
+
+def lower_build_bottomup(mesh, *, n_series: int = 1 << 22, w: int = 16,
+                         b: int = 8, device: str | torch.device = "cuda"):
+    """The bottom-up device build's grouping program
+    (``build_device._lexsort_words``: packed-word stable sorts and group
+    delimiting) over the whole table; collective-free."""
+    from ..distributed.op_cost import Program
+    from .build_device import _lexsort_words
+    from .device_index import resolve_device
+    device = resolve_device(device)
+    return Program(lambda s: _lexsort_words(s, w, b),
+                   lambda: (_fake((n_series, w), torch.uint8, device),))
+
+
+def lower_search_oneshot(mesh, *, n_series: int = 1 << 22,
+                         length: int = 256, w: int = 16,
+                         n_leaves: int = 16384, k: int = 50,
+                         q_batch: int = 64,
+                         device: str | torch.device = "cuda"):
+    """The one-shot LB scan + exact distances (:func:`search_step`) over one
+    shard of the collection, then the merge."""
+    from ..distributed.op_cost import Program
+    from .device_index import resolve_device
+    device = resolve_device(device)
+    Tp = math.ceil(n_series / _mesh_shards(mesh))
+    return Program(
+        lambda q, db, lo, hi: search_step(q, db, lo, hi, k),
+        lambda: (_fake((q_batch, length), torch.float32, device),
+                 _fake((Tp, length), torch.float32, device),
+                 _fake((n_leaves, w), torch.float32, device),
+                 _fake((n_leaves, w), torch.float32, device)),
+        _merge_collective(mesh, q_batch, k))
+
+
+def _index_args(mesh, n_series, length, w, chunk, n_leaves, q_batch,
+                device, *extra):
+    from .device_index import abstract_device_index
+    dev = abstract_device_index(n_series, length, w,
+                                n_shards=_mesh_shards(mesh), chunk=chunk,
+                                n_leaves=n_leaves, shard_local=True,
+                                device=device)
+    return (dev, _abstract_prep(q_batch, w, length, device)) + tuple(
+        _fake(s, dt, device) for s, dt in extra)
+
+
+def lower_search_sharded(mesh, **_):
+    """The sharded exact search (ED, or DTW with ``metric``): skipped
+    (:data:`EXACT_SKIP`)."""
+    from ..distributed.op_cost import Program
+    return Program(skipped=EXACT_SKIP)
+
+
+def lower_search_dtw(mesh, **_):
+    """The sharded exact DTW search: skipped (:data:`EXACT_SKIP`)."""
+    return lower_search_sharded(mesh)
+
+
+def lower_search_degraded(mesh, **_):
+    """The exact search with the last shard dead: skipped
+    (:data:`EXACT_SKIP`)."""
+    return lower_search_sharded(mesh)
+
+
+def lower_search_extended(mesh, *, n_series: int = 1 << 22,
+                          length: int = 256, w: int = 16, chunk: int = 8192,
+                          n_leaves: int = 16384, k: int = 58, nbr: int = 8,
+                          q_batch: int = 64,
+                          device: str | torch.device = "cuda"):
+    """The batched extended search (Alg. 4 descent, sibling schedule, leaf
+    scan: ``search_device._extended_knn_sharded``) on one shard, then the
+    merge."""
+    from ..distributed.op_cost import Program
+    from .device_index import resolve_device
+    from .search_device import _extended_knn_sharded
+    device = resolve_device(device)
+    return Program(
+        lambda d, prep, sq, q: _extended_knn_sharded(
+            d, prep, sq, q, k=k, nbr=nbr, subtree=True),
+        lambda: _index_args(mesh, n_series, length, w, chunk, n_leaves,
+                            q_batch, device,
+                            ((q_batch, w), torch.int32),
+                            ((q_batch, length), torch.float32)),
+        _merge_collective(mesh, q_batch, k))
+
+
+def lower_search_approx(mesh, *, n_series: int = 1 << 22,
+                        length: int = 256, w: int = 16, chunk: int = 8192,
+                        n_leaves: int = 16384, k: int = 58, nbr: int = 4,
+                        q_batch: int = 64, metric=None,
+                        device: str | torch.device = "cuda"):
+    """The batched approximate search (descent + leaf-rank scan:
+    ``search_device._approx_knn_device``) on one shard, then the merge."""
+    from ..distributed.op_cost import Program
+    from .device_index import resolve_device
+    from .metric import ED
+    from .search_device import _approx_knn_device
+    device = resolve_device(device)
+    met = metric or ED
+    return Program(
+        lambda d, prep, sq, q: _approx_knn_device(
+            d, prep, sq, q, k=k, kk=k, nbr=nbr, metric=met),
+        lambda: _index_args(mesh, n_series, length, w, chunk, n_leaves,
+                            q_batch, device,
+                            ((q_batch, w), torch.int32),
+                            ((q_batch, length), torch.float32)),
+        _merge_collective(mesh, q_batch, k))
+
+
+def lower_search_bucket(mesh, *, n_series: int = 1 << 22,
+                        length: int = 256, w: int = 16, chunk: int = 8192,
+                        n_leaves: int = 16384, k: int = 58, nbr: int = 8,
+                        q_batch: int = 64, band: int | None = None,
+                        device: str | torch.device = "cuda"):
+    """The bucketed serving program (``search_device._bucket_knn_sharded``,
+    the mixed ED/DTW variant) on one shard, then the merge."""
+    from ..distributed.op_cost import Program
+    from .device_index import resolve_device
+    from .metric import default_band
+    from .search_device import _bucket_knn_sharded
+    device = resolve_device(device)
+    band_eff = band if band is not None else default_band(length)
+
+    def args():
+        dev, prep, sq, q, ln, ld = _index_args(
+            mesh, n_series, length, w, chunk, n_leaves, q_batch, device,
+            ((q_batch, w), torch.int32), ((q_batch, length), torch.float32),
+            ((q_batch,), torch.int32), ((q_batch,), torch.bool))
+        return dev, prep, _abstract_prep(q_batch, w, length, device), sq, \
+            q, ln, ld
+
+    return Program(
+        lambda d, pe, pd, sq, q, ln, ld: _bucket_knn_sharded(
+            d, pe, pd, sq, q, ln, ld, kk=k, nbr_max=nbr, subtree=True,
+            band=band_eff, has_dtw=True),
+        args, _merge_collective(mesh, q_batch, k))
+
+
+def lower_serving_head(mesh, *, vocab: int = 1 << 17, d_model: int = 256,
+                       w: int = 16, n_leaves: int = 4096,
+                       r_candidates: int = 128, nbr: int = 8,
+                       q_batch: int = 32,
+                       device: str | torch.device = "cuda"):
+    """The ``KnnSoftmaxHead`` retrieval program: the extended search at
+    serving widths, the MIPS series padded to a multiple of ``w`` as
+    ``KnnSoftmaxHead`` pads it."""
+    length = d_model + 1 + ((-(d_model + 1)) % w)
+    return lower_search_extended(mesh, n_series=vocab, length=length, w=w,
+                                 chunk=min(8192, vocab), n_leaves=n_leaves,
+                                 k=r_candidates, nbr=nbr, q_batch=q_batch,
+                                 device=device)
+
+
+def dryrun_cells(mesh, device: str | torch.device = "cuda") -> dict:
+    """The paper's own technique on ``mesh`` at the reference's 1 M × 256
+    stand-in: each cell's :class:`~repro_torch.distributed.op_cost.OpCost`
+    (or the reason it is skipped)."""
+    n_series, length, w, L = 1 << 20, 256, 16, 4096
+    kw = dict(n_series=n_series, length=length, w=w, device=device)
+    programs = {
+        "dumpy_build": lower_build_step(mesh, **kw),
+        "dumpy_build_bottomup": lower_build_bottomup(
+            mesh, n_series=n_series, w=w, device=device),
+        "dumpy_search": lower_search_oneshot(mesh, n_leaves=L, k=50, **kw),
+        "dumpy_search_sharded": lower_search_sharded(mesh, chunk=4096,
+                                                     n_leaves=L, **kw),
+        "dumpy_search_extended": lower_search_extended(mesh, chunk=4096,
+                                                       n_leaves=L, **kw),
+        "dumpy_search_dtw": lower_search_dtw(mesh, n_leaves=L, **kw),
+        "dumpy_search_approx": lower_search_approx(mesh, chunk=4096,
+                                                   n_leaves=L, **kw),
+        "dumpy_serving_head": lower_serving_head(mesh, device=device),
+    }
+    return {name: (p.skipped if p.skipped else p.analyze())
+            for name, p in programs.items()}

@@ -1,0 +1,484 @@
+"""Per-device op cost of a program run on fake tensors (the port's
+counterpart of ``repro.distributed.hlo_cost``, which reads a compiled XLA
+module).
+
+:func:`analyze` runs a function under ``FakeTensorMode``: every tensor has
+a shape, a dtype and a device but no data, so nothing is allocated and a
+full-size model runs on any host.  A dispatch mode (a
+:class:`~repro_torch.analysis.contracts.Census`, with its kernel swap and
+host-sync prediction) sees every aten op that reaches a tensor.  On a
+DTensor it returns ``NotImplemented``, so DTensor runs its sharding
+propagation and redispatches the ops on each device's local shard, which
+the mode then sees: the counts are one device's.  The ops DTensor's
+sharding propagation runs at the global shape to learn output metadata are
+left out (the propagator runs with the mode suspended).
+
+Counting rules (:class:`OpCost`):
+
+* ``flops`` — ``torch.utils.flop_counter``'s formula of each local op
+  (matmuls, convolutions, attention), ``flops_by_dtype`` keyed on the
+  first operand's dtype (``"tf32"`` for float32 where the program enables
+  TF32); the kernels record their own operation counts;
+* ``hbm_bytes`` — operands plus results of the materialising ops only
+  (:data:`MATERIALIZING`: matmuls and convolutions, reductions, gathers and
+  scatters, sorts, ``cat``, copies, collectives, and the kernels); a gather
+  reads and writes its result's bytes, a scatter its update's, as in
+  ``hlo_cost``.  Elementwise ops count as fused away;
+* ``hbm_bytes_hi`` — every op's operands plus results (views excluded);
+* ``collective_bytes`` / ``collective_counts`` — operand bytes of each
+  ``_c10d_functional`` collective by kind (``all-reduce``, ``all-gather``,
+  ``reduce-scatter``, ``all-to-all``), plus those a caller adds with
+  :meth:`OpCost.add_collective`;
+* ``unknown_loops`` — always 0: an eager program's loops run in Python,
+  so every trip is counted;
+* memory — the live bytes of the local storages, tracked with weakref
+  finalizers on the fake storages: ``argument_bytes`` (what the program is
+  given), ``output_bytes`` (what it returns, aliased storages included),
+  ``alias_bytes`` (returned storages that are arguments: parameters and
+  moments updated in place, a cache written in place), ``temp_bytes``, and
+  ``peak_bytes = argument + output + temp - alias``, the most live at once,
+  as the reference's ``memory_analysis`` splits it;
+* ``flops_global`` — the unscaled ``FlopCounterMode`` total: the same
+  formulas over the DTensor-level ops at their global shapes (the
+  counterpart of XLA's raw ``cost_analysis``);
+* ``host_syncs`` — the census's predicted host syncs (a data-dependent
+  read on fake tensors raises instead).
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+import weakref
+from collections import Counter
+from typing import Callable
+
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_flatten
+
+from ..analysis import contracts
+
+#: aten base names whose operands and results move through HBM
+MATMULS = frozenset({"mm", "bmm", "addmm", "baddbmm", "addbmm", "addmv",
+                     "mv", "dot", "convolution", "convolution_backward",
+                     "_scaled_dot_product_efficient_attention",
+                     "_scaled_dot_product_flash_attention",
+                     "_scaled_dot_product_cudnn_attention"})
+REDUCTIONS = frozenset({
+    "sum", "mean", "amax", "amin", "max", "min", "logsumexp", "var",
+    "var_mean", "std", "std_mean", "norm", "linalg_vector_norm", "prod",
+    "any", "all", "argmax", "argmin", "cumsum", "cumprod", "cummin",
+    "cummax", "_softmax", "_log_softmax", "_softmax_backward_data",
+    "_log_softmax_backward_data", "nll_loss_forward", "nll_loss_backward",
+    "native_layer_norm", "native_layer_norm_backward", "count_nonzero"})
+GATHERS = frozenset({"gather", "index", "index_select", "embedding",
+                     "take", "_unsafe_index", "embedding_dense_backward"})
+SCATTERS = frozenset({"scatter", "scatter_", "scatter_add", "scatter_add_",
+                      "scatter_reduce", "scatter_reduce_", "index_add",
+                      "index_add_", "index_put", "index_put_",
+                      "_index_put_impl_", "index_copy", "index_copy_"})
+SORTS = frozenset({"sort", "topk", "argsort", "searchsorted", "_unique2",
+                   "unique_dim", "unique_consecutive", "kthvalue", "median"})
+MOVES = frozenset({"cat", "stack", "copy_", "clone", "_to_copy",
+                   "constant_pad_nd", "flip", "roll", "repeat",
+                   "_pad_enum"})
+COLLECTIVES = {"all_reduce": "all-reduce", "all_reduce_": "all-reduce",
+               "all_reduce_coalesced": "all-reduce",
+               "all_gather_into_tensor": "all-gather",
+               "all_gather_into_tensor_coalesced": "all-gather",
+               "all_gather_into_tensor_out": "all-gather",
+               "reduce_scatter_tensor": "reduce-scatter",
+               "reduce_scatter_tensor_coalesced": "reduce-scatter",
+               "all_to_all_single": "all-to-all",
+               "broadcast": "broadcast", "broadcast_": "broadcast"}
+MATERIALIZING = (MATMULS | REDUCTIONS | GATHERS | SCATTERS | SORTS | MOVES
+                 | frozenset(COLLECTIVES))
+#: dtype names of ``flops_by_dtype`` (the roofline's peaks are keyed on
+#: them)
+_DTYPE_NAMES = {torch.bfloat16: "bfloat16", torch.float16: "float16",
+                torch.float32: "float32", torch.float64: "float64",
+                torch.int8: "int8", torch.uint8: "int8"}
+
+_active: "_Tracer | None" = None
+
+
+@dataclasses.dataclass
+class OpCost:
+    flops: float = 0.0
+    flops_by_dtype: dict = dataclasses.field(default_factory=dict)
+    hbm_bytes: float = 0.0
+    hbm_bytes_hi: float = 0.0
+    collective_bytes: float = 0.0
+    collective_counts: dict = dataclasses.field(default_factory=dict)
+    inter_host_bytes: float = 0.0
+    unknown_loops: int = 0
+    argument_bytes: int = 0
+    output_bytes: int = 0
+    alias_bytes: int = 0
+    temp_bytes: int = 0
+    peak_bytes: int = 0
+    flops_global: float = 0.0
+    kernels: dict = dataclasses.field(default_factory=dict)
+    aten_ops: dict = dataclasses.field(default_factory=dict)
+    dtypes: dict = dataclasses.field(default_factory=dict)
+    host_syncs: dict = dataclasses.field(default_factory=dict)
+    n_ops: int = 0
+    seconds: float = 0.0
+
+    def add_flops(self, flops: float, dtype: str) -> None:
+        self.flops += flops
+        self.flops_by_dtype[dtype] = self.flops_by_dtype.get(dtype, 0.0) + \
+            flops
+
+    def add_collective(self, kind: str, nbytes: float, count: int = 1, *,
+                       inter_host: bool = True) -> None:
+        """A collective the program makes outside the traced ops (the
+        merge of Dumpy's shard results): ``count`` of ``kind`` moving
+        ``nbytes`` in all from this device, over a group that spans hosts
+        unless ``inter_host`` is false."""
+        self.collective_bytes += nbytes
+        self.inter_host_bytes += nbytes if inter_host else 0.0
+        self.hbm_bytes += nbytes
+        self.hbm_bytes_hi += nbytes
+        e = self.collective_counts.setdefault(kind, {"count": 0,
+                                                     "bytes": 0.0})
+        e["count"] += count
+        e["bytes"] += nbytes
+
+    def memory(self) -> dict:
+        """The record's ``memory`` field (``memory_analysis``'s split)."""
+        return {"argument_bytes": self.argument_bytes,
+                "output_bytes": self.output_bytes,
+                "temp_bytes": self.temp_bytes,
+                "alias_bytes": self.alias_bytes,
+                "peak_per_device": self.peak_bytes}
+
+
+def _dtype_name(dtype: torch.dtype) -> str:
+    if dtype == torch.float32 and torch.backends.cuda.matmul.allow_tf32:
+        return "tf32"
+    return _DTYPE_NAMES.get(dtype, str(dtype).replace("torch.", ""))
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def _plain_tensors(tree) -> list[torch.Tensor]:
+    return [t for t in tree_flatten(tree)[0] if isinstance(t, torch.Tensor)]
+
+
+def _storage_tensors(tree) -> list[torch.Tensor]:
+    """The tensors holding storage in a tree of modules, dicts, lists,
+    tuples and DTensors (a DTensor's local shard)."""
+    out: list[torch.Tensor] = []
+
+    def walk(x):
+        if isinstance(x, torch.nn.Module):
+            for p in x.parameters():
+                walk(p)
+            for b in x.buffers():
+                walk(b)
+        elif isinstance(x, dict):
+            for v in x.values():
+                walk(v)
+        elif isinstance(x, (list, tuple)):
+            for v in x:
+                walk(v)
+        elif isinstance(x, torch.Tensor):
+            loc = getattr(x, "_local_tensor", None)
+            out.append(loc if loc is not None else x)
+        elif dataclasses.is_dataclass(x) and not isinstance(x, type):
+            for f in dataclasses.fields(x):
+                walk(getattr(x, f.name))
+    walk(tree)
+    return out
+
+
+class _CostMode(TorchDispatchMode):
+    def __init__(self, tracer: "_Tracer"):
+        super().__init__()
+        self.t = tracer
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if any(t.__name__ == "DTensor" for t in types):
+            if not self.t.suspend:
+                self.t.count_global(func, args, kwargs)
+            return NotImplemented
+        if self.t.suspend:
+            return func(*args, **kwargs)
+        return self.t._on_op(func, args, kwargs)
+
+
+class _Tracer(contracts.Census):
+    """A census (kernel swap, aten histogram, predicted host syncs) that
+    also counts cost and live storage bytes; the kernels are swapped for
+    their ``abstract`` functions."""
+
+    def __init__(self):
+        super().__init__("cpu")
+        self.cost = OpCost()
+        self.suspend = 0
+        self.live = 0
+        self.peak = 0
+        self._storages: dict[int, tuple[weakref.finalize, int]] = {}
+        self._args: set[int] = set()
+        self._dtype_counts: Counter = Counter()
+        self._spans: dict = {}
+
+    # -- storage -------------------------------------------------------------
+    def _track(self, t: torch.Tensor) -> None:
+        st = t.untyped_storage()
+        key = id(st)
+        if key in self._storages:
+            return
+        n = st.nbytes()
+        fin = weakref.finalize(st, self._free, key, n)
+        fin.atexit = False
+        self._storages[key] = (fin, n)
+        self.live += n
+        self.peak = max(self.peak, self.live)
+
+    def _free(self, key: int, n: int) -> None:
+        if self._storages.pop(key, None) is not None:
+            self.live -= n
+
+    def add_arguments(self, tree) -> int:
+        n0 = self.live
+        for t in _storage_tensors(tree):
+            self._track(t)
+            self._args.add(id(t.untyped_storage()))
+        return self.live - n0
+
+    def classify_outputs(self, tree) -> tuple[int, int]:
+        seen, out, alias = set(), 0, 0
+        for t in _storage_tensors(tree):
+            st = t.untyped_storage()
+            if id(st) in seen:
+                continue
+            seen.add(id(st))
+            out += st.nbytes()
+            if id(st) in self._args:
+                alias += st.nbytes()
+        return out, alias
+
+    def release(self) -> None:
+        for fin, _ in self._storages.values():
+            fin.detach()
+        self._storages.clear()
+
+    # -- counting --------------------------------------------------------------
+    def count_global(self, func, args, kwargs) -> None:
+        from torch.utils.flop_counter import flop_registry
+        fn = flop_registry.get(func._overloadpacket)
+        if fn is None:
+            return
+        self.suspend += 1
+        try:
+            out = func(*args, **kwargs)
+            self.cost.flops_global += fn(*args, **kwargs, out_val=out)
+        except Exception:  # noqa: BLE001 — the raw total is advisory
+            pass
+        finally:
+            self.suspend -= 1
+
+    def _on_op(self, func, args, kwargs):
+        out = super()._on_op(func, args, kwargs)
+        if self.depth:
+            return out
+        c = self.cost
+        c.n_ops += 1
+        base = func._schema.name.split("::", 1)[-1]
+        ns = func._schema.name.split("::", 1)[0]
+        ins = _plain_tensors((args, kwargs))
+        outs = [t for t in _plain_tensors(out)
+                if not any(t is i for i in ins)]
+        for t in outs:
+            self._dtype_counts[str(t.dtype).replace("torch.", "")] += 1
+            self._track(t)
+        from torch.utils.flop_counter import flop_registry
+        fl = flop_registry.get(func._overloadpacket)
+        if fl is not None:
+            dt = ins[0].dtype if ins else torch.float32
+            c.add_flops(float(fl(*args, **kwargs, out_val=out)),
+                        _dtype_name(dt))
+        if func.is_view or base in ("empty", "empty_strided", "empty_like",
+                                    "wait_tensor", "lift_fresh", "detach",
+                                    "alias", "_local_scalar_dense"):
+            return out
+        in_b = sum(_nbytes(t) for t in ins)
+        out_b = sum(_nbytes(t) for t in _plain_tensors(out))
+        c.hbm_bytes_hi += in_b + out_b
+        if ns == "_c10d_functional" or base in COLLECTIVES:
+            kind = COLLECTIVES.get(base, base)
+            b = _nbytes(ins[0]) if ins else out_b
+            c.collective_bytes += b
+            if self._spans_hosts(args):
+                c.inter_host_bytes += b
+            e = c.collective_counts.setdefault(kind, {"count": 0,
+                                                      "bytes": 0.0})
+            e["count"] += 1
+            e["bytes"] += b
+            c.hbm_bytes += in_b + out_b
+            return out
+        if base not in MATERIALIZING:
+            return out
+        if base == "_to_copy" and ins and outs and \
+                ins[0].dtype != outs[0].dtype:
+            return out                         # a cast: fused away
+        if base == "copy_" and len(ins) > 1 and ins[0].dtype != ins[1].dtype:
+            return out
+        if base in GATHERS:
+            c.hbm_bytes += 2 * out_b
+        elif base in SCATTERS:
+            upd = ins[-1] if ins else None
+            c.hbm_bytes += 2 * (_nbytes(upd) if upd is not None else out_b)
+        else:
+            c.hbm_bytes += in_b + out_b
+        return out
+
+    def _spans_hosts(self, args) -> bool:
+        """Whether a functional collective's group (its last string
+        argument) holds ranks of more than one host."""
+        from .roofline import GPUS_PER_HOST
+        name = next((a for a in reversed(args) if isinstance(a, str)), None)
+        if name not in self._spans:
+            try:
+                import torch.distributed as dist
+                from torch.distributed.distributed_c10d import (
+                    _resolve_process_group)
+                ranks = dist.get_process_group_ranks(
+                    _resolve_process_group(name))
+                self._spans[name] = len({r // GPUS_PER_HOST
+                                         for r in ranks}) > 1
+            except Exception:  # noqa: BLE001 — unknown group: the world's
+                import torch.distributed as dist
+                self._spans[name] = (dist.is_initialized() and
+                                     dist.get_world_size() > GPUS_PER_HOST)
+        return self._spans[name]
+
+    # -- kernels -----------------------------------------------------------------
+    def record_kernel(self, name: str, flops: float, nbytes: float,
+                      outputs, dtype: str = "float32") -> None:
+        c = self.cost
+        c.add_flops(flops, dtype)
+        c.hbm_bytes += nbytes
+        c.hbm_bytes_hi += nbytes
+        e = c.kernels.setdefault(name, {"calls": 0, "flops": 0.0,
+                                        "bytes": 0.0})
+        e["calls"] += 1
+        e["flops"] += flops
+        e["bytes"] += nbytes
+        for t in _plain_tensors(outputs):
+            self._track(t)
+
+    # -- context ---------------------------------------------------------------------
+    def __enter__(self) -> "_Tracer":
+        global _active
+        from torch.distributed.tensor._sharding_prop import (
+            ShardingPropagator)
+
+        import importlib
+
+        from ..kernels import ops
+        if _active is not None:
+            raise RuntimeError("op_cost.analyze does not nest")
+        for name in contracts.KERNELS:
+            mod = importlib.import_module(
+                f"{ops.__package__}.{contracts._IMPLS[name][0]}")
+            self._swap(ops, name, self._wrap_kernel(name, mod.abstract))
+        for meth in ("_propagate_tensor_meta_non_cached",
+                     "_propagate_tensor_meta"):
+            orig = getattr(ShardingPropagator, meth, None)
+            if orig is not None:
+                self._swap(ShardingPropagator, meth, self._suspended(orig))
+        self._fmode = contracts._FunctionMode(self)
+        self._dmode = _CostMode(self)
+        self._fmode.__enter__()
+        self._dmode.__enter__()
+        _active = self
+        return self
+
+    def __exit__(self, *exc) -> None:
+        global _active
+        _active = None
+        self._dmode.__exit__(*exc)
+        self._fmode.__exit__(*exc)
+        for mod, attr, orig in reversed(self._undo):
+            setattr(mod, attr, orig)
+        self._undo.clear()
+
+    def _suspended(self, fn):
+        def call(*args, **kwargs):
+            self.suspend += 1
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                self.suspend -= 1
+        return call
+
+
+def record_kernel(name: str, flops: float, nbytes: float, outputs,
+                  dtype: str = "float32") -> None:
+    """Add one kernel call's work to the running analysis (the kernels'
+    ``abstract`` functions call it; a no-op outside :func:`analyze`)."""
+    if _active is not None:
+        _active.record_kernel(name, flops, nbytes, outputs, dtype)
+
+
+@dataclasses.dataclass
+class Program:
+    """A device program ready to count (the counterpart of a JAX
+    ``Lowered``): ``fn`` on the arguments ``make_args()`` builds, plus the
+    collectives the program makes outside its traced ops (``(kind, bytes,
+    inter_host)``), or the reason it has no dry run."""
+    fn: Callable | None = None
+    make_args: Callable[[], tuple] | None = None
+    collectives: tuple = ()
+    skipped: str | None = None
+
+    def analyze(self) -> OpCost:
+        """One device's :class:`OpCost` (raises for a skipped program)."""
+        from torch._subclasses.fake_tensor import FakeTensorMode
+        if self.skipped:
+            raise RuntimeError(f"no dry run: {self.skipped}")
+        with FakeTensorMode():
+            args = self.make_args()
+        cost = analyze(self.fn, *args)
+        for kind, nbytes, inter in self.collectives:
+            cost.add_collective(kind, nbytes, inter_host=inter)
+        return cost
+
+
+def analyze(fn: Callable, *args, **kwargs) -> OpCost:
+    """Run ``fn(*args, **kwargs)`` once on fake tensors and count one
+    device's work.  The arguments are fake tensors (or DTensors of fake
+    local shards, or modules holding them) made in one ``FakeTensorMode``,
+    which is entered for the run; their storages are the program's
+    arguments."""
+    from torch._guards import detect_fake_mode
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    fake = detect_fake_mode(_storage_tensors((args, kwargs))) or \
+        FakeTensorMode()
+    # lint: allow-timing: fake tensors launch nothing; the host's time
+    t0 = time.perf_counter()
+    tracer = _Tracer()
+    arg_bytes = tracer.add_arguments((args, kwargs))
+    try:
+        with fake, tracer:
+            out = fn(*args, **kwargs)
+        c = tracer.cost
+        c.output_bytes, c.alias_bytes = tracer.classify_outputs(out)
+        c.argument_bytes = arg_bytes
+        c.peak_bytes = max(tracer.peak, arg_bytes + c.output_bytes
+                           - c.alias_bytes)
+        c.temp_bytes = c.peak_bytes - arg_bytes - c.output_bytes + \
+            c.alias_bytes
+        c.aten_ops = dict(sorted(tracer.aten_ops.items()))
+        c.dtypes = dict(sorted(tracer._dtype_counts.items()))
+        c.host_syncs = dict(sorted(tracer.host_syncs.items()))
+        c.seconds = time.perf_counter() - t0
+    finally:
+        tracer.release()
+    return c

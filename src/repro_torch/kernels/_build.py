@@ -147,3 +147,26 @@ def check(err: int, what: str) -> None:
     """Raise if a launch reported a CUDA error."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with error {err}")
+
+
+def abstract_outputs(what: str, inputs, specs) -> list[torch.Tensor]:
+    """Empty outputs of ``specs`` (``(shape, dtype)`` pairs) for a kernel's
+    ``abstract`` function, made in the fake mode of its inputs on their
+    device.  Every tensor input must be a fake tensor (the dry run's): a
+    real tensor raises, since only the kernel computes its result."""
+    from torch._subclasses.fake_tensor import FakeTensor
+    tensors = [t for t in inputs if isinstance(t, torch.Tensor)]
+    for t in tensors:
+        if not isinstance(t, FakeTensor):
+            raise TypeError(
+                f"{what}.abstract takes fake tensors (the dry run's); a real "
+                f"tensor goes to the kernel through kernels.ops")
+    with tensors[0].fake_mode:
+        return [torch.empty(shape, dtype=dt, device=tensors[0].device)
+                for shape, dt in specs]
+
+
+def record(name: str, flops: float, nbytes: float, outputs) -> None:
+    """One abstract kernel call's work, for the running dry run."""
+    from ..distributed import op_cost
+    op_cost.record_kernel(name, flops, nbytes, outputs)

@@ -79,3 +79,29 @@ def dtw_band(qs: torch.Tensor, xs: torch.Tensor, mask: torch.Tensor,
     _build.check(err, "dtw_band")
     launches += 1
     return out
+
+
+def abstract(qs: torch.Tensor, xs: torch.Tensor, mask: torch.Tensor,
+             cutoff2: torch.Tensor, r: int,
+             idx: torch.Tensor | None = None) -> torch.Tensor:
+    """The dry run's stand-in on fake tensors: an empty ``[Q, m]`` and the
+    call's work, recorded as ``dtw_band``.  Fake tensors hold no mask and
+    no cutoff, so the work is the most the call could need: every lane on
+    and none abandoned.  The queries, the candidate rows (``m`` shared,
+    ``Q·m`` per query or gathered, at most the collection's rows), the
+    cutoffs, mask and ``idx`` read once and the result written once
+    (bytes); five operations an in-band cell (operations)."""
+    Q, n = qs.shape
+    m = mask.shape[1]
+    rr = min(int(r), n - 1)
+    cells = n * (2 * rr + 1) - rr * (rr + 1)
+    if idx is not None:
+        rows = min(Q * m, xs.shape[0])
+    else:
+        rows = Q * m if xs.dim() == 3 else m
+    (out,) = _build.abstract_outputs(
+        "dtw_band", (qs, xs, mask, cutoff2, idx), [((Q, m), torch.float32)])
+    _build.record("dtw_band", 5 * Q * m * cells,
+                  4 * (Q * n + rows * n + Q + Q * m) + Q * m
+                  + (8 * Q * m if idx is not None else 0), (out,))
+    return out

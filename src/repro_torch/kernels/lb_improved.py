@@ -54,3 +54,19 @@ def lb_improved(x: torch.Tensor, qs: torch.Tensor, U: torch.Tensor,
     _build.check(err, "lb_improved")
     launches += 1
     return out
+
+
+def abstract(x: torch.Tensor, qs: torch.Tensor, U: torch.Tensor,
+             L: torch.Tensor, r: int) -> torch.Tensor:
+    """The dry run's stand-in on fake tensors: an empty ``[Q, m]`` and the
+    call's work, recorded as ``lb_improved``: the candidate rows, the
+    queries and both envelopes read once, the bounds written once (bytes);
+    twenty operations an element of ``[Q, m, n]`` (operations)."""
+    Q, n = qs.shape
+    m = x.shape[-2]
+    rows = Q * m if x.dim() == 3 else m
+    (out,) = _build.abstract_outputs("lb_improved", (x, qs, U, L),
+                                     [((Q, m), torch.float32)])
+    _build.record("lb_improved", 20 * Q * m * n,
+                  4 * (rows * n + 3 * Q * n + Q * m), (out,))
+    return out

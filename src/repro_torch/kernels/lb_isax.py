@@ -49,3 +49,18 @@ def lb_paa_interval(seg_lo: torch.Tensor, seg_hi: torch.Tensor,
     launches += 1
     return out
 
+
+def abstract(seg_lo: torch.Tensor, seg_hi: torch.Tensor, lo: torch.Tensor,
+             hi: torch.Tensor, n: int) -> torch.Tensor:
+    """The dry run's stand-in on fake tensors: an empty ``[Q, L]`` and the
+    call's work, recorded as ``lb_paa_interval``: the four tables read once
+    and the bounds written once (bytes); seven operations an element of
+    ``[Q, L, w]`` and the scale (operations)."""
+    Q, w = seg_lo.shape
+    L = lo.shape[0]
+    (out,) = _build.abstract_outputs("lb_paa_interval",
+                                     (seg_lo, seg_hi, lo, hi),
+                                     [((Q, L), torch.float32)])
+    _build.record("lb_paa_interval", 7 * Q * L * w + Q * L,
+                  4 * (2 * Q * w + 2 * L * w + Q * L), (out,))
+    return out

@@ -48,3 +48,20 @@ def lb_keogh(x: torch.Tensor, U: torch.Tensor, L: torch.Tensor
     _build.check(err, "lb_keogh")
     launches += 1
     return out
+
+
+def abstract(x: torch.Tensor, U: torch.Tensor, L: torch.Tensor
+             ) -> torch.Tensor:
+    """The dry run's stand-in on fake tensors: an empty ``[Q, m]`` and the
+    call's work, recorded as ``lb_keogh``: the candidate rows (``m``
+    shared, ``Q·m`` per query) and both envelopes read once, the bounds
+    written once (bytes); seven operations an element of ``[Q, m, n]``
+    (operations)."""
+    Q, n = U.shape
+    m = x.shape[-2]
+    rows = Q * m if x.dim() == 3 else m
+    (out,) = _build.abstract_outputs("lb_keogh", (x, U, L),
+                                     [((Q, m), torch.float32)])
+    _build.record("lb_keogh", 7 * Q * m * n,
+                  4 * (rows * n + 2 * Q * n + Q * m), (out,))
+    return out

@@ -49,3 +49,17 @@ def pairwise_l2(q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     _build.check(err, "pairwise_l2")
     launches += 1
     return out
+
+
+def abstract(q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """The dry run's stand-in on fake tensors: an empty ``[Q, X]`` and the
+    call's work, recorded as ``pairwise_l2``: each row read once and the
+    matrix written once (bytes); ``2·Q·X·n`` for the products, ``2·(Q+X)·n``
+    for the norms and 4 a distance for the epilogue (operations)."""
+    Q, n = q.shape
+    X = x.shape[0]
+    (out,) = _build.abstract_outputs("pairwise_l2", (q, x),
+                                     [((Q, X), torch.float32)])
+    _build.record("pairwise_l2", 2 * Q * X * n + 2 * (Q + X) * n + 4 * Q * X,
+                  4 * (Q * n + X * n + Q * X), (out,))
+    return out

@@ -49,3 +49,18 @@ def sax_encode(x: torch.Tensor, w: int, b: int
     _build.check(err, "sax_encode")
     launches += 1
     return paa, sax
+
+
+def abstract(x: torch.Tensor, w: int, b: int
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The dry run's stand-in on fake tensors: empty ``(paa f32 [B, w],
+    sax i32 [B, w])`` and the call's work, recorded as ``sax_encode``: the
+    rows read once, both tables written once and the ``2**b - 1``
+    breakpoints read (bytes); a sum a sample, a mean and ``b`` comparisons
+    a segment (operations)."""
+    B, n = x.shape
+    paa, sax = _build.abstract_outputs(
+        "sax_encode", (x,), [((B, w), torch.float32), ((B, w), torch.int32)])
+    _build.record("sax_encode", B * n + B * w + B * w * b,
+                  4 * (B * n + 2 * B * w + (2 ** b - 1)), (paa, sax))
+    return paa, sax

@@ -1,7 +1,10 @@
 """Device meshes for the entry points (port of ``repro.launch.mesh``).
 
-Functions, not module-level state, so importing touches no device.  A
-mesh is ``repro_torch.distributed.sharding``'s one-axis :class:`Mesh`.
+Functions, not module-level state, so importing touches no device.  The
+entry points' mesh is ``repro_torch.distributed.sharding``'s one-axis
+:class:`Mesh` of real devices; :func:`production_device_mesh` is the
+reference's named production mesh as a ``DeviceMesh`` over the ranks of a
+process group (the dry run's ``"fake"`` group, ``sharding.fake_world``).
 """
 from __future__ import annotations
 
@@ -21,6 +24,26 @@ def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
             f"a {'multi-pod' if multi_pod else 'single-pod'} mesh needs "
             f"{need} devices, {n} visible")
     return make_mesh([f"cuda:{i}" for i in range(need)])
+
+
+#: the reference's production meshes: (shape, axis names) by name
+PRODUCTION_MESHES = {
+    "pod_16x16": ((16, 16), ("data", "model")),
+    "multi_pod_2x16x16": ((2, 16, 16), ("pod", "data", "model")),
+}
+
+
+def production_device_mesh(*, multi_pod: bool = False,
+                           device: str | torch.device = "cuda"):
+    """The reference's 16×16 pod (``("data", "model")``) or 2×16×16
+    multi-pod (``("pod", "data", "model")``) as a named ``DeviceMesh`` over
+    the current process group, which must have 256 or 512 ranks (for the
+    dry run, ``sharding.fake_world``).  CUDA unless the caller asks for the
+    CPU."""
+    from repro_torch.distributed.sharding import named_mesh
+    shape, names = PRODUCTION_MESHES["multi_pod_2x16x16" if multi_pod
+                                     else "pod_16x16"]
+    return named_mesh(shape, names, device)
 
 
 def make_host_mesh(device: str = "cuda") -> Mesh:

@@ -1,11 +1,12 @@
-"""Aggregate dry-run artifacts into the EXPERIMENTS.md §Roofline tables
-(copy of ``repro.launch.summarize``).
+"""Aggregate dry-run artifacts into the §Roofline tables (copy of
+``repro.launch.summarize``).
 
     PYTHONPATH=src python -m repro_torch.launch.summarize [--dir artifacts/dryrun]
 
-Pure Python over JSON records.  The records are the reference's XLA
-dry-run artifacts (``repro.launch.dryrun``), which a torch program has no
-counterpart to produce; this copy reads them unchanged.
+Pure Python over JSON records: the port's own dry-run records
+(``repro_torch.launch.dryrun``: H100 roofline terms, per-device bytes from
+``distributed.op_cost``), or the reference's XLA records, which have the
+same keys (``cost_xla_raw`` where the port has ``cost_raw``).
 """
 from __future__ import annotations
 

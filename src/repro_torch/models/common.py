@@ -19,7 +19,7 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
-from repro_torch.distributed.sharding import shard
+from repro_torch.distributed.sharding import local, shard
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "float16": torch.float16}
@@ -87,6 +87,29 @@ def init_params(tree: Any, generator: torch.Generator, dtype: torch.dtype,
     leaf drawn from ``generator`` with the reference's distribution (the
     ``jax.random`` streams themselves cannot be reproduced)."""
     return map_tree(lambda s: init_one(s, generator, dtype, device), tree)
+
+
+def logical_tree(tree: Any) -> Any:
+    """A spec tree's logical axis names, leaf by leaf."""
+    return map_tree(lambda s: s.logical, tree)
+
+
+def abstract(tree: Any, dtype: torch.dtype,
+             device: str | torch.device = "cuda") -> Any:
+    """A spec tree's shapes and dtypes as fake tensors on ``device`` (the
+    reference's ``ShapeDtypeStruct`` tree; a leaf's own dtype wins), made
+    in the active ``FakeTensorMode`` or a new one.  Nothing is allocated.
+    CUDA unless the caller asks for the CPU; raises without CUDA."""
+    from torch._guards import detect_fake_mode
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.core.device_index import resolve_device
+    device = resolve_device(device)
+    mode = detect_fake_mode() or FakeTensorMode()
+    with mode:
+        return map_tree(lambda s: torch.empty(
+            s.shape, dtype=DTYPES[s.dtype] if s.dtype else dtype,
+            device=device), tree)
 
 
 # ---------------------------------------------------------------------------
@@ -210,6 +233,18 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     q = shard(q, "batch", "seq", "heads", None)
     k = shard(k, "batch", "seq", "heads", None)
     v = shard(v, "batch", "seq", "heads", None)
+    # on a mesh each device runs the loop on its own batch rows and heads
+    # (a product over b and h folded into one dimension has no sharding)
+    names = ("batch", "seq", "heads", None)
+    return local(_attention_core, (names,) * 3, names)(
+        q, k, v, causal=causal, window=window, chunk=chunk)
+
+
+def _attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool, window: int, chunk: int) -> torch.Tensor:
+    """:func:`attention`'s chunk loop over heads already broadcast."""
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
     scale = 1.0 / math.sqrt(d)
     chunk = min(chunk, sk)
     n_chunks = -(-sk // chunk)

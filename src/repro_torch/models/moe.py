@@ -14,13 +14,14 @@ carries them.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.distributed.sharding import shard
+from repro_torch.distributed.sharding import local, shard
 from .common import PSpec, swiglu
 
 
@@ -57,7 +58,9 @@ def top_k(probs: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
 
 def moe_apply(p, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     """``x [B, S, D]`` → ``[B, S, D]``; ``p`` holds ``moe_specs``' tensors
-    as attributes."""
+    as attributes.  On a mesh the dispatch and the combine run on each
+    device's batch rows (all experts' slots gathered for the combine) and
+    the expert products on each device's experts."""
     m = cfg.moe
     B, S, D = x.shape
     E, K = m.n_experts, m.top_k
@@ -65,6 +68,32 @@ def moe_apply(p, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     dtype = x.dtype
 
     logits = x @ p.router.to(dtype)
+    b3, b4, b2 = ("batch", None, None), ("batch", None, None, None), \
+        ("batch", None)
+    buf, e_flat, pos_c, w_flat, keep = local(
+        functools.partial(_dispatch, E=E, K=K, C=C), (b3, b3),
+        (b4, b2, b2, b2, b2))(x, logits)
+    buf = shard(buf, "batch", "experts", None, None)
+    ex = ("experts", None, None)
+    out_buf = local(_experts, (("batch", "experts", None, None), ex, ex, ex),
+                    ("batch", "experts", None, None))(
+        buf, p.w_gate.to(dtype), p.w_up.to(dtype), p.w_down.to(dtype))
+    out_buf = shard(out_buf, "batch", "experts", None, None)
+    y = local(functools.partial(_combine, S=S, K=K), (b4, b2, b2, b2, b2),
+              b3)(out_buf, e_flat, pos_c, w_flat, keep)
+
+    if m.shared_expert:
+        y = y + swiglu(x, p.sh_gate.to(dtype), p.sh_up.to(dtype),
+                       p.sh_down.to(dtype))
+    return y
+
+
+def _dispatch(x: torch.Tensor, logits: torch.Tensor, *, E: int, K: int,
+              C: int):
+    """Routing and the scatter into capacity buffers → ``(buf [B, E, C,
+    D], e_flat, pos_c, w_flat, keep)``."""
+    B, S, D = x.shape
+    dtype = x.dtype
     probs = torch.softmax(logits.float(), dim=-1)
     top_w, top_e = top_k(probs, K)                            # [B, S, K]
     top_w = top_w / torch.clamp_min(top_w.sum(-1, keepdim=True), 1e-9)
@@ -85,22 +114,27 @@ def moe_apply(p, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     # run in, and index_put_'s unordered accumulation on CUDA changes no bit.
     buf = torch.zeros((B, E, C, D), dtype=dtype, device=x.device)
     buf.index_put_((rows, e_flat, pos_c), x_rep, accumulate=True)
-    buf = shard(buf, "batch", "experts", None, None)
+    return buf, e_flat, pos_c, w_flat, keep
 
-    g = torch.einsum("becd,edf->becf", buf, p.w_gate.to(dtype))
-    u = torch.einsum("becd,edf->becf", buf, p.w_up.to(dtype))
+
+def _experts(buf: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+             w_down: torch.Tensor) -> torch.Tensor:
+    """Each expert's SwiGLU over its capacity slots."""
+    g = torch.einsum("becd,edf->becf", buf, w_gate)
+    u = torch.einsum("becd,edf->becf", buf, w_up)
     h = F.silu(g) * u
-    out_buf = torch.einsum("becf,efd->becd", h, p.w_down.to(dtype))
-    out_buf = shard(out_buf, "batch", "experts", None, None)
+    return torch.einsum("becf,efd->becd", h, w_down)
 
+
+def _combine(out_buf: torch.Tensor, e_flat: torch.Tensor,
+             pos_c: torch.Tensor, w_flat: torch.Tensor, keep: torch.Tensor,
+             *, S: int, K: int) -> torch.Tensor:
+    """Gather each token's expert outputs back and mix them by weight."""
+    B, D = out_buf.shape[0], out_buf.shape[-1]
+    rows = torch.arange(B, device=out_buf.device)[:, None].expand(B, S * K)
     y = out_buf[rows, e_flat, pos_c]                          # [B, T, D]
-    y = y * (w_flat * keep.float())[..., None].to(dtype)
-    y = y.reshape(B, S, K, D).sum(dim=2)
-
-    if m.shared_expert:
-        y = y + swiglu(x, p.sh_gate.to(dtype), p.sh_up.to(dtype),
-                       p.sh_down.to(dtype))
-    return y
+    y = y * (w_flat * keep.float())[..., None].to(out_buf.dtype)
+    return y.reshape(B, S, K, D).sum(dim=2)
 
 
 def aux_load_balance_loss(logits: torch.Tensor, top_e: torch.Tensor,

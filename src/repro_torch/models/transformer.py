@@ -35,9 +35,11 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.device_index import resolve_device
-from repro_torch.distributed.sharding import shard
+from repro_torch.distributed.sharding import (batch_local, divisible,
+                                              get_device_mesh, like, shard,
+                                              write_slot)
 from . import griffin, moe as moe_mod, xlstm
-from .common import (DTYPES, PSpec, attention, decode_attention,
+from .common import (DTYPES, PSpec, abstract, attention, decode_attention,
                      default_scale, gelu_mlp, init_one, init_params as
                      init_tree, layer_norm_nonparam, leaves,
                      map_tree, norm, rms_norm, rope, sinusoidal,
@@ -231,21 +233,46 @@ def _project_qkv(p: Params, xq: torch.Tensor, xkv: torch.Tensor,
     dtype = xq.dtype
     B, Sq, _ = xq.shape
     Skv = xkv.shape[1]
-    q = (xq @ p.wq.to(dtype)).reshape(B, Sq, cfg.n_heads, cfg.head_dim)
-    k = (xkv @ p.wk.to(dtype)).reshape(B, Skv, cfg.n_kv_heads, cfg.head_dim)
-    v = (xkv @ p.wv.to(dtype)).reshape(B, Skv, cfg.n_kv_heads, cfg.head_dim)
+    wk, wv = p.wk.to(dtype), p.wv.to(dtype)
+    # on a mesh each device projects its own heads where the model axis
+    # divides the head count (kv heads too, as the reference's compiler
+    # does; the weights stay placed as stored), else every head
+    hq, hkv = _heads(cfg.n_heads), _heads(cfg.n_kv_heads)
+    if hkv is not None:
+        wk, wv = shard(wk, "embed", "heads"), shard(wv, "embed", "heads")
+    q = shard(xq @ p.wq.to(dtype), "batch", "seq", hq).reshape(
+        B, Sq, cfg.n_heads, cfg.head_dim)
+    k = shard(xkv @ wk, "batch", "seq", hkv).reshape(
+        B, Skv, cfg.n_kv_heads, cfg.head_dim)
+    v = shard(xkv @ wv, "batch", "seq", hkv).reshape(
+        B, Skv, cfg.n_kv_heads, cfg.head_dim)
     if getattr(p, "qn", None) is not None:
         q = rms_norm(q, p.qn)
         k = rms_norm(k, p.kn)
     return q, k, v
 
 
+def _heads(n: int) -> str | None:
+    """``"heads"`` where the mesh's model axis divides ``n`` heads (always
+    without a mesh), else ``None``: a flat ``heads × head_dim`` dimension
+    is sharded only where whole heads land on each device."""
+    return "heads" if divisible(n, ("heads",), 0) else None
+
+
+def _replicated(h: torch.Tensor) -> torch.Tensor:
+    """A normed activation entering a block's products: on a mesh it is
+    batch-sharded and whole along the sequence and features (the
+    reference's compiler places it so from the products' own shardings),
+    so the products shard by heads and by the FFN width; ``h`` itself
+    without one."""
+    return shard(h, "batch", "seq", None)
+
+
 def _write(buf: torch.Tensor, new: torch.Tensor, at: int) -> torch.Tensor:
     """``dynamic_update_slice`` of one position along axis 1, in place; the
     start clamps into range as XLA clamps it."""
     at = min(max(at, 0), buf.shape[1] - 1)
-    buf[:, at:at + 1] = new.to(buf.dtype)
-    return buf
+    return write_slot(buf, new, at)
 
 
 def _self_attention(p: Params, x: torch.Tensor, ctx: Ctx, cache: dict | None,
@@ -253,7 +280,7 @@ def _self_attention(p: Params, x: torch.Tensor, ctx: Ctx, cache: dict | None,
                     ) -> tuple[torch.Tensor, dict | None]:
     cfg = ctx.cfg
     dtype = x.dtype
-    h = norm(x, getattr(p, "norm", None), cfg.nonparam_norm)
+    h = _replicated(norm(x, getattr(p, "norm", None), cfg.nonparam_norm))
     q, k, v = _project_qkv(p, h, h, cfg)
     new_cache = None
     if ctx.mode == "decode":
@@ -291,8 +318,9 @@ def _self_attention(p: Params, x: torch.Tensor, ctx: Ctx, cache: dict | None,
                 new_cache = {"k": k.to(dtype), "v": v.to(dtype)}
     out = shard(out, "batch", "seq", "heads", None)
     B, Sq = out.shape[:2]
-    o = out.reshape(B, Sq, cfg.q_dim) @ p.wo.to(dtype)
-    return x + o, new_cache
+    o = shard(out.reshape(B, Sq, cfg.q_dim), "batch", "seq",
+              _heads(cfg.n_heads)) @ p.wo.to(dtype)
+    return x + like(o, x), new_cache
 
 
 def _cross_attention(p: Params, x: torch.Tensor, ctx: Ctx, cache: dict | None
@@ -301,11 +329,13 @@ def _cross_attention(p: Params, x: torch.Tensor, ctx: Ctx, cache: dict | None
     (prefill/train) or from the cache (decode, over the whole source)."""
     cfg = ctx.cfg
     dtype = x.dtype
-    h = norm(x, getattr(p, "norm", None), cfg.nonparam_norm)
+    h = _replicated(norm(x, getattr(p, "norm", None), cfg.nonparam_norm))
     new_cache = None
     if ctx.mode == "decode":
         B, Sq, _ = h.shape
-        q = (h @ p.wq.to(dtype)).reshape(B, Sq, cfg.n_heads, cfg.head_dim)
+        q = shard(h @ p.wq.to(dtype), "batch", "seq",
+                  _heads(cfg.n_heads)).reshape(
+            B, Sq, cfg.n_heads, cfg.head_dim)
         k, v = cache["xk"], cache["xv"]
         out = decode_attention(q, k, v, k.shape[1] - 1)
         new_cache = {"xk": k, "xv": v}
@@ -315,17 +345,19 @@ def _cross_attention(p: Params, x: torch.Tensor, ctx: Ctx, cache: dict | None
         if ctx.mode == "prefill":
             new_cache = {"xk": k.to(dtype), "xv": v.to(dtype)}
     B, Sq = out.shape[:2]
-    o = out.reshape(B, Sq, cfg.q_dim) @ p.wo.to(dtype)
-    return x + o, new_cache
+    o = shard(out.reshape(B, Sq, cfg.q_dim), "batch", "seq",
+              _heads(cfg.n_heads)) @ p.wo.to(dtype)
+    return x + like(o, x), new_cache
 
 
 def _ffn(p: Params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     dtype = x.dtype
-    h = norm(x, getattr(p, "norm", None), cfg.nonparam_norm)
+    h = _replicated(norm(x, getattr(p, "norm", None), cfg.nonparam_norm))
     if cfg.family == "encdec":
-        return x + gelu_mlp(h, p.w_up.to(dtype), p.w_down.to(dtype))
-    return x + swiglu(h, p.w_gate.to(dtype), p.w_up.to(dtype),
-                      p.w_down.to(dtype))
+        return x + like(gelu_mlp(h, p.w_up.to(dtype), p.w_down.to(dtype)),
+                        x)
+    return x + like(swiglu(h, p.w_gate.to(dtype), p.w_up.to(dtype),
+                           p.w_down.to(dtype)), x)
 
 
 def _residual_shard(x: torch.Tensor, ctx: Ctx) -> torch.Tensor:
@@ -353,8 +385,9 @@ class MoEBlock(Params):
         x = _residual_shard(x, ctx)
         x, c1 = _self_attention(self.attn, x, ctx, cache, causal=True)
         x = _residual_shard(x, ctx)
-        h = norm(x, getattr(self, "moe_norm", None), cfg.nonparam_norm)
-        return x + moe_mod.moe_apply(self.moe, h, cfg), c1
+        h = _replicated(norm(x, getattr(self, "moe_norm", None),
+                             cfg.nonparam_norm))
+        return x + like(moe_mod.moe_apply(self.moe, h, cfg), x), c1
 
 
 class LAttnBlock(Params):
@@ -395,13 +428,21 @@ class XAttnBlock(Params):
         return _ffn(self.ffn, x, ctx.cfg), c1
 
 
+def _recurrent(fn, p: Params, x: torch.Tensor, ctx: Ctx, cache):
+    """A recurrent cell ``fn(p, x, cfg, state)``; on a mesh, on each
+    device's batch rows with the cell's weights whole (DTensor has no
+    sharding strategy for its scans and gates)."""
+    out = batch_local(lambda b, w: fn(w, b[0], ctx.cfg, b[1]), (x, cache), p)
+    return out[0], out[1]
+
+
 class RGLRUBlock(Params):
     """Griffin recurrent block then an FFN."""
 
     def forward(self, x, ctx: Ctx, cache):
         x = _residual_shard(x, ctx)
         fn = griffin.rglru_decode if ctx.mode == "decode" else griffin.rglru_apply
-        x, st = fn(self.rec, x, ctx.cfg, cache)
+        x, st = _recurrent(fn, self.rec, x, ctx, cache)
         return _ffn(self.ffn, x, ctx.cfg), st
 
 
@@ -409,14 +450,14 @@ class MLSTMBlock(Params):
     def forward(self, x, ctx: Ctx, cache):
         x = _residual_shard(x, ctx)
         fn = xlstm.mlstm_decode if ctx.mode == "decode" else xlstm.mlstm_apply
-        return fn(self.cell, x, ctx.cfg, cache)
+        return _recurrent(fn, self.cell, x, ctx, cache)
 
 
 class SLSTMBlock(Params):
     def forward(self, x, ctx: Ctx, cache):
         x = _residual_shard(x, ctx)
         fn = xlstm.slstm_decode if ctx.mode == "decode" else xlstm.slstm_apply
-        return fn(self.cell, x, ctx.cfg, cache)
+        return _recurrent(fn, self.cell, x, ctx, cache)
 
 
 BLOCKS = {"attn": AttnBlock, "moe": MoEBlock, "lattn": LAttnBlock,
@@ -527,7 +568,13 @@ def _embed(model: Transformer, tokens: torch.Tensor,
            pos_offset: int | None = None) -> torch.Tensor:
     cfg = model.cfg
     dtype = DTYPES[cfg.compute_dtype]
-    x = model.embed[tokens.long()].to(dtype)
+    if get_device_mesh() is None:
+        x = model.embed[tokens.long()].to(dtype)
+    else:
+        # the same rows: DTensor shards F.embedding's lookup and its
+        # backward (the index form's backward, an index_put, it does not
+        # in every torch version)
+        x = torch.nn.functional.embedding(tokens.long(), model.embed).to(dtype)
     if not cfg.rope_theta:                          # sinusoidal positions
         if pos_offset is None:
             pe = sinusoidal(tokens.shape[1], cfg.d_model, x.device)
@@ -553,7 +600,7 @@ def _logits(model: Transformer, x: torch.Tensor) -> torch.Tensor:
         x = rms_norm(x, model.final_norm)
     elif model.cfg.nonparam_norm:
         x = layer_norm_nonparam(x)
-    logits = x @ model.lm_head.to(x.dtype)
+    logits = _replicated(x) @ model.lm_head.to(x.dtype)
     return shard(logits, "batch", "seq", "vocab")
 
 
@@ -661,6 +708,22 @@ def grow_cache(caches: dict, prefix: int, total: int) -> dict:
     if "rem" in caches:
         out["rem"] = grow(caches["rem"])
     return out
+
+
+def abstract_params(cfg: ArchConfig,
+                    device: str | torch.device = "cuda") -> dict:
+    """The parameter tree's shapes and dtypes as fake tensors, in the
+    stacked layout of :func:`init_specs` (the reference's
+    ``abstract_params``)."""
+    return abstract(init_specs(cfg), DTYPES[cfg.param_dtype], device)
+
+
+def abstract_cache(cfg: ArchConfig, batch: int, seq: int,
+                   device: str | torch.device = "cuda") -> dict:
+    """The cache tree's shapes and dtypes as fake tensors, in the stacked
+    layout of :func:`cache_specs`."""
+    return abstract(cache_specs(cfg, batch, seq), DTYPES[cfg.compute_dtype],
+                    device)
 
 
 def count_params(cfg: ArchConfig) -> int:

@@ -10,9 +10,8 @@ norms and embeddings included, bias corrections ``1 - b ** step`` in
 float32, the elementwise math in ``math_dtype`` and the moments stored in
 ``moment_dtype`` (bfloat16 for the 405B config).  It runs under
 ``torch.no_grad()`` and writes the parameters and moments in place.
-
-The reference's ``abstract_state`` is a ``ShapeDtypeStruct`` stand-in for
-its XLA dry run, which a torch program has no use for; it is not ported.
+:func:`abstract_state` is the state's shapes and dtypes as fake tensors,
+for the dry run.
 """
 from __future__ import annotations
 
@@ -68,6 +67,19 @@ def init(params: Any, cfg: AdamWConfig) -> dict:
     return {"m": map_tree(zeros, params),
             "v": map_tree(zeros, params),
             "step": torch.zeros((), dtype=torch.int32, device=device)}
+
+
+def abstract_state(params_abs: Any, cfg: AdamWConfig) -> dict:
+    """:func:`init`'s shapes and dtypes as fake tensors, beside the fake
+    parameters ``params_abs`` (any layout) and on their device."""
+    from torch._guards import detect_fake_mode
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    mdt = DTYPES[cfg.moment_dtype]
+    device = leaves(params_abs)[0].device
+    with detect_fake_mode() or FakeTensorMode():
+        z = lambda p: torch.empty(p.shape, dtype=mdt, device=device)  # noqa: E731
+        return {"m": map_tree(z, params_abs), "v": map_tree(z, params_abs),
+                "step": torch.empty((), dtype=torch.int32, device=device)}
 
 
 def state_logical(params_logical: Any) -> dict:

@@ -15,6 +15,7 @@ from typing import Any, Callable
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed.sharding import batch_rows
 from repro_torch.models.common import DTYPES, leaves, map_tree
 from repro_torch.models.registry import loss_fn
 from repro_torch.models.weights import param_tree
@@ -56,12 +57,12 @@ def make_microbatched_train_step(cfg: ArchConfig, ocfg: opt.AdamWConfig,
     def train_step(model, opt_state, batch):
         batch = to_device(batch, model.embed.device)
         params = param_tree(model)
-        acc = map_tree(lambda p: torch.zeros(p.shape, dtype=acc_dt,
-                                             device=p.device), params)
+        acc = map_tree(lambda p: torch.zeros_like(p, dtype=acc_dt), params)
         per = batch["tokens"].shape[0] // n_micro
         losses = []
         for i in range(n_micro):
-            mb = {k: v[i * per:(i + 1) * per] for k, v in batch.items()}
+            mb = {k: batch_rows(v, i * per, (i + 1) * per)
+                  for k, v in batch.items()}
             loss, grads = _loss_and_grads(model, mb)
             with torch.no_grad():
                 for a, g in zip(leaves(acc), leaves(grads)):
