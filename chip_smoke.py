@@ -52,7 +52,10 @@ Phases, each printed with its seconds:
    queries x 128 lanes, with the walk's mask and cutoff, recorded from a
    rerun of batch 0): bitwise against its twin, its time, and its bound
    from the cells each lane ran before it was abandoned;
-8. DTW profile: one more DTW batch under ``torch.profiler``;
+8. DTW profile: one more DTW batch under ``torch.profiler``, its CUDA
+   activity alone (kernel rows, no operator rows: the profiler takes
+   longer to read a DTW batch's trace than to record it, less than half
+   as long without the host's events);
 9. approximate and extended search (paper Alg. 4) on the same
    ``DeviceIndex`` and queries (no second layout): ED
    ``approximate_search_device_batch`` at nbr 1, 4, 16 and ED
@@ -214,18 +217,29 @@ Phases, each printed with its seconds:
    placement, per-device op cost, the H100 roofline; it reaches the six
    kernels through their ``abstract`` functions): (a) in a child process,
    OLMo-1B's train_4k and decode_32k and the Dumpy cells build, search,
-   search_approx, search_extended, search_bucket and serving on the
-   16 x 16 production mesh (a fake process group of 256 ranks): no record
-   has an error; each one's bottleneck, step bound and GiB a device; (b)
+   search_sharded, search_dtw, search_approx, search_extended,
+   search_bucket and serving on the 16 x 16 production mesh (a fake
+   process group of 256 ranks): no record has an error or a skip; each
+   one's bottleneck, step bound, GiB a device and the trip counts of the
+   loops it counts by trip (the exact cells' spans); (b)
    on a 1 x 1 mesh against the card: the ``100m`` train step at 8 x 512
    and OLMo-1B's decode step at B 4 over a 64-position cache, the dry
    run's FLOPs equal to ``FlopCounterMode`` over the real step, its peak
    beside ``max_memory_allocated`` over the step, the measured step no
    faster than the dry run's bound; the ``search`` cell at
    ``[64, N, 256]``, its ``pairwise_l2`` term within 1% of phase 12 (c)'s
-   bound and no more than its time; (c) each kernel's ``abstract`` work at
-   its main shape (``dtw_band``: the wide path, every lane on) within 1% of
-   this run's bound there, the time measured there no less.
+   bound and no more than its time; the exact ED and DTW ``cluster``
+   searches at batch 64 counted over fake copies of the resident layout
+   (run right after phase 13, which phase 14 frees): ED's ``pairwise_l2``
+   and ``lb_paa_interval`` calls equal to phase 13 (d)'s census of a real
+   batch (every span runs there), DTW's three kernels at least the
+   census's (its walk stops early, the count does not), one real batch
+   each timed, ED's no faster than its bound (DTW's bound, every walk
+   chunk, is the worst case and no floor: printed, not gated), DTW's
+   predicted peak beside ``max_memory_allocated``; (c) each kernel's
+   ``abstract`` work at its main shape (``dtw_band``: the wide path, every
+   lane on) within 1% of this run's bound there, the time measured there
+   no less.
 """
 from __future__ import annotations
 
@@ -346,8 +360,9 @@ FULL_B, FULL_S, FULL_STEPS = 4, 2048, 3
 # the steps timed against the 1 x 1 bounds, and PERF.md's hand bound of
 # OLMo-1B's decode step (the float32 weights read once)
 DRYRUN_SHAPES = ("train_4k", "decode_32k")
-DRYRUN_KINDS = ("build", "search", "search_approx", "search_extended",
-                "search_bucket", "serving")
+DRYRUN_KINDS = ("build", "search", "search_sharded", "search_dtw",
+                "search_approx", "search_extended", "search_bucket",
+                "serving")
 DRYRUN_TIMEOUT_S, DRYRUN_STEPS = 300, 3
 OLMO_DECODE_HAND_BOUND_MS = 1.413
 
@@ -1303,16 +1318,23 @@ def check_exact(np, ids, d, bd, bi, true_dist, k) -> int:
     return tied
 
 
-def profile_batch(torch, search, index, qb, **kw) -> None:
+def profile_batch(torch, search, index, qb, host_ops: bool = True,
+                  **kw) -> None:
     """One batch of the main path under ``torch.profiler``: device time by
     kernel, and the device's busy share of the batch's wall time (the
     profiler's own overhead lengthens the wall time, so the share is a
     lower bound).  The busy time sums the device-side rows alone (kernels,
-    copies): an operator row's self device time repeats its kernels'."""
+    copies): an operator row's self device time repeats its kernels'.
+    ``host_ops=False`` records the CUDA activity alone: kernel rows, no
+    operator rows, and less than half the trace to read (a DTW batch's
+    took ~90 s with both and ~40 s without on an H100 machine's host,
+    ``scripts/probe_profile_cost.py``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CUDA]
+    if host_ops:
+        acts.insert(0, ProfilerActivity.CPU)
+    with profile(activities=acts) as prof:
         t0 = time.perf_counter()
         # lint: allow-timing: the search returns host arrays (synced)
         search(index, qb, K, chunk=CHUNK, **kw)
@@ -1323,7 +1345,8 @@ def profile_batch(torch, search, index, qb, **kw) -> None:
     op_us = sum(getattr(e, "self_device_time_total", 0.0) for e in events)
     top = sorted(events, key=lambda e: getattr(e, "self_device_time_total",
                                                0.0), reverse=True)[:10]
-    print(f"  profiled batch: wall {wall:.3f} s, device busy "
+    print(f"  profiled batch{'' if host_ops else ' (CUDA activity alone)'}:"
+          f" wall {wall:.3f} s, device busy "
           f"{device_us / 1e6:.4f} s ({100 * device_us / 1e6 / wall:.1f}% of "
           f"wall; not measured if 0; all rows summed, operators and their "
           f"kernels both: {op_us / 1e6:.4f} s)")
@@ -3807,7 +3830,8 @@ def lm_entry_phase(torch, np, mods, smi, device: str = "cuda") -> dict:
 def dryrun_start(out_dir: Path, device: str = "cuda") -> subprocess.Popen:
     """Phase 16 (a), started in the background: ``launch.dryrun`` on the
     16 x 16 production mesh (a fake process group of 256 ranks, fake CUDA
-    tensors) for OLMo-1B's train_4k and decode_32k and six Dumpy cells."""
+    tensors) for OLMo-1B's train_4k and decode_32k and eight Dumpy
+    cells."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     return subprocess.Popen(
         [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
@@ -3819,8 +3843,9 @@ def dryrun_start(out_dir: Path, device: str = "cuda") -> subprocess.Popen:
 
 
 def dryrun_cells(proc: subprocess.Popen, out_dir: Path, smi) -> dict:
-    """Phase 16 (a), collected: every record without ``error``, its
-    bottleneck, step bound and GiB a device printed."""
+    """Phase 16 (a), collected: every record without ``error`` or a skip,
+    its bottleneck, step bound, GiB a device and loop trip counts
+    printed."""
     try:
         log, _ = proc.communicate(timeout=DRYRUN_TIMEOUT_S)
     except subprocess.TimeoutExpired:
@@ -3841,15 +3866,21 @@ def dryrun_cells(proc: subprocess.Popen, out_dir: Path, smi) -> dict:
             fail(f"dry run {tag}: {rec.get('error') or rec.get('skipped')}")
         r = rec["roofline"]
         gib = rec["memory"]["peak_per_device"] / 2**30
+        loops = rec["cost"]["loops"]
         out[tag] = dict(bottleneck=r["bottleneck"], step_s=r["step_s"],
                         gib_per_device=gib, analyze_s=rec["compile_s"],
                         flops=rec["cost"]["flops_per_device"],
-                        collective_bytes=rec["collectives"]["total_bytes"])
+                        collective_bytes=rec["collectives"]["total_bytes"],
+                        loops=loops)
         print(f"  (a) {tag}: bottleneck {r['bottleneck']}, step bound "
               f"{r['step_s'] * 1e3:.4f} ms (compute {r['compute_s'] * 1e3:.4f}"
               f" / memory {r['memory_s'] * 1e3:.4f} / collective "
               f"{r['collective_s'] * 1e3:.4f} ms), {gib:.3f} GiB a device, "
-              f"counted in {rec['compile_s']} s")
+              f"loops by trip count {loops or 'none'}, counted in "
+              f"{rec['compile_s']} s")
+    for kind in ("search_sharded", "search_dtw"):
+        if not out[f"dumpy-{kind}__pod_16x16"]["loops"]:
+            fail(f"dry run dumpy-{kind}: no loop counted by its trips")
     print(f"  (a) bounds from data-sheet peaks at 700 W; card here: {smi}")
     return out
 
@@ -3988,6 +4019,98 @@ def dryrun_one_device(torch, np, smi, device: str = "cuda") -> dict:
     return out
 
 
+def dryrun_exact(torch, sd, index, dev, batches, dtw_batches,
+                 census: dict, n_series: int, smi) -> dict:
+    """Phase 16 (b)'s exact cells on the resident layout ``dev`` (run after
+    phase 13; phase 14 frees it): ``lower_exact_on`` over fake copies of
+    ``dev`` on a 1 x 1 mesh, ED and DTW ``cluster`` at batch 64, each
+    against phase 13 (d)'s ``census`` of a real batch and one real batch
+    timed here.  ED: ``pairwise_l2`` once a span of the layout, as many as
+    the census saw (every span runs there), ``lb_paa_interval`` as many,
+    the batch no faster than the bound.  DTW: each of its three kernels at
+    least the census's; its bound counts every walk chunk, the worst case:
+    more work than a batch whose walk stops early does, so no floor on its
+    time, and printed as the worst case, not gated.  Both: the predicted
+    peak printed beside ``max_memory_allocated`` (not gated)."""
+    from repro_torch.core import distributed as D
+    from repro_torch.core.metric import resolve
+    from repro_torch.distributed import roofline
+
+    cuda = dev.device.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    W = dev.win_start.shape[1]
+    kk = sd._result_margin(dev, K) + 8
+    out = {}
+    for label, qb, kw in (
+            ("exact ED", batches[0], dict(metric="ed")),
+            ("exact DTW cluster", dtw_batches[0],
+             dict(metric="dtw", band=BAND, order="cluster"))):
+        met = resolve(kw["metric"], LENGTH, kw.get("band"), kw.get("order"))
+        # lint: allow-timing: the count runs on the host (fake tensors)
+        t1 = time.perf_counter()
+        cost = D.lower_exact_on(dev, k=kk, q_batch=len(qb),
+                                metric=met).analyze()
+        t_dry = time.perf_counter() - t1
+        rl = roofline.analyze(
+            flops_per_device=cost.flops, bytes_per_device=cost.hbm_bytes,
+            collective_bytes_per_device=0.0, n_devices=1,
+            model_flops=2.0 * BATCH * n_series * LENGTH,
+            flops_by_dtype=cost.flops_by_dtype, inter_host_bytes=0.0)
+        sync()
+        base = torch.cuda.memory_allocated() if cuda else 0
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        # lint: allow-timing: the batch ends on host results
+        t1 = time.perf_counter()
+        sd.exact_search_device_batch(index, qb, K, chunk=CHUNK, dev=dev,
+                                     **kw)
+        sync()
+        ms = (time.perf_counter() - t1) * 1e3
+        peak = torch.cuda.max_memory_allocated() - base if cuda else None
+        dry = {n: e["calls"] for n, e in cost.kernels.items()}
+        real = census[label]["kernel_calls"]
+        bound_ms = rl.step_s * 1e3
+        temp = cost.peak_bytes - cost.argument_bytes
+        # ED's bound is a floor (every span runs); DTW's the worst case
+        floor = label == "exact ED"
+        what = "bound" if floor else "worst-case bound"
+        out[label] = dict(
+            loops=cost.loops, calls_dryrun=dry, calls_census=real,
+            flops=cost.flops, hbm_bytes=cost.hbm_bytes,
+            flops_by_dtype=cost.flops_by_dtype, bound_ms=bound_ms,
+            bound_is_floor=floor, bottleneck=rl.bottleneck, batch_ms=ms,
+            measured_over_bound=ms / bound_ms,
+            peak_over_layout_dryrun=temp, peak_over_resident_card=peak,
+            dryrun_s=t_dry)
+        print(f"  (b) {label} [{len(qb)} x {dev.db.shape[1]} x {LENGTH}] on "
+              f"a 1 x 1 mesh over fake copies of the resident layout: loops "
+              f"{cost.loops}; kernel calls {dry} (dry run, every trip) vs "
+              f"{real} (phase 13 (d) census); {what} {bound_ms:.6f} ms "
+              f"({rl.bottleneck}; compute {rl.compute_s * 1e3:.6f} / memory "
+              f"{rl.memory_s * 1e3:.6f} ms), one batch {ms:.3f} ms, "
+              f"measured / {what} {ms / bound_ms:.2f}; peak above the layout "
+              f"{temp} B predicted vs {peak} B max_memory_allocated above "
+              f"the resident (gap {None if peak is None else peak - temp} B, "
+              f"not gated) (dry run {t_dry:.1f} s) [{smi}]")
+        if label == "exact ED":
+            if cost.loops != {"span": W} or dry["pairwise_l2"] != W:
+                fail(f"exact ED dry run: loops {cost.loops}, "
+                     f"{dry['pairwise_l2']} pairwise_l2 calls for {W} spans")
+            for name in ("pairwise_l2", "lb_paa_interval"):
+                if dry[name] != real.get(name):
+                    fail(f"exact ED dry run: {dry[name]} {name} calls, the "
+                         f"census of a real batch {real.get(name)}")
+            if ms < bound_ms:
+                fail(f"{label}: a batch took {ms:.3f} ms, under its dry-run "
+                     f"bound {bound_ms:.6f} ms")
+        else:
+            for name in ("lb_keogh", "lb_improved", "dtw_band"):
+                if dry.get(name, 0) < real.get(name, 0) or not dry.get(name):
+                    fail(f"exact DTW dry run: {dry.get(name)} {name} calls, "
+                         f"under the census's {real.get(name)}")
+    return out
+
+
 def dryrun_kernels(torch, rows, distributed, n_series: int, smi,
                    device: str = "cuda") -> dict:
     """Phase 16 (b)'s search cell and (c): ``lower_search_oneshot`` on a
@@ -4081,11 +4204,15 @@ def dryrun_kernels(torch, rows, distributed, n_series: int, smi,
 
 
 def dryrun_phase(torch, np, rows, distributed, n_series: int, smi,
-                 proc: subprocess.Popen, out_dir: Path) -> dict:
+                 proc: subprocess.Popen, out_dir: Path,
+                 exact: dict | None = None) -> dict:
     """Phase 16: the dry run, (b) and (c) while (a) runs in its own
-    process (killed if the phase fails first)."""
+    process (killed if the phase fails first); ``exact`` is (b)'s exact
+    cells, counted before phase 14 (:func:`dryrun_exact`)."""
     try:
         out = {"one_device": dryrun_one_device(torch, np, smi)}
+        if exact is not None:
+            out["exact"] = exact
         if rows is not None:
             out["kernels"] = dryrun_kernels(torch, rows, distributed,
                                             n_series, smi)
@@ -4360,7 +4487,7 @@ def main() -> None:
     # ---- 8. DTW: one profiled batch --------------------------------------------
     t0 = time.perf_counter()
     profile_batch(torch, exact_search_device_batch, index, dtw_batches[1],
-                  metric="dtw", band=BAND)
+                  host_ops=False, metric="dtw", band=BAND)
     phase("DTW profile", t0)
 
     # ---- 9. approximate and extended search (paper Alg. 4) -------------------
@@ -4415,6 +4542,13 @@ def main() -> None:
     print(json.dumps({"analysis": analysis}))
     phase("analysis gates", t0)
 
+    # ---- 16 (b), the exact cells: here, while the layout is resident --------
+    t0 = time.perf_counter()
+    dry_exact = dryrun_exact(torch, search_device, index, dev, batches,
+                             dtw_batches, analysis["main_path"],
+                             args.n_series, smi)
+    phase("dry run (b): exact cells", t0)
+
     # ---- 14. the LM substrate ---------------------------------------------------
     t0 = time.perf_counter()
     del index, dev
@@ -4432,7 +4566,8 @@ def main() -> None:
     t0 = time.perf_counter()
     proc = dryrun_start(dry_dir)
     print(json.dumps({"dryrun": dryrun_phase(
-        torch, np, rows, distributed, args.n_series, smi, proc, dry_dir)}))
+        torch, np, rows, distributed, args.n_series, smi, proc, dry_dir,
+        dry_exact)}))
     phase("dry run", t0)
     print(f"[phase] whole run: {time.perf_counter() - t_run:.3f} s")
 

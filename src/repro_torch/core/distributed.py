@@ -31,12 +31,18 @@ production mesh (``launch.mesh.production_device_mesh``) a device runs one
 shard's program at the shard's shapes, the shard count being the mesh's
 pod × data (:func:`_mesh_shards`: 16 shards of 262 144 rows on 16×16, 32
 of 131 072 on 2×16×16), and the merge of the shards' ``[Q, k]`` lists
-counts as an all-gather of ``(S - 1)·Q·k·8`` bytes.  The exact searches
-(``search_sharded``, ``search_dtw``) are skipped: their span loop reads
-device values on the host, which fake tensors do not hold.
+counts as an all-gather of ``(S - 1)·Q·k·8`` bytes.
+
+The exact searches (``search_sharded``, ``search_dtw``,
+``search_degraded``) read the device on the host: the span schedule, the
+stop tests.  Their dry run is the reference's worst case: each loop's body
+runs once on fake tensors and ``op_cost.scaled`` counts it once a trip of
+a loop that runs to its end (every span, every LB slab, every walk chunk),
+as ``hlo_cost`` scales a ``while`` body by its trip count.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import numpy as np
@@ -186,16 +192,6 @@ def search_distributed(index: DumpyIndex, queries: np.ndarray, k: int,
 # the dry run's device programs (counted on fake tensors)
 # ---------------------------------------------------------------------------
 
-#: why the exact cells have no dry run: the reads of device values that
-#: drive their host loops (ROADMAP B4, B5 make the step a fixed-shape
-#: program)
-EXACT_SKIP = ("the exact span loop reads the device on the host: the "
-              "sorted span schedule goes to the host once a shard "
-              "(core/search_device.py:347-348) and a bool stop test runs "
-              "every STOP_CHECK_EVERY spans (:357-360; the DTW lane walk's "
-              "bool(running), :459); fake tensors hold no values to read")
-
-
 def _mesh_shards(mesh) -> int:
     """Shards of a Dumpy index on ``mesh``: its pod × data size (the model
     axis replicates)."""
@@ -288,22 +284,149 @@ def _index_args(mesh, n_series, length, w, chunk, n_leaves, q_batch,
         _fake(s, dt, device) for s, dt in extra)
 
 
-def lower_search_sharded(mesh, **_):
-    """The sharded exact search (ED, or DTW with ``metric``): skipped
-    (:data:`EXACT_SKIP`)."""
+def _shard_knn_counted(dev, s: int, prep: tuple, qs: torch.Tensor, k: int,
+                       metric):
+    """``search_device._shard_knn`` as the dry run counts it → ``(topd,
+    topi, vis, stats)``: the prologue, then one span counted W times, the
+    worst case (every span runs: start ``i·chunk``, lead 0, ``chunk`` rows
+    alive); no schedule download, no stop test."""
+    from ..distributed import op_cost
+    from .search_device import _span_carry, _span_prologue, _span_step
+    slabs, n_sub, win_lb, _, _ = _span_prologue(dev, s, prep, qs, metric)
+    carry = _span_carry(qs.shape[0], k, qs.device)
+    return op_cost.scaled("span", win_lb.shape[1], _span_step, metric, qs,
+                          prep, slabs, win_lb, dev.chunk, n_sub, carry, 0, 0,
+                          0, dev.chunk)
+
+
+def _lb_tables_counted(db_s, alive_s, qs, env_lo, env_hi, r: int) -> tuple:
+    """Stage 1 of ``search_device._lane_knn``: one LB slab counted once a
+    slab."""
+    from ..distributed import op_cost
+    from .search_device import _lb_init, _lb_slab, _lb_trips
+    Tp = db_s.shape[0]
+    tables = _lb_init(qs.shape[0], Tp, qs.device)
+    return op_cost.scaled("lb_slab", _lb_trips(Tp), _lb_slab, db_s, alive_s,
+                          qs, env_lo, env_hi, r, tables, 0)
+
+
+def _lane_walk_counted(db_s, ids_s, qs, order, lbi_s, lbk_s, topd, topi,
+                       r: int, kseed: int):
+    """``search_device._lane_walk``: one chunk counted once a chunk to the
+    last lane (the flag that stops the walk never falls)."""
+    from ..distributed import op_cost
+    from .search_device import _walk_init, _walk_step
+    _, NC, cols, carry = _walk_init(order, topd, topi, kseed)
+    if NC:
+        carry = op_cost.scaled("walk", NC, _walk_step, db_s, ids_s, qs,
+                               order, lbi_s, lbk_s, cols, r, kseed, carry, 0)
+    return carry[:4] + (0,)
+
+
+def exact_counted(dev, prep: tuple, qs: torch.Tensor, *, k: int, metric,
+                  n_shards: int = 1, shard_health=None):
+    """One device's exact search (``search_device._exact_knn_sharded``) as
+    the dry run counts it: shard 0 of ``dev`` through its loops counted by
+    trip count (the span program, or for DTW ``perq`` / ``cluster`` the
+    lane program with its LB slabs and walk), the other ``n_shards - 1``
+    shards' lists as the all-gather delivers them, then the merge with
+    ``shard_health``'s dead shards masked."""
+    from .search_device import _lane_knn, _merge_shards
+    if metric.is_dtw and metric.order != "shared":
+        part = _lane_knn(dev, 0, prep, qs, k, metric,
+                         tables=_lb_tables_counted, walk=_lane_walk_counted)
+    else:
+        part = _shard_knn_counted(dev, 0, prep, qs, k, metric)
+    parts = [part[:4]] + [tuple(torch.empty_like(t) for t in part[:4])
+                          for _ in range(n_shards - 1)]
+    merge_dev = dataclasses.replace(dev, shard_health=shard_health)
+    return _merge_shards(merge_dev, parts, qs.shape[0], k)
+
+
+def _exact_program(make_args, *, k: int, metric, n_shards: int,
+                   shard_health, collectives: tuple):
     from ..distributed.op_cost import Program
-    return Program(skipped=EXACT_SKIP)
+    return Program(
+        lambda d, prep, q: exact_counted(d, prep, q, k=k, metric=metric,
+                                         n_shards=n_shards,
+                                         shard_health=shard_health),
+        make_args, collectives)
 
 
-def lower_search_dtw(mesh, **_):
-    """The sharded exact DTW search: skipped (:data:`EXACT_SKIP`)."""
-    return lower_search_sharded(mesh)
+def lower_search_sharded(mesh, *, n_series: int = 1 << 22,
+                         length: int = 256, w: int = 16, chunk: int = 8192,
+                         n_leaves: int = 16384, k: int = 58,
+                         q_batch: int = 64, metric=None,
+                         shard_health: tuple | None = None,
+                         device: str | torch.device = "cuda"):
+    """The sharded exact search (:func:`exact_counted`: ED, or DTW with
+    ``metric``) on one shard, then the merge; ``shard_health`` (one bool a
+    mesh shard) masks dead shards out of it."""
+    from .device_index import resolve_device
+    from .metric import ED
+    device = resolve_device(device)
+    S = _mesh_shards(mesh)
+    health = None if shard_health is None or all(shard_health) \
+        else tuple(shard_health)
+    return _exact_program(
+        lambda: _index_args(mesh, n_series, length, w, chunk, n_leaves,
+                            q_batch, device,
+                            ((q_batch, length), torch.float32)),
+        k=k, metric=metric or ED, n_shards=S, shard_health=health,
+        collectives=_merge_collective(mesh, q_batch, k))
 
 
-def lower_search_degraded(mesh, **_):
-    """The exact search with the last shard dead: skipped
-    (:data:`EXACT_SKIP`)."""
-    return lower_search_sharded(mesh)
+def lower_search_dtw(mesh, *, n_series: int = 1 << 22, length: int = 256,
+                     w: int = 16, chunk: int | None = None,
+                     n_leaves: int = 16384, k: int = 58, q_batch: int = 64,
+                     band: int | None = None, order: str = "shared",
+                     device: str | torch.device = "cuda"):
+    """The sharded exact DTW search: ``order`` ``"shared"`` counts the span
+    program (``DTW_SUB``-row sub-slabs), ``"perq"`` / ``"cluster"`` the
+    lane program; the chunk defaults to 8192, the band to ``0.1·length``."""
+    from .metric import Metric, default_band
+    return lower_search_sharded(
+        mesh, n_series=n_series, length=length, w=w,
+        chunk=chunk if chunk is not None else 8192, n_leaves=n_leaves, k=k,
+        q_batch=q_batch, device=device,
+        metric=Metric("dtw", band if band is not None
+                      else default_band(length), order))
+
+
+def lower_search_degraded(mesh, *, n_series: int = 1 << 22,
+                          length: int = 256, w: int = 16, chunk: int = 8192,
+                          n_leaves: int = 16384, k: int = 58,
+                          q_batch: int = 64,
+                          device: str | torch.device = "cuda"):
+    """The exact ED search with the last mesh shard dead (healthy on a mesh
+    of one shard)."""
+    S = _mesh_shards(mesh)
+    health = (True,) * (S - 1) + (False,) if S > 1 else None
+    return lower_search_sharded(mesh, n_series=n_series, length=length, w=w,
+                                chunk=chunk, n_leaves=n_leaves, k=k,
+                                q_batch=q_batch, shard_health=health,
+                                device=device)
+
+
+def lower_exact_on(dev, *, k: int, q_batch: int, metric=None):
+    """The exact search's count on fake copies of a real one-device layout
+    ``dev`` (a 1 × 1 mesh): the loops' trip counts are that layout's W and
+    Tp."""
+    from torch._guards import detect_fake_mode
+
+    from .device_index import _ARRAY_FIELDS
+    from .metric import ED
+
+    def args():
+        mode = detect_fake_mode()
+        fake = dataclasses.replace(
+            dev, mesh=None, replicas={},
+            **{f: mode.from_tensor(getattr(dev, f)) for f in _ARRAY_FIELDS})
+        return (fake, _abstract_prep(q_batch, dev.w, dev.n, dev.device),
+                _fake((q_batch, dev.n), torch.float32, dev.device))
+
+    return _exact_program(args, k=k, metric=metric or ED, n_shards=1,
+                          shard_health=None, collectives=())
 
 
 def lower_search_extended(mesh, *, n_series: int = 1 << 22,
@@ -397,8 +520,7 @@ def lower_serving_head(mesh, *, vocab: int = 1 << 17, d_model: int = 256,
 
 def dryrun_cells(mesh, device: str | torch.device = "cuda") -> dict:
     """The paper's own technique on ``mesh`` at the reference's 1 M × 256
-    stand-in: each cell's :class:`~repro_torch.distributed.op_cost.OpCost`
-    (or the reason it is skipped)."""
+    stand-in: each cell's :class:`~repro_torch.distributed.op_cost.OpCost`."""
     n_series, length, w, L = 1 << 20, 256, 16, 4096
     kw = dict(n_series=n_series, length=length, w=w, device=device)
     programs = {
@@ -415,5 +537,4 @@ def dryrun_cells(mesh, device: str | torch.device = "cuda") -> dict:
                                                    n_leaves=L, **kw),
         "dumpy_serving_head": lower_serving_head(mesh, device=device),
     }
-    return {name: (p.skipped if p.skipped else p.analyze())
-            for name, p in programs.items()}
+    return {name: p.analyze() for name, p in programs.items()}

@@ -314,22 +314,21 @@ def _dedup_topk(d2: torch.Tensor, ids: torch.Tensor, k: int
 # sharded exact search (S=1 is the single-shard case)
 # ---------------------------------------------------------------------------
 
-def _shard_knn(dev: DeviceIndex, s: int, prep: tuple, qs: torch.Tensor,
-               k: int, metric: Metric):
-    """One shard's span loop → ``(topd [Q,k], topi [Q,k], vis [Q],
-    stats int64[4], syncs)``.  DTW cuts each slab into ``DTW_SUB``-row
-    sub-slabs and re-reads the running cutoff before each, so later
-    sub-slabs prune against what earlier ones merged."""
+def _span_prologue(dev: DeviceIndex, s: int, prep: tuple, qs: torch.Tensor,
+                   metric: Metric):
+    """The span loop's set-up on shard ``s`` → ``(slabs, n_sub, win_lb,
+    suffix, order)``: the shard's ``(db, alive, ids)``, the sub-slabs a
+    span, each query's span LB ``win_lb [Q, W]`` in the span order (stable
+    ascending min over the queries) and its suffix min."""
     Q = qs.shape[0]
     chunk, n = dev.chunk, dev.n
     device = qs.device
-    db_s, alive_s, ids_s = dev.db[s], dev.alive[s], dev.ids[s]
+    slabs = dev.db[s], dev.alive[s], dev.ids[s]
     W = dev.win_start[s].shape[0]
     # sub-blocking needs exact tiling; an odd explicit chunk (or one
     # already at/below DTW_SUB) runs the slab whole, as the reference does
     n_sub = chunk // DTW_SUB if (
         metric.is_dtw and chunk > DTW_SUB and chunk % DTW_SUB == 0) else 1
-    sub_w = chunk // n_sub
     lbq = ops.lb_paa_interval(prep[0], prep[1], dev.leaf_lo[s],
                               dev.leaf_hi[s], n)                 # [Q, Lp] sq
     # span LB = min over intersecting leaves (exact: it lower-bounds every
@@ -343,39 +342,77 @@ def _shard_knn(dev: DeviceIndex, s: int, prep: tuple, qs: torch.Tensor,
     win_lb = win_lb[:, order]
     suffix = torch.flip(torch.cummin(torch.flip(win_lb, [1]), dim=1).values,
                         [1])
+    return slabs, n_sub, win_lb, suffix, order
+
+
+def _span_carry(Q: int, k: int, device: torch.device) -> tuple:
+    """The span loop's first carry: ``(topd [Q, k] +inf, topi [Q, k] -1,
+    vis [Q] 0, stats int64[4] 0)``."""
+    return (torch.full((Q, k), _INF, dtype=torch.float32, device=device),
+            torch.full((Q, k), -1, dtype=torch.int32, device=device),
+            torch.zeros(Q, dtype=torch.int32, device=device),
+            torch.zeros(4, dtype=torch.int64, device=device))
+
+
+def _span_step(metric: Metric, qs: torch.Tensor, prep: tuple, slabs: tuple,
+               win_lb: torch.Tensor, chunk: int, n_sub: int, carry: tuple,
+               i: int, start: int, lead: int, size: int) -> tuple:
+    """One span of the loop → the next carry: the ``chunk`` rows from
+    ``start`` (live ``[lead, lead + size)``) at rank ``i`` of the span
+    order, in ``n_sub`` sub-slabs through :func:`_dist2_slab` and the top-k
+    merge.  DTW re-reads the running cutoff before each sub-slab after the
+    first, so later sub-slabs prune against what earlier ones merged.
+    ``i``, ``start``, ``lead`` and ``size`` are host ints: every span has
+    the same shapes."""
+    topd, topi, vis, st = carry
+    db_s, alive_s, ids_s = slabs
+    Q, k = topd.shape
+    device = qs.device
+    sub_w = chunk // n_sub
+    qact = win_lb[:, i] < topd[:, k - 1]                    # [Q] active
+    valid = torch.zeros(chunk, dtype=torch.bool, device=device)
+    valid[lead:lead + size] = alive_s[start + lead:start + lead + size]
+    for b in range(n_sub):
+        s0 = start + b * sub_w
+        # the cutoff re-read of every sub-slab after the first
+        qact_b = qact if b == 0 else qact & (win_lb[:, i] < topd[:, k - 1])
+        d2, stt = _dist2_slab(
+            metric, qs, prep, db_s[s0:s0 + sub_w],
+            valid[None, b * sub_w:(b + 1) * sub_w] & qact_b[:, None],
+            topd[:, k - 1].contiguous())
+        sid = ids_s[s0:s0 + sub_w]
+        idt = torch.where(torch.isinf(d2), -1, sid[None, :].expand(Q, -1))
+        topd, topi = ops.topk_merge(topd, topi, d2, idt)
+        if stt is not None:
+            st += stt
+    vis += qact.to(torch.int32)
+    return topd, topi, vis, st
+
+
+def _shard_knn(dev: DeviceIndex, s: int, prep: tuple, qs: torch.Tensor,
+               k: int, metric: Metric):
+    """One shard's span loop → ``(topd [Q,k], topi [Q,k], vis [Q],
+    stats int64[4], syncs)``: :func:`_span_prologue`, then
+    :func:`_span_step` over the sorted span schedule, which goes to the
+    host once, until the stop test (every :data:`STOP_CHECK_EVERY` spans)
+    finds no query that can still improve."""
+    slabs, n_sub, win_lb, suffix, order = _span_prologue(dev, s, prep, qs,
+                                                         metric)
     # the sorted span schedule goes to the host once per shard (one sync)
     sched = torch.stack([dev.win_start[s], dev.win_lead[s],
                          dev.win_size[s]])[:, order].cpu().numpy()
     syncs = 1
 
-    topd = torch.full((Q, k), _INF, dtype=torch.float32, device=device)
-    topi = torch.full((Q, k), -1, dtype=torch.int32, device=device)
-    vis = torch.zeros(Q, dtype=torch.int32, device=device)
-    st = torch.zeros(4, dtype=torch.int64, device=device)
-    for i in range(W):
+    carry = _span_carry(qs.shape[0], k, qs.device)
+    for i in range(win_lb.shape[1]):
         if i % STOP_CHECK_EVERY == 0:
             syncs += 1
-            if not bool((suffix[:, i] < topd[:, k - 1]).any()):  # lint: allow-sync: the stop test
+            if not bool((suffix[:, i] < carry[0][:, k - 1]).any()):  # lint: allow-sync: the stop test
                 break
         start, lead, size = (int(v) for v in sched[:, i])  # lint: allow-sync: host array
-        qact = win_lb[:, i] < topd[:, k - 1]                    # [Q] active
-        valid = torch.zeros(chunk, dtype=torch.bool, device=device)
-        valid[lead:lead + size] = alive_s[start + lead:start + lead + size]
-        for b in range(n_sub):
-            s0 = start + b * sub_w
-            # the cutoff re-read of every sub-slab after the first
-            qact_b = qact if b == 0 else qact & (win_lb[:, i] < topd[:, k - 1])
-            d2, stt = _dist2_slab(
-                metric, qs, prep, db_s[s0:s0 + sub_w],
-                valid[None, b * sub_w:(b + 1) * sub_w] & qact_b[:, None],
-                topd[:, k - 1].contiguous())
-            sid = ids_s[s0:s0 + sub_w]
-            idt = torch.where(torch.isinf(d2), -1, sid[None, :].expand(Q, -1))
-            topd, topi = ops.topk_merge(topd, topi, d2, idt)
-            if stt is not None:
-                st += stt
-        vis += qact.to(torch.int32)
-    return topd, topi, vis, st, syncs
+        carry = _span_step(metric, qs, prep, slabs, win_lb, dev.chunk, n_sub,
+                           carry, i, start, lead, size)
+    return carry + (syncs,)
 
 
 def _exact_knn_sharded(dev: DeviceIndex, prep: tuple, qs: torch.Tensor, *,
@@ -402,6 +439,14 @@ def _exact_knn_sharded(dev: DeviceIndex, prep: tuple, qs: torch.Tensor, *,
     for s in range(dev.n_shards):
         p = knn(dev, s, *inputs(dev.shard_device(s)), k, metric)
         parts.append(_to_device(p[:4], home) + p[4:])
+    return _merge_shards(dev, parts, Q, k) + (sum(p[4] for p in parts),)
+
+
+def _merge_shards(dev: DeviceIndex, parts: list, Q: int, k: int) -> tuple:
+    """The merge of the shards' ``(topd, topi, vis, stats)`` on one device:
+    dead shards masked (:func:`_mask_dead_shards`), the ``[Q, S·k]`` lists
+    deduplicated to the top ``k`` → ``(d [Q, k], ids [Q, k], visited [Q],
+    stats int64[4])``."""
     topd = torch.stack([p[0] for p in parts])                    # [S, Q, k]
     topi = torch.stack([p[1] for p in parts])
     vis = torch.stack([p[2] for p in parts])
@@ -411,8 +456,7 @@ def _exact_knn_sharded(dev: DeviceIndex, prep: tuple, qs: torch.Tensor, *,
     alld = topd.permute(1, 0, 2).reshape(Q, S * k)
     alli = topi.permute(1, 0, 2).reshape(Q, S * k)
     d2m, idm = _dedup_topk(alld, alli, k)
-    return (torch.sqrt(d2m), idm, vis.sum(dim=0), st.sum(dim=0),
-            sum(p[4] for p in parts))
+    return torch.sqrt(d2m), idm, vis.sum(dim=0), st.sum(dim=0)
 
 
 def _cluster_groups(Q: int) -> int:
@@ -443,40 +487,107 @@ def _lane_walk(db_s: torch.Tensor, ids_s: torch.Tensor, qs: torch.Tensor,
     lanes, and the host reads it once every :data:`STOP_CHECK_EVERY`
     chunks: chunks run after it turned false see no lane, merge only
     ``+inf`` and count nothing."""
+    C, NC, cols, carry = _walk_init(order, topd, topi, kseed)
+    syncs = 0
+    for c in range(NC):
+        if c % STOP_CHECK_EVERY == 0:
+            syncs += 1
+            if not bool(carry[4]):  # lint: allow-sync: the stop test
+                break
+        carry = _walk_step(db_s, ids_s, qs, order, lbi_s, lbk_s, cols, r,
+                           kseed, carry, c)
+    return carry[:4] + (syncs,)
+
+
+def _walk_init(order: torch.Tensor, topd: torch.Tensor, topi: torch.Tensor,
+               kseed: int) -> tuple:
+    """The lane walk's set-up → ``(C, NC, cols, carry)``: the chunk width,
+    the chunks from rank ``kseed`` to the last lane, the chunk's column
+    numbers and the first carry ``(topd, topi, vis, stats, running)``."""
     Qg, Tp = order.shape
-    k = topd.shape[1]
-    device = qs.device
+    device = order.device
     C = min(DTW_LANE_CHUNK, Tp)
     NC = max(-(-(Tp - kseed) // C), 0)
     cols = torch.arange(C, device=device)
     vis = torch.ones(Qg, dtype=torch.int32, device=device)
     st = torch.zeros(4, dtype=torch.int64, device=device)
     running = torch.ones((), dtype=torch.bool, device=device)
-    syncs = 0
-    for c in range(NC):
-        if c % STOP_CHECK_EVERY == 0:
-            syncs += 1
-            if not bool(running):  # lint: allow-sync: the stop test
-                break
-        r0 = kseed + c * C
-        cutoff = topd[:, k - 1].contiguous()
-        running = running & (lbi_s[:, r0] < cutoff).any()
-        s0 = min(r0, Tp - C)
-        fresh = cols >= (r0 - s0)              # ranks < r0 already seen
-        idx = order[:, s0:s0 + C].contiguous()
-        lbi_c = lbi_s[:, s0:s0 + C]
-        seen = fresh[None, :] & torch.isfinite(lbi_c) & running
-        mask = seen & (lbi_c < cutoff[:, None])
-        d2 = ops.dtw_band(qs, db_s, mask, cutoff, r, idx=idx)
-        idt = torch.where(torch.isinf(d2), -1, ids_s[idx])
-        topd, topi = ops.topk_merge(topd, topi, d2, idt)
-        st += _cascade_stats(seen, lbk_s[:, s0:s0 + C], lbi_c, d2, cutoff)
-        vis += mask.any(dim=1).to(torch.int32)
-    return topd, topi, vis, st, syncs
+    return C, NC, cols, (topd, topi, vis, st, running)
+
+
+def _walk_step(db_s: torch.Tensor, ids_s: torch.Tensor, qs: torch.Tensor,
+               order: torch.Tensor, lbi_s: torch.Tensor, lbk_s: torch.Tensor,
+               cols: torch.Tensor, r: int, kseed: int, carry: tuple,
+               c: int) -> tuple:
+    """Chunk ``c`` of the lane walk (ranks from ``kseed + c·C``; the last
+    chunk ends at the last lane and masks the ranks an earlier chunk saw)
+    → the next carry.  ``c`` is a host int: every chunk has the same
+    shapes."""
+    topd, topi, vis, st, running = carry
+    Tp = order.shape[1]
+    k = topd.shape[1]
+    C = cols.shape[0]
+    r0 = kseed + c * C
+    cutoff = topd[:, k - 1].contiguous()
+    running = running & (lbi_s[:, r0] < cutoff).any()
+    s0 = min(r0, Tp - C)
+    fresh = cols >= (r0 - s0)              # ranks < r0 already seen
+    idx = order[:, s0:s0 + C].contiguous()
+    lbi_c = lbi_s[:, s0:s0 + C]
+    seen = fresh[None, :] & torch.isfinite(lbi_c) & running
+    mask = seen & (lbi_c < cutoff[:, None])
+    d2 = ops.dtw_band(qs, db_s, mask, cutoff, r, idx=idx)
+    idt = torch.where(torch.isinf(d2), -1, ids_s[idx])
+    topd, topi = ops.topk_merge(topd, topi, d2, idt)
+    st += _cascade_stats(seen, lbk_s[:, s0:s0 + C], lbi_c, d2, cutoff)
+    vis += mask.any(dim=1).to(torch.int32)
+    return topd, topi, vis, st, running
+
+
+def _lb_init(Q: int, Tp: int, device: torch.device) -> tuple:
+    """Stage 1's tables ``(lbk_all, lbi_all)``, ``[Q, Tp]`` each, unset."""
+    return (torch.empty((Q, Tp), dtype=torch.float32, device=device),
+            torch.empty((Q, Tp), dtype=torch.float32, device=device))
+
+
+def _lb_slab(db_s: torch.Tensor, alive_s: torch.Tensor, qs: torch.Tensor,
+             env_lo: torch.Tensor, env_hi: torch.Tensor, r: int,
+             tables: tuple, c: int) -> tuple:
+    """Slab ``c`` of stage 1: LB_Keogh and LB_Improved of ``DTW_LB_CHUNK``
+    lanes (the tail slab ends at the last lane and recomputes a few), dead
+    lanes ``+inf``, written into ``tables`` in place.  ``c`` is a host int:
+    every slab has the same shapes."""
+    lbk_all, lbi_all = tables
+    Tp = db_s.shape[0]
+    LC = min(DTW_LB_CHUNK, Tp)
+    s0 = min(c * LC, Tp - LC)        # the tail slab recomputes a few
+    slab = db_s[s0:s0 + LC]
+    al = alive_s[None, s0:s0 + LC]
+    lbk_all[:, s0:s0 + LC] = torch.where(
+        al, ops.lb_keogh(slab, env_hi, env_lo), _INF)
+    lbi_all[:, s0:s0 + LC] = torch.where(
+        al, ops.lb_improved(slab, qs, env_hi, env_lo, r), _INF)
+    return tables
+
+
+def _lb_trips(Tp: int) -> int:
+    """Stage 1's slabs over ``Tp`` lanes: ⌈Tp / ``DTW_LB_CHUNK``⌉."""
+    return -(-Tp // min(DTW_LB_CHUNK, Tp))
+
+
+def _lb_tables(db_s: torch.Tensor, alive_s: torch.Tensor, qs: torch.Tensor,
+               env_lo: torch.Tensor, env_hi: torch.Tensor, r: int) -> tuple:
+    """Stage 1 of :func:`_lane_knn`: ``(lbk_all, lbi_all) [Q, Tp]`` over
+    every lane, one :func:`_lb_slab` a ``DTW_LB_CHUNK``-lane slab."""
+    Tp = db_s.shape[0]
+    tables = _lb_init(qs.shape[0], Tp, qs.device)
+    for c in range(_lb_trips(Tp)):
+        tables = _lb_slab(db_s, alive_s, qs, env_lo, env_hi, r, tables, c)
+    return tables
 
 
 def _lane_knn(dev: DeviceIndex, s: int, prep: tuple, qs: torch.Tensor,
-              k: int, metric: Metric):
+              k: int, metric: Metric, tables=None, walk=None):
     """One shard of the per-query-ordered DTW program (``Metric.order`` ∈
     {"perq", "cluster"}) → ``(topd, topi, vis, stats, syncs)``; ``vis``
     counts the gather chunks a query was live for, the analogue of spans
@@ -491,7 +602,13 @@ def _lane_knn(dev: DeviceIndex, s: int, prep: tuple, qs: torch.Tensor,
     ``"cluster"`` sorts the queries by estimated work (lanes below the seed
     cutoff) and walks each of :func:`_cluster_groups` groups on its own; a
     query's own merge sequence is unchanged, so the result is bitwise that
-    of ``"perq"``."""
+    of ``"perq"``.
+
+    ``tables`` and ``walk`` run stages 1 and 4 (by default
+    :func:`_lb_tables` and :func:`_lane_walk`, looked up when called; the
+    dry run gives its counted forms)."""
+    tables = tables or _lb_tables
+    walk = walk or _lane_walk
     Q = qs.shape[0]
     r = metric.band
     _, _, env_lo, env_hi = prep
@@ -503,20 +620,10 @@ def _lane_knn(dev: DeviceIndex, s: int, prep: tuple, qs: torch.Tensor,
     if Tp == 0:                                              # empty shard
         return (topd, topi, torch.zeros(Q, dtype=torch.int32, device=device),
                 torch.zeros(4, dtype=torch.int64, device=device), 0)
-    LC = min(DTW_LB_CHUNK, Tp)
     kseed = min(k, Tp)
 
     # ---- stage 1: LB tables over every lane --------------------------------
-    lbk_all = torch.empty((Q, Tp), dtype=torch.float32, device=device)
-    lbi_all = torch.empty((Q, Tp), dtype=torch.float32, device=device)
-    for c in range(-(-Tp // LC)):
-        s0 = min(c * LC, Tp - LC)        # the tail slab recomputes a few
-        slab = db_s[s0:s0 + LC]
-        al = alive_s[None, s0:s0 + LC]
-        lbk_all[:, s0:s0 + LC] = torch.where(
-            al, ops.lb_keogh(slab, env_hi, env_lo), _INF)
-        lbi_all[:, s0:s0 + LC] = torch.where(
-            al, ops.lb_improved(slab, qs, env_hi, env_lo, r), _INF)
+    lbk_all, lbi_all = tables(db_s, alive_s, qs, env_lo, env_hi, r)
 
     # ---- stage 2: per-query lane order, ascending LB_Improved --------------
     lbi_s, order = torch.sort(lbi_all, dim=1, stable=True)
@@ -538,7 +645,7 @@ def _lane_knn(dev: DeviceIndex, s: int, prep: tuple, qs: torch.Tensor,
     # ---- stage 4: gather-chunk walk of the sorted ranks --------------------
     G = _cluster_groups(Q) if metric.order == "cluster" else 1
     if G == 1:
-        topd, topi, vis, stw, syncs = _lane_walk(
+        topd, topi, vis, stw, syncs = walk(
             db_s, ids_s, qs, order, lbi_s, lbk_s, topd, topi, r, kseed)
         return topd, topi, vis, st + stw, syncs
     # cluster: group queries by estimated work at the seed cutoff
@@ -549,9 +656,8 @@ def _lane_knn(dev: DeviceIndex, s: int, prep: tuple, qs: torch.Tensor,
     parts = []
     for g in range(G):
         rows = perm[g * Qg:(g + 1) * Qg]
-        parts.append(_lane_walk(db_s, ids_s, qs[rows], order[rows],
-                                lbi_s[rows], lbk_s[rows], topd[rows],
-                                topi[rows], r, kseed))
+        parts.append(walk(db_s, ids_s, qs[rows], order[rows], lbi_s[rows],
+                          lbk_s[rows], topd[rows], topi[rows], r, kseed))
     topd = torch.cat([p[0] for p in parts])[inv]
     topi = torch.cat([p[1] for p in parts])[inv]
     vis = torch.cat([p[2] for p in parts])[inv]

@@ -18,8 +18,9 @@ The reference's ``host_call_stats`` (host callbacks, infeed, outfeed) and
 module.  Their counterparts in an eager program are :func:`host_syncs`,
 the census's predicted host syncs, and the data-dependent reads that stop
 a dry run: on fake tensors a read of a value the device computed raises,
-and the cell records it (``launch.dryrun``'s Dumpy exact cells are skipped
-for that reason).  A Python loop is unrolled into the op stream.
+and the cell records it.  A Python loop is unrolled into the op stream, or
+its body counted once a trip (``op_cost.scaled``, recorded in
+``OpCost.loops``) where host reads drive it, as in Dumpy's exact cells.
 """
 from __future__ import annotations
 

@@ -30,7 +30,9 @@ Counting rules (:class:`OpCost`):
   ``reduce-scatter``, ``all-to-all``), plus those a caller adds with
   :meth:`OpCost.add_collective`;
 * ``unknown_loops`` — always 0: an eager program's loops run in Python,
-  so every trip is counted;
+  so every trip is counted, or one trip is and :func:`scaled` multiplies
+  its work by the loop's trip count (the counterpart of ``hlo_cost``'s
+  ``trips ×`` a ``while`` body), which ``loops`` sums by loop name;
 * memory — the live bytes of the local storages, tracked with weakref
   finalizers on the fake storages: ``argument_bytes`` (what the program is
   given), ``output_bytes`` (what it returns, aliased storages included),
@@ -100,6 +102,9 @@ _DTYPE_NAMES = {torch.bfloat16: "bfloat16", torch.float16: "float16",
                 torch.int8: "int8", torch.uint8: "int8"}
 
 _active: "_Tracer | None" = None
+#: the scalar fields of :class:`OpCost` a loop trip adds to
+_SCALED = ("flops", "hbm_bytes", "hbm_bytes_hi", "collective_bytes",
+           "inter_host_bytes", "flops_global", "n_ops")
 
 
 @dataclasses.dataclass
@@ -122,6 +127,7 @@ class OpCost:
     aten_ops: dict = dataclasses.field(default_factory=dict)
     dtypes: dict = dataclasses.field(default_factory=dict)
     host_syncs: dict = dataclasses.field(default_factory=dict)
+    loops: dict = dataclasses.field(default_factory=dict)
     n_ops: int = 0
     seconds: float = 0.0
 
@@ -373,6 +379,47 @@ class _Tracer(contracts.Census):
         for t in _plain_tensors(outputs):
             self._track(t)
 
+    # -- loops counted by trip count -----------------------------------------------
+    def _work(self) -> Counter:
+        """What a loop trip adds to, flat: the cost's scalars, its FLOPs by
+        dtype, each kernel's and each collective kind's entry, the aten
+        histogram, the host syncs, the result dtypes and the census's
+        kernel calls and eager launches."""
+        c = self.cost
+        w = Counter({("cost", f): getattr(c, f) for f in _SCALED})
+        w.update({("dtype", k): v for k, v in c.flops_by_dtype.items()})
+        for table in ("kernels", "collective_counts"):
+            w.update({(table, kind, key): v for kind, e in
+                      getattr(c, table).items() for key, v in e.items()})
+        for attr in ("aten_ops", "host_syncs", "_dtype_counts",
+                     "kernel_calls"):
+            w.update({(attr, k): v for k, v in getattr(self, attr).items()})
+        w[("eager_launches",)] = self.eager_launches
+        return w
+
+    def scale_since(self, before: Counter, trips: int) -> None:
+        """Count the work done since ``before`` (:meth:`_work`) ``trips``
+        times in all: ``trips - 1`` more of it.  Peak and live bytes stay:
+        a loop's carries have one shape on every trip, so one trip's
+        high-water mark is the loop's (where a caller also holds the first
+        carry, later trips hold one carry more)."""
+        c = self.cost
+        for key, v in self._work().items():
+            more = (trips - 1) * (v - before[key])
+            if not more:
+                continue
+            what = key[0]
+            if what == "cost":
+                setattr(c, key[1], getattr(c, key[1]) + more)
+            elif what == "dtype":
+                c.flops_by_dtype[key[1]] += more
+            elif what in ("kernels", "collective_counts"):
+                getattr(c, what)[key[1]][key[2]] += more
+            elif what == "eager_launches":
+                self.eager_launches += more
+            else:
+                getattr(self, what)[key[1]] += more
+
     # -- context ---------------------------------------------------------------------
     def __enter__(self) -> "_Tracer":
         global _active
@@ -427,22 +474,40 @@ def record_kernel(name: str, flops: float, nbytes: float, outputs,
         _active.record_kernel(name, flops, nbytes, outputs, dtype)
 
 
+def scaled(name: str, trips: int, step: Callable, *args, **kwargs):
+    """One trip of a loop under :func:`analyze`, counted ``trips`` times:
+    ``step(*args, **kwargs)`` runs once (its result returned, the carry of
+    the next trip) and its work — FLOPs, bytes, kernel calls, collectives,
+    aten ops, host syncs — is multiplied by ``trips``; ``OpCost.loops``
+    adds ``trips`` to ``name``'s count (a loop run once a query group
+    counts each group's trips).  Every trip must have the shapes of the one
+    that ran, and there must be one (a loop of no trip is not run).  Only
+    the dry run counts this way: outside :func:`analyze` it raises."""
+    if _active is None:
+        raise RuntimeError("op_cost.scaled counts a loop inside analyze only")
+    if trips < 1:
+        raise ValueError(f"loop {name!r}: {trips} trips (run none instead)")
+    before = _active._work()
+    out = step(*args, **kwargs)
+    _active.scale_since(before, trips)
+    loops = _active.cost.loops
+    loops[name] = loops.get(name, 0) + trips
+    return out
+
+
 @dataclasses.dataclass
 class Program:
     """A device program ready to count (the counterpart of a JAX
     ``Lowered``): ``fn`` on the arguments ``make_args()`` builds, plus the
     collectives the program makes outside its traced ops (``(kind, bytes,
-    inter_host)``), or the reason it has no dry run."""
-    fn: Callable | None = None
-    make_args: Callable[[], tuple] | None = None
+    inter_host)``)."""
+    fn: Callable
+    make_args: Callable[[], tuple]
     collectives: tuple = ()
-    skipped: str | None = None
 
     def analyze(self) -> OpCost:
-        """One device's :class:`OpCost` (raises for a skipped program)."""
+        """One device's :class:`OpCost`."""
         from torch._subclasses.fake_tensor import FakeTensorMode
-        if self.skipped:
-            raise RuntimeError(f"no dry run: {self.skipped}")
         with FakeTensorMode():
             args = self.make_args()
         cost = analyze(self.fn, *args)

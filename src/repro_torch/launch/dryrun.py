@@ -17,8 +17,9 @@ collective bytes and live memory.  The record has the reference's keys
 (``cost_raw``, the unscaled FlopCounter total, in place of
 ``cost_xla_raw``) and a three-term H100 roofline
 (``distributed.roofline``).  A cell that cannot be traced records
-``error`` with the op that stopped it; Dumpy's exact cells record
-``skipped`` (their span loop reads the device from the host).
+``error`` with the op that stopped it.  Dumpy's exact cells count their
+host-driven loops by trip count, every span and walk chunk run (the
+record's ``cost.loops``).
 
 Artifacts: ``artifacts/dryrun/<arch>__<shape>__<mesh>.json``.  CUDA unless
 ``--device cpu`` is given (the tracing is the same; fake tensors allocate
@@ -270,7 +271,7 @@ def _cost_field(cost) -> dict:
             "hbm_bytes_pessimistic": cost.hbm_bytes_hi,
             "collective_bytes_per_device": cost.collective_bytes,
             "inter_host_bytes_per_device": cost.inter_host_bytes,
-            "unknown_loops": cost.unknown_loops,
+            "unknown_loops": cost.unknown_loops, "loops": cost.loops,
             "kernels": cost.kernels,
             "host_syncs": cost.host_syncs,
             "analyze_s": round(cost.seconds, 1)}
@@ -291,7 +292,6 @@ def lower_dumpy_cell(mesh, mesh_name: str, kind: str,
     ``lower_dumpy_cell``): one device's program at one shard's shapes, the
     shard count being the mesh's pod × data."""
     from repro_torch.core import distributed as D
-    from repro_torch.core.search_device import STOP_CHECK_EVERY
 
     w = 16
     n_series, length = 1 << 22, 256          # 4M × 256 f32 = 4 GB collection
@@ -310,12 +310,7 @@ def lower_dumpy_cell(mesh, mesh_name: str, kind: str,
     }
     rec = {"arch": f"dumpy-{kind}", "shape": "n4M_len256", "mesh": mesh_name,
            "n_devices": math.prod(mesh.shape)}
-    lowered = lowerers[kind]()
-    if lowered.skipped:
-        rec["skipped"] = lowered.skipped
-        rec["stop_check_every"] = STOP_CHECK_EVERY
-        return rec
-    cost = lowered.analyze()
+    cost = lowerers[kind]().analyze()
     mf = (2.0 * n_series * length * w if kind.startswith("build")
           else 2.0 * 64 * n_series * length)
     rl = _roofline(cost, math.prod(mesh.shape), mf)

@@ -8,7 +8,9 @@ Jobs: ``ref`` / ``port`` (placements of every parameter and moment leaf
 of the ten reduced configs on a (4, 2) and a (2, 2, 2) mesh, and reduced
 OLMo's per-device FLOPs and argument bytes for train, prefill and decode
 on (1, 1) and (4, 2)), ``mlp`` (a column-then-row sharded MLP on (1, 2)),
-``gloo`` (a real step on a one-rank gloo mesh against the plain step).
+``gloo`` (a real step on a one-rank gloo mesh against the plain step),
+``exact <spec>`` (the reference's exact search cells lowered at the sizes
+of the JSON ``spec``: ``hlo_cost`` and the loops of each).
 """
 from __future__ import annotations
 
@@ -243,6 +245,84 @@ def gloo() -> dict:
         dist.destroy_process_group()
 
 
+def exact(spec: str) -> dict:
+    """The reference's exact cells on a ``spec["mesh"]`` mesh of 8 host
+    devices: ``lower_search_sharded`` (``"sharded"``), ``lower_search_dtw``
+    (``"dtw"`` with its order) and ``lower_search_degraded``
+    (``"degraded"``) at ``spec``'s sizes, compiled.  For each cell:
+    ``hlo_cost``'s FLOPs and unknown loops; each ``while`` loop outside the
+    DTW DP's own (``dtw2_masked_*_jnp``, a kernel in the port) with its
+    ``op_name`` and the trip count ``hlo_cost`` reads from its condition
+    (None where it reads none and counts one trip); the collectives outside
+    every loop and those inside one, as ``(kind, operand bytes, result
+    type)``."""
+    import re
+    os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro.core import distributed as D
+    from repro.distributed import hlo_cost
+    from repro.distributed.sharding import logical_rules, make_mesh
+
+    cfg = json.loads(spec)
+    mesh = make_mesh(tuple(cfg.pop("mesh")), ("data", "model"))
+    cells = cfg.pop("cells")
+    called = re.compile(r"(?:calls|to_apply|body|condition|true_computation"
+                        r"|false_computation)=(%[\w.\-]+)")
+    out = {}
+    for name, (kind, q_batch, order) in cells.items():
+        kw = dict(cfg, q_batch=q_batch)
+        with logical_rules(mesh):
+            if kind == "dtw":
+                low = D.lower_search_dtw(mesh, order=order, **kw)
+            elif kind == "degraded":
+                low = D.lower_search_degraded(mesh, **kw)
+            else:
+                low = D.lower_search_sharded(mesh, **kw)
+            text = low.compile().as_text()
+        cost = hlo_cost.analyze(text)
+        blocks = hlo_cost.parse_blocks(text)
+        in_loop: set = set()
+
+        def mark(block):
+            if block in in_loop or block not in blocks:
+                return
+            in_loop.add(block)
+            for inst in blocks[block].instrs:
+                for m in called.finditer(inst.line):
+                    mark(m.group(1))
+
+        loops = []
+        for blk in blocks.values():
+            for inst in blk.instrs:
+                if inst.opcode != "while":
+                    continue
+                body = re.search(r"body=(%[\w.\-]+)", inst.line).group(1)
+                cond = re.search(r"condition=(%[\w.\-]+)",
+                                 inst.line).group(1)
+                mark(body)
+                mark(cond)
+                op = re.search(r'op_name="([^"]*)"', inst.line).group(1)
+                if "dtw2_masked" not in op:
+                    loops.append({
+                        "op": op.split("/", 1)[1],
+                        "trips": hlo_cost._trip_count(blocks.get(cond))})
+        coll = {"outside": [], "inside": []}
+        for blk in blocks.values():
+            for inst in blk.instrs:
+                base = inst.opcode.replace("-start", "")
+                if base not in hlo_cost._COLLECTIVES or \
+                        inst.opcode.endswith("-done"):
+                    continue
+                nbytes = sum(hlo_cost._shape_elems_bytes(
+                    blk.types.get(o, ""))[1] for o in inst.operands)
+                where = "inside" if blk.name in in_loop else "outside"
+                coll[where].append((base, nbytes, inst.result_type))
+        out[name] = {"flops": cost.flops, "unknown_loops": cost.unknown_loops,
+                     "loops": sorted(loops, key=lambda e: e["op"]),
+                     "collectives": coll}
+    return out
+
+
 def _torch_tree(tree):
     import torch
     if isinstance(tree, dict):
@@ -285,5 +365,6 @@ def _eq(a, b):
 
 
 if __name__ == "__main__":
-    out = {"ref": ref, "port": port, "mlp": mlp, "gloo": gloo}[sys.argv[1]]()
+    out = {"ref": ref, "port": port, "mlp": mlp, "gloo": gloo,
+           "exact": exact}[sys.argv[1]](*sys.argv[2:])
     print(json.dumps(out))

@@ -224,18 +224,6 @@ def test_dumpy_index_cells_run_on_fake_tensors(kind):
         assert {"lb_keogh", "lb_improved", "dtw_band"} <= set(cost.kernels)
 
 
-@pytest.mark.parametrize("kind", ["search_sharded", "search_dtw"])
-def test_exact_cells_are_skipped_with_their_reason(kind):
-    from repro_torch.core import distributed as D
-    from repro_torch.launch.dryrun import lower_dumpy_cell
-    rec = lower_dumpy_cell(_small_mesh(), "small", kind, device="cpu")
-    assert "skipped" in rec and "error" not in rec
-    assert "search_device.py:347-348" in rec["skipped"]
-    assert "bool" in rec["skipped"]
-    with pytest.raises(RuntimeError, match="no dry run"):
-        getattr(D, f"lower_{kind}")(_small_mesh()).analyze()
-
-
 def test_roofline_terms_use_the_h100_peaks():
     rl = roofline.analyze(
         flops_per_device=989e12 + 67e12,
