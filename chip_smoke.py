@@ -7,6 +7,8 @@
                                            # (no kernel checks, no ok line)
     python3 chip_smoke.py --dryrun-only    # phases 1 and 16 alone (no
                                            # kernel rows, no ok line)
+    python3 chip_smoke.py --train-ranks-only   # phases 1, 15 (c) and 17
+                                               # alone (no ok line)
 
 Phases, each printed with its seconds:
 
@@ -37,9 +39,9 @@ Phases, each printed with its seconds:
    ``exact_search_device_batch`` (k=10), every result held against a
    float64 brute force on the card, one batch rerun with ``n_shards=4``
    (bitwise equal), and the launch count of each kernel on this phase;
-6. profile: one more ED batch under ``torch.profiler`` (device time by
-   kernel, and by name for each of the six kernels, the device's busy
-   share of the batch);
+6. profile: one more ED batch under ``torch.profiler``, its CUDA
+   activity alone (device time by kernel, and by name for each of the six
+   kernels, the device's busy share of the batch);
 7. DTW main path: 128 held-out queries in 2 batches of 64 through
    ``exact_search_device_batch(metric="dtw")`` (k=10, band 25 = 10% of the
    length, order "cluster") on the same ``DeviceIndex`` (no second layout
@@ -200,12 +202,12 @@ Phases, each printed with its seconds:
    head's build seconds, kernel launches a decode step (the wrappers'
    counts) and device ms a step (profiled), its stats and the front-end's;
    (c) ``launch.train``'s ``100m`` preset of olmo-1b (float32, TF32 off)
-   as its ``main`` trains it, 40 steps of 8 x 512 with checkpoints every
-   20 under ``build/``, under ``torch.use_deterministic_algorithms(True)``:
+   as its ``main`` trains it, 20 steps of 8 x 512 with checkpoints every
+   10 under ``build/``, under ``torch.use_deterministic_algorithms(True)``:
    steps/s and tokens/s beside the bound (model FLOPs over the float32 67
    TFLOP/s), peak memory, the last 4 losses below the first 4 by more
-   than 0.05; the resume (20 steps, a blocking checkpoint, a new
-   ``Trainer`` to 40) bitwise that run (within atol 1e-5 with default
+   than 0.05; the resume (10 steps, a blocking checkpoint, a new
+   ``Trainer`` to 20) bitwise that run (within atol 1e-5 with default
    algorithms, the op printed, if one refuses determinism); a
    checkpoint's save and restore (seconds, bytes, bitwise); a profile of
    one step; (d) OLMo-1B at full width
@@ -240,6 +242,21 @@ Phases, each printed with its seconds:
    ``abstract`` work at its main shape (``dtw_band``: the wide path, every
    lane on) within 1% of this run's bound there, the time measured there
    no less.
+17. training over ranks: ``repro_torch.launch.train.main`` under
+   ``torchrun`` (NCCL, one rank on ``cuda:0``: the process group, the
+   device from ``LOCAL_RANK``, the placed model on the ``(1, 1)`` mesh,
+   rank 0's checkpoints, the stop flag agreed by an all-reduce), each
+   rank a child process of this script (``train-rank``): (a) the ``100m``
+   preset, 20 steps of 8 x 512 with a checkpoint every 10, stopped by a
+   SIGTERM while step 9's data is drawn (it saves step 10), then rerun to
+   20, resuming there: the 20 losses against phase 15 (c)'s within rtol
+   1e-4 (the same kernels on a (1, 1) mesh: bitwise expected, and
+   printed), the median step beside 15 (c)'s; (b) OLMo-1B at its
+   published width (``--preset full``), 2 steps of 4 x 2048 without a
+   checkpoint, each step's ms beside 15 (d)'s plain steps and their bound.
+   Two ranks on the one card are not run: NCCL refuses two ranks on one
+   device and gloo's CUDA collectives crash there
+   (``scripts/probe_two_ranks_one_card.py``, ``PERF.md``).
 """
 from __future__ import annotations
 
@@ -354,8 +371,11 @@ OLMO_F32_B, OLMO_F32_S = 1, 256
 # and length, with a checkpoint half way; one full-width OLMo-1B train step
 SERVE_B, SERVE_P, SERVE_T = 4, 32, 32
 SERVE_HEAD = dict(th=64, r_candidates=64, nbr_nodes=8)
-TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_CKPT = 8, 512, 40, 20
+TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_CKPT = 8, 512, 20, 10
 FULL_B, FULL_S, FULL_STEPS = 4, 2048, 3
+# phase 17: OLMo-1B's full-width steps on one NCCL rank, and each
+# torchrun launch's time limit
+RANK_FULL_STEPS, RANK_TIMEOUT_S = 2, 240
 # phase 16: the dry run's production cells (16 x 16), their time limit,
 # the steps timed against the 1 x 1 bounds, and PERF.md's hand bound of
 # OLMo-1B's decode step (the float32 weights read once)
@@ -2283,7 +2303,6 @@ def lifecycle_phase(torch, np, sd, ops, mods, DumpyIndex, device_build,
     returns the ``{"lifecycle": ...}`` summary."""
     import shutil
     import tempfile
-    from repro_torch.core.sax import sax_encode_np
     out = {"host_build_s": host_build_s}
     w, b = params.sax.w, params.sax.b
     qb = batches[0]
@@ -2314,11 +2333,6 @@ def lifecycle_phase(torch, np, sd, ops, mods, DumpyIndex, device_build,
           f"phase 3's")
     del idx_np, dev_np
     torch.cuda.empty_cache()
-    t2 = time.perf_counter()
-    sax_encode_np(db, params.sax)
-    out["sax_encode_np_s"] = time.perf_counter() - t2
-    print(f"  (a) sax_encode_np alone over the collection, the build's "
-          f"stage 1: {out['sax_encode_np_s']:.3f} s")
 
     # -- (b) device build, the sax_encode kernel --------------------------------
     t1 = time.perf_counter()
@@ -3588,11 +3602,11 @@ def lm_train_100m(torch, np, shutil, tfm, preset_config, pipeline, opt,
                   ckpt_mod, trainer, make_train_step, param_tree, smi,
                   device: str) -> dict:
     """Phase 15 (c): the ``100m`` preset of the olmo-1b family (float32,
-    TF32 off) trained as ``launch.train.main`` trains it, 40 steps of
-    8 x 512 with checkpoints every 20 under ``build/``, under
+    TF32 off) trained as ``launch.train.main`` trains it, 20 steps of
+    8 x 512 with checkpoints every 10 under ``build/``, under
     ``torch.use_deterministic_algorithms(True)``; a profile of one step;
-    a checkpoint's save and restore; then the resume: 20 steps, a blocking
-    checkpoint, a new ``Trainer`` resuming to 40, against the 40-step run
+    a checkpoint's save and restore; then the resume: 10 steps, a blocking
+    checkpoint, a new ``Trainer`` resuming to 20, against the 20-step run
     (bitwise; within atol 1e-5, with default algorithms, if an op refuses
     determinism, which is printed)."""
     from repro_torch.models.common import leaves
@@ -3663,6 +3677,7 @@ def lm_train_100m(torch, np, shutil, tfm, preset_config, pipeline, opt,
            "step_bound_ms": bound_ms, "flops": flops, "peak_bytes": peak,
            "loss_first4": first, "loss_last4": last,
            "deterministic": refused is None,
+           "losses": rep.losses,
            "stragglers": len(rep.straggler_events),
            "checkpoints": sorted(p.name for p in (root / "t").iterdir())}
     print(f"  (c) 100m ({n_params} parameters, float32), {TRAIN_STEPS} steps "
@@ -3685,8 +3700,8 @@ def lm_train_100m(torch, np, shutil, tfm, preset_config, pipeline, opt,
         fail(f"100m resume: {worst:.3g} from the uninterrupted run, beyond "
              f"atol 1e-5")
     out.update(resume_max_abs=worst, resume_refused_op=refused)
-    print(f"  (c) resume: 20 steps, a blocking checkpoint, a new Trainer to "
-          f"{TRAIN_STEPS}: parameters and AdamW state "
+    print(f"  (c) resume: {TRAIN_CKPT} steps, a blocking checkpoint, a new "
+          f"Trainer to {TRAIN_STEPS}: parameters and AdamW state "
           f"{'bitwise' if worst == 0 else f'within {worst:.3g} of'} the "
           f"uninterrupted run's")
     del res
@@ -3785,9 +3800,11 @@ def lm_train_full(torch, np, tfm, preset_config, pipeline, opt,
     return out
 
 
-def lm_entry_phase(torch, np, mods, smi, device: str = "cuda") -> dict:
+def lm_entry_phase(torch, np, mods, smi, device: str = "cuda",
+                   parts: str = "abcd") -> dict:
     """Phase 15: the LM entry points (``repro_torch.launch``,
-    ``repro_torch.train``), parts (a)–(d), each printed with its seconds."""
+    ``repro_torch.train``), parts (a)–(d) (those in ``parts``), each
+    printed with its seconds."""
     import copy
     import shutil
     from repro_torch.core import search_device
@@ -3820,10 +3837,211 @@ def lm_entry_phase(torch, np, mods, smi, device: str = "cuda") -> dict:
             ("d", lambda: lm_train_full(torch, np, tfm, preset_config,
                                         pipeline, optimizer, make_train_step,
                                         param_tree, smi, device))):
+        if part not in parts:
+            continue
         # lint: allow-timing: each part ends on host results (synced)
         t1 = time.perf_counter()
         out[part] = fn()
         print(f"  [15{part}] {time.perf_counter() - t1:.3f} s")
+    return out
+
+
+def start_ranks(n: int, report: Path, gate: Path, stop_at: int,
+                argv: list) -> tuple:
+    """``train-rank`` (:func:`train_rank_child`) on ``n`` ranks under
+    ``torchrun --standalone``, in a session of its own, started now; each
+    rank imports and then waits for ``gate`` to exist before it calls
+    ``main``.  Phase 17 starts its launches together and opens each gate
+    when the launch before it has ended, so their start-up (the agent, the
+    imports: 21–33 s a launch on an NVIDIA H100 80GB HBM3 machine at
+    700.00 W) overlaps, and no two launches use the card at once."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc-per-node={n}", str(ROOT / "chip_smoke.py"),
+           "train-rank", report, gate, stop_at] + argv
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.Popen([str(a) for a in cmd], env=env, cwd=str(ROOT),
+                            text=True, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, start_new_session=True)
+    return proc, report, argv[:2], time.time()
+
+
+def finish_ranks(launch: tuple, timeout: float, what: str) -> tuple:
+    """Wait for a launch of :func:`start_ranks` (its whole session killed
+    if it outlives ``timeout`` from its start); print where its time went;
+    ``(standard output, rank 0's report)``.  Fails on a non-zero exit."""
+    import signal
+    proc, report, label, started = launch
+    try:
+        out, err = proc.communicate(
+            timeout=max(timeout - (time.time() - started), 1.0))
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        fail(f"phase 17 {what}: {label} ran past {timeout} s")
+    if proc.returncode != 0:
+        print(err[-4000:])
+        fail(f"phase 17 {what}: {label} exited {proc.returncode}")
+    rep = json.loads(report.read_text())
+    m = dict(rep["marks"], launch=started, exit=time.time())
+    print(f"    launch of {label}: torchrun to the rank "
+          f"{m['child'] - m['launch']:.3f} s, imports "
+          f"{m['imported'] - m['child']:.3f} s, waiting its turn "
+          f"{m['gate'] - m['imported']:.3f} s, process group, mesh, model "
+          f"and placement {m['run'] - m['gate']:.3f} s, the trainer "
+          f"{m['ran'] - m['run']:.3f} s ({sum(rep['step_s']):.3f} s of it in "
+          f"steps), to the end of main {m['main_done'] - m['ran']:.3f} s, "
+          f"exit {m['exit'] - m['main_done']:.3f} s")
+    return out, rep
+
+
+def train_rank_child(argv: list) -> None:
+    """One ``torchrun`` rank of phase 17: once the file ``argv[1]`` exists,
+    ``repro_torch.launch.train.main`` on ``argv[3:]`` under
+    ``torch.use_deterministic_algorithms`` (warning only, as phase 15 (c)'s
+    fallback allows); rank 0 writes its trainer's report (losses, step
+    seconds, steps run, the step resumed from, whether a signal stopped
+    it, wall-clock marks of the launch) as JSON to ``argv[0]``; every rank
+    sends itself SIGTERM while the data of step ``argv[2]`` is drawn (none
+    if negative)."""
+    import signal
+    # wall-clock marks of the launch (one host clock for every process)
+    marks = {"child": time.time()}
+    out, gate, stop_at, rest = argv[0], Path(argv[1]), int(argv[2]), argv[3:]
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    from repro_torch.data import tokens
+    from repro_torch.launch import train
+    from repro_torch.train import trainer
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    marks["imported"] = time.time()
+    while not gate.exists():
+        if time.time() - marks["child"] > RANK_TIMEOUT_S:
+            sys.exit(f"train-rank: {gate} did not open")
+        time.sleep(0.02)
+    marks["gate"] = time.time()
+    batch_at, run = tokens.TokenPipeline.batch_at, trainer.Trainer.run
+
+    def drawn(self, step):
+        if step == stop_at:
+            os.kill(os.getpid(), signal.SIGTERM)      # preemption, to itself
+        return batch_at(self, step)
+
+    report = {}
+
+    def recorded(self, model, opt_state):
+        marks["run"] = time.time()
+        model, opt_state, rep = run(self, model, opt_state)
+        marks["ran"] = time.time()
+        report.update(losses=rep.losses, step_s=rep.step_times,
+                      steps_run=rep.steps_run, resumed_from=rep.resumed_from,
+                      interrupted=rep.interrupted)
+        return model, opt_state, rep
+    tokens.TokenPipeline.batch_at, trainer.Trainer.run = drawn, recorded
+    train.main(rest)
+    marks["main_done"] = time.time()
+    if os.environ.get("RANK", "0") == "0":
+        Path(out).write_text(json.dumps(dict(report, marks=marks)))
+
+
+def train_ranks_phase(np, shutil, lm_entry: dict, smi) -> dict:
+    """Phase 17 (a) and (b) on one rank (module docstring); ``lm_entry`` is
+    phase 15's result, whose (c) and (d) these runs are held against."""
+    import signal
+    root = ROOT / "build" / "phase17"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    ckpt = root / "a"
+    a = ["--preset", "100m", "--arch", "olmo-1b", "--steps", TRAIN_STEPS,
+         "--batch", TRAIN_B, "--seq", TRAIN_S, "--ckpt-every", TRAIN_CKPT,
+         "--ckpt-dir", ckpt, "--device", "cuda"]
+    b = ["--preset", "full", "--arch", "olmo-1b", "--steps", RANK_FULL_STEPS,
+         "--batch", FULL_B, "--seq", FULL_S, "--ckpt-every", 1000,
+         "--ckpt-dir", root / "b", "--device", "cuda"]
+    gates = [root / f"go{i}" for i in range(3)]
+    # lint: allow-timing: each launch ends with its processes (host time)
+    t1 = time.perf_counter()
+    launches = [start_ranks(1, root / "a1.json", gates[0], TRAIN_CKPT - 1, a),
+                start_ranks(1, root / "a2.json", gates[1], -1, a),
+                start_ranks(1, root / "b.json", gates[2], -1, b)]
+    gates[0].touch()
+    try:
+        return train_ranks_checks(np, shutil, lm_entry, smi, root, ckpt,
+                                  gates, launches, t1)
+    finally:        # a launch still waiting on its gate when a check fails
+        for proc, *_ in launches:
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.communicate()
+
+
+def train_ranks_checks(np, shutil, lm_entry, smi, root, ckpt, gates,
+                       launches, t1) -> dict:
+    """Phase 17's launches of :func:`train_ranks_phase`, run one after
+    another through their gates, and the checks of (a) and (b)."""
+    log1, first = finish_ranks(launches[0], RANK_TIMEOUT_S, "(a)")
+    gates[1].touch()
+    log2, second = finish_ranks(launches[1], RANK_TIMEOUT_S, "(a)")
+    a_s = time.perf_counter() - t1
+    out = {}
+    heads = [ln for log in (log1, log2) for ln in log.splitlines()
+             if ln.startswith("arch=")]
+    if heads != ["arch=olmo-1b preset=100m params=67.1M mesh={'data': 1, "
+                 "'model': 1}"] * 2:
+        fail(f"phase 17 (a): header lines {heads}")
+    if not (first["interrupted"] and first["steps_run"] == TRAIN_CKPT
+            and second["resumed_from"] == TRAIN_CKPT
+            and second["steps_run"] == TRAIN_STEPS - TRAIN_CKPT
+            and not second["interrupted"]):
+        fail(f"phase 17 (a): the stop and resume went wrong: {first} "
+             f"{second}")
+    names = sorted(p.name for p in ckpt.iterdir())
+    losses = np.asarray(first["losses"] + second["losses"])
+    want = np.asarray(lm_entry["c"]["losses"])
+    if losses.shape != want.shape or not np.isfinite(losses).all():
+        fail(f"phase 17 (a): losses {losses} against phase 15 (c)'s {want}")
+    rel = float(np.max(np.abs(losses - want) / np.abs(want)))
+    if rel > 1e-4:
+        fail(f"phase 17 (a): losses {rel:.3g} from phase 15 (c)'s, beyond "
+             f"rtol 1e-4")
+    step_ms = float(np.median(first["step_s"][1:] + second["step_s"][1:])
+                    ) * 1e3
+    out["a"] = {"losses": losses.tolist(), "bitwise": bool(
+        np.array_equal(losses, want)), "max_rel": rel,
+        "step_ms_median": step_ms,
+        "plain_step_ms_median": lm_entry["c"]["step_ms_median"],
+        "checkpoints": names, "seconds": a_s}
+    print(f"  (a) 100m on one NCCL rank (mesh (1, 1)): SIGTERM at step "
+          f"{TRAIN_CKPT - 1}'s data, {first['steps_run']} steps, then "
+          f"resumed_from={second['resumed_from']} to {TRAIN_STEPS}; "
+          f"checkpoints {names}; the {len(losses)} losses "
+          f"{'bitwise' if out['a']['bitwise'] else f'within {rel:.3g}'} "
+          f"phase 15 (c)'s; median step {step_ms:.3f} ms (phase 15 (c), "
+          f"plain: {out['a']['plain_step_ms_median']:.3f} ms); the two "
+          f"launches {a_s:.3f} s [{smi}]")
+
+    t1 = time.perf_counter()
+    gates[2].touch()
+    log, rep = finish_ranks(launches[2], RANK_TIMEOUT_S, "(b)")
+    b_s = time.perf_counter() - t1
+    head = [ln for ln in log.splitlines() if ln.startswith("arch=")]
+    if head != ["arch=olmo-1b preset=full params=1279.8M mesh={'data': 1, "
+                "'model': 1}"] or rep["steps_run"] != RANK_FULL_STEPS or \
+            not np.isfinite(rep["losses"]).all():
+        fail(f"phase 17 (b): {head} {rep}")
+    if any((root / "b").iterdir()):
+        fail("phase 17 (b) wrote a checkpoint")
+    ms = [t * 1e3 for t in rep["step_s"]]
+    d = lm_entry["d"]
+    out["b"] = {"step_ms": ms, "losses": rep["losses"],
+                "plain_step_ms": d["step_ms"],
+                "step_bound_ms": d["step_bound_ms"], "seconds": b_s}
+    print(f"  (b) olmo-1b full width on one NCCL rank (mesh (1, 1)), "
+          f"{RANK_FULL_STEPS} steps of {FULL_B} x {FULL_S}: "
+          f"{[round(x, 3) for x in ms]} ms (phase 15 (d), plain: "
+          f"{[round(x, 3) for x in d['step_ms']]} ms; bound "
+          f"{d['step_bound_ms']:.3f} ms); loss {rep['losses']}; after (a), "
+          f"{b_s:.3f} s [{smi}]")
+    shutil.rmtree(root, ignore_errors=True)
     return out
 
 
@@ -4234,6 +4452,9 @@ def main() -> None:
     ap.add_argument("--dryrun-only", action="store_true",
                     help="run phases 1 and 16 alone, without the kernel "
                          "rows of phases 4, 7 and 12 (prints no ok line)")
+    ap.add_argument("--train-ranks-only", action="store_true",
+                    help="run phases 1, 15 (c) and (d) and 17 alone (prints "
+                         "no ok line)")
     args = ap.parse_args()
 
     # phase 15 (c) compares two training runs under deterministic
@@ -4287,6 +4508,17 @@ def main() -> None:
         t0 = time.perf_counter()
         print(json.dumps({"lm_entry": lm_entry_phase(torch, np, mods, smi)}))
         phase("LM entry points", t0)
+        return
+    if args.train_ranks_only:
+        import shutil
+        t0 = time.perf_counter()
+        lm_entry = lm_entry_phase(torch, np, mods, smi, parts="cd")
+        phase("LM entry points (c) and (d)", t0)
+        t0 = time.perf_counter()
+        torch.cuda.empty_cache()
+        print(json.dumps({"train_ranks": train_ranks_phase(
+            np, shutil, lm_entry, smi)}))
+        phase("training over ranks", t0)
         return
     dry_dir = ROOT / "build" / "phase16"
     if args.dryrun_only:
@@ -4414,7 +4646,8 @@ def main() -> None:
 
     # ---- 6. where the time goes: one profiled batch ------------------------
     t0 = time.perf_counter()
-    profile_batch(torch, exact_search_device_batch, index, batches[1])
+    profile_batch(torch, exact_search_device_batch, index, batches[1],
+                  host_ops=False)
     phase("profile", t0)
 
     # ---- 7. DTW main path ----------------------------------------------------
@@ -4569,6 +4802,14 @@ def main() -> None:
         torch, np, rows, distributed, args.n_series, smi, proc, dry_dir,
         dry_exact)}))
     phase("dry run", t0)
+
+    # ---- 17. training over ranks -------------------------------------------------
+    import shutil
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    print(json.dumps({"train_ranks": train_ranks_phase(np, shutil, lm_entry,
+                                                       smi)}))
+    phase("training over ranks", t0)
     print(f"[phase] whole run: {time.perf_counter() - t_run:.3f} s")
 
     for r in rows:
@@ -4590,4 +4831,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["train-rank"]:
+        train_rank_child(sys.argv[2:])
+    else:
+        main()

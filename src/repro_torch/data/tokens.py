@@ -6,9 +6,12 @@ contract needs:
 1. **Step-keyed determinism** — ``batch_at(step)`` is a pure function of
    (seed, step), so restart-after-failure replays the identical stream (no
    iterator state beyond the step counter, which lives in the checkpoint).
-2. **Host-sharded** — each process materializes only its slice of the global
-   batch (its rank and the world size of an initialised
-   ``torch.distributed`` process group; one process otherwise).
+2. **Host-sharded** — each host materializes only its slice of the global
+   batch.  A host is the reference's JAX *process*, which drives every
+   device of its machine; here each of those devices has a rank of its
+   own, so the ranks of one host (``torchrun``'s ``LOCAL_WORLD_SIZE``) all
+   make the host's slice, bitwise the reference's, and each keeps its own
+   rows when the batch is placed on the mesh.
 3. **Static shapes** — no data-dependent recompiles (straggler hygiene).
 
 The token distribution is a Zipfian unigram mix with a Markov lag-1 blend so
@@ -19,9 +22,11 @@ calls in its order, so they are bitwise the reference's.
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import numpy as np
-import torch.distributed as dist
+
+from repro_torch.distributed.sharding import rank_and_size
 
 
 @dataclasses.dataclass(frozen=True)
@@ -34,10 +39,14 @@ class TokenPipelineConfig:
 
 
 def process_rank_and_count() -> tuple[int, int]:
-    """(rank, world size) of the initialised process group, or (0, 1)."""
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_rank(), dist.get_world_size()
-    return 0, 1
+    """(host index, host count) of this rank, the reference's
+    ``(jax.process_index(), jax.process_count())``: ``RANK //
+    LOCAL_WORLD_SIZE`` and ``WORLD_SIZE // LOCAL_WORLD_SIZE`` of the
+    initialised process group (every rank on one host where the
+    environment does not say), or (0, 1)."""
+    rank, size = rank_and_size()
+    local = int(os.environ.get("LOCAL_WORLD_SIZE", size))
+    return rank // local, size // local
 
 
 class TokenPipeline:

@@ -26,8 +26,10 @@ reference's ``with_sharding_constraint``), and :func:`local` runs a
 function on each device's local shards (the ops DTensor has no sharding
 strategy for).  The dry run (``repro_torch.launch.dryrun``) builds such a
 mesh over the ``"fake"`` process group (:func:`fake_world`), whose world
-size is the mesh's size, and places fake tensors on it; real placement on
-several cards is not ported yet (ROADMAP A15d).
+size is the mesh's size, and places fake tensors on it; training
+(``repro_torch.launch.train`` under ``torchrun``) builds it over the real
+ranks of a gloo or NCCL group, one rank per device, where :func:`place`
+keeps each rank's own shard of a tensor every rank holds whole.
 """
 from __future__ import annotations
 
@@ -314,9 +316,9 @@ def _map_names(fn, tree, *rest):
     if isinstance(tree, dict):
         return {k: _map_names(fn, v, *(r[k] for r in rest))
                 for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_map_names(fn, v, *(r[i] for r in rest))
-                for i, v in enumerate(tree)]
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_names(fn, v, *(r[i] for r in rest))
+                          for i, v in enumerate(tree))
     raise TypeError(f"not a tree of logical names: {tree!r}")
 
 
@@ -369,16 +371,85 @@ def local_shape(shape, placements_, mesh) -> tuple[int, ...]:
 
 def place(x: torch.Tensor, placements_, mesh, *, local: bool = False):
     """A DTensor of ``placements_`` on ``mesh``: from ``x``, the global
-    tensor (each device's shard cut from it), or with ``local``, one
+    tensor, which every rank holds whole (each rank keeps its own shard,
+    cut here, on the mesh's device: no collective), or with ``local``, one
     device's shard itself (fake tensors of the dry run: nothing is cut)."""
-    from torch.distributed.tensor import DTensor, distribute_tensor
-    if local:
-        return DTensor.from_local(x, mesh, placements_, run_check=False)
-    return distribute_tensor(x, mesh, placements_)
+    from torch.distributed.tensor import DTensor
+    if not local:
+        x = local_chunk(x, placements_, mesh)
+        dev = torch.device(mesh.device_type)
+        if dev.type == "cuda":
+            dev = torch.device("cuda", torch.cuda.current_device())
+        x = torch.empty(x.shape, dtype=x.dtype, device=dev).copy_(x)
+    return DTensor.from_local(x, mesh, placements_, run_check=False)
 
 
-def _is_dtensor(x) -> bool:
+def local_chunk(x: torch.Tensor, placements_, mesh) -> torch.Tensor:
+    """This rank's shard of the global tensor ``x`` (a view): along each
+    mesh dimension that shards a tensor dimension, the chunk of this
+    rank's coordinate, mesh dimensions in order (DTensor's even
+    chunking)."""
+    coord = mesh.get_coordinate()
+    for md, p in enumerate(placements_):
+        if p.is_shard():
+            x = torch.chunk(x, mesh.shape[md], dim=p.dim)[coord[md]]
+    return x
+
+
+def counted_here(x) -> bool:
+    """Whether this rank's shard of ``x`` is the one a sum over every
+    rank counts: a plain tensor always; a DTensor where this rank's
+    coordinate is 0 along each mesh dimension that does not shard it (the
+    other ranks there hold copies)."""
+    if not is_dtensor(x):
+        return True
+    coord = x.device_mesh.get_coordinate()
+    return all(p.is_shard() or c == 0 for p, c in zip(x.placements, coord))
+
+
+def place_rows(x: torch.Tensor, names, mesh, host: int = 0,
+               hosts: int = 1):
+    """A DTensor of the global batch whose host ``host`` of ``hosts``
+    holds the rows ``x`` (``repro_torch.data.tokens``' slice), placed by
+    the logical ``names`` under the active rules: each rank keeps its own
+    rows of ``x``, which must lie in its host's slice."""
+    from torch.distributed.tensor import DTensor, Replicate
+    gshape = (x.shape[0] * hosts,) + tuple(x.shape[1:])
+    pl = _fixed_placements(gshape, names)
+    coord = mesh.get_coordinate()
+    idx, n = 0, 1
+    for md, p in enumerate(pl):
+        if p.is_shard() and p.dim == 0:
+            idx, n = idx * mesh.shape[md] + coord[md], n * mesh.shape[md]
+    per = gshape[0] // n
+    lo = idx * per - host * x.shape[0]
+    if not 0 <= lo <= x.shape[0] - per:
+        raise ValueError(
+            f"this rank's rows {idx * per}:{(idx + 1) * per} of the global "
+            f"batch lie outside its host's {host * x.shape[0]}:"
+            f"{(host + 1) * x.shape[0]}")
+    rest = [Replicate() if p.is_shard() and p.dim == 0 else p for p in pl]
+    return DTensor.from_local(local_chunk(x[lo:lo + per], rest, mesh),
+                              mesh, pl, run_check=False)
+
+
+def is_dtensor(x) -> bool:
     return type(x).__name__ == "DTensor"
+
+
+def whole(x: torch.Tensor) -> torch.Tensor:
+    """A DTensor gathered whole (a collective over its mesh); a plain
+    tensor as it is."""
+    return x.full_tensor() if is_dtensor(x) else x
+
+
+def rank_and_size() -> tuple[int, int]:
+    """This process's rank and the world size of the initialised process
+    group, or (0, 1)."""
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
 
 
 def shard(x: torch.Tensor, *names: str | None) -> torch.Tensor:
@@ -386,17 +457,19 @@ def shard(x: torch.Tensor, *names: str | None) -> torch.Tensor:
     mesh or rules, and for a tensor that is not a DTensor.  Under rules and
     a ``DeviceMesh`` a DTensor is redistributed to its names' placements
     (axes that do not divide a dimension dropped), as the reference's
-    ``with_sharding_constraint``; under rules over axis names alone it
-    raises, since there is no mesh to place on (ROADMAP A15d)."""
+    ``with_sharding_constraint``.  Under rules over axis names alone it
+    raises: names resolve to a spec there, but a tensor can only be placed
+    on the ranks of a ``DeviceMesh`` (:func:`named_mesh`)."""
     axis_names, rules = get_rules()
     if axis_names is None or rules is None:
         return x
     mesh = get_device_mesh()
     if mesh is None:
         raise NotImplementedError(
-            f"shard{names}: placing model tensors needs a DeviceMesh, not "
-            f"the axis names {axis_names} (ROADMAP A15d)")
-    if not _is_dtensor(x):
+            f"shard{names}: the rules are over the axis names {axis_names} "
+            f"alone; placing a model tensor needs a DeviceMesh of ranks "
+            f"(named_mesh, under logical_rules)")
+    if not is_dtensor(x):
         return x
     return x.redistribute(mesh, _fixed_placements(x.shape, names))
 
@@ -406,7 +479,7 @@ def like(x: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
     (a branch's output before it joins a residual stream placed otherwise,
     so the gradient comes back in the branch's own placement); ``x``
     itself otherwise."""
-    if _is_dtensor(x) and _is_dtensor(ref) and \
+    if is_dtensor(x) and is_dtensor(ref) and \
             tuple(x.placements) != tuple(ref.placements):
         return x.redistribute(ref.device_mesh, ref.placements)
     return x
@@ -417,7 +490,7 @@ def batch_rows(x: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
     sharded along it, the same share of each device's own rows, so a
     microbatch stays sharded as its batch was (which rows form it differs;
     their number and placement do not)."""
-    if not _is_dtensor(x):
+    if not is_dtensor(x):
         return x[lo:hi]
     n = math.prod(size for p, size in zip(x.placements, x.device_mesh.shape)
                   if p.is_shard() and p.dim == 0)
@@ -448,11 +521,11 @@ def local(fn, in_names, out_names):
     independently."""
     def wrapped(*args, **kwargs):
         mesh, rules = _active()
-        if mesh is None or not any(_is_dtensor(a) for a in args):
+        if mesh is None or not any(is_dtensor(a) for a in args):
             return fn(*args, **kwargs)
         loc, kept = [], {}
         for a, names in zip(args, in_names):
-            if names is not None and _is_dtensor(a):
+            if names is not None and is_dtensor(a):
                 pl = _fixed_placements(a.shape, names)
                 a = a.redistribute(mesh, pl)
                 # a name replicated on one input (its axes do not divide
@@ -460,7 +533,7 @@ def local(fn, in_names, out_names):
                 for nm, ax in zip(names, spec_of(pl, mesh, len(names))):
                     if nm is not None:
                         kept[nm] = kept.get(nm, True) and ax is not None
-            loc.append(a.to_local() if _is_dtensor(a) else a)
+            loc.append(a.to_local() if is_dtensor(a) else a)
         out = fn(*loc, **kwargs)
         single = _is_names(out_names)
         outs = (out,) if single else tuple(out)
@@ -495,7 +568,7 @@ def batch_local(fn, batched, module):
     for (the recurrent cells): each device computes its batch rows in
     full, which the per-device count shows."""
     mesh, rules = _active()
-    if mesh is None or not any(_is_dtensor(t) for t in
+    if mesh is None or not any(is_dtensor(t) for t in
                                tree_flatten(batched)[0]):
         return fn(batched, module)
     import types
@@ -503,7 +576,7 @@ def batch_local(fn, batched, module):
     from torch.distributed.tensor import Replicate
 
     def to_local(t, names):
-        if not _is_dtensor(t):
+        if not is_dtensor(t):
             return t
         pl = (_fixed_placements(t.shape, names) if names is not None
               else (Replicate(),) * mesh.ndim)
@@ -514,7 +587,7 @@ def batch_local(fn, batched, module):
     weights = types.SimpleNamespace(**{
         n: to_local(p, None) for n, p in module.named_parameters()})
     sharded = any(p.is_shard() and p.dim == 0 for t in
-                  tree_flatten(batched)[0] if _is_dtensor(t)
+                  tree_flatten(batched)[0] if is_dtensor(t)
                   for p in _fixed_placements(t.shape, ("batch",)))
     n = math.prod(size for a, size in _axis_sizes(mesh).items()
                   if a in _spec_axes(_resolve(("batch",), rules,
@@ -535,14 +608,14 @@ def write_slot(buf: torch.Tensor, new: torch.Tensor, at: int
     along dimension 1).  On a DTensor sharded along that dimension only the
     device holding position ``at`` writes, into its own shard, as the
     reference's compiler does a ``dynamic_update_slice``: no collective."""
-    if not _is_dtensor(buf):
+    if not is_dtensor(buf):
         buf[:, at:at + 1] = new.to(buf.dtype)
         return buf
     from torch.distributed.tensor import Replicate
     mesh = buf.device_mesh
     pl = tuple(Replicate() if p.is_shard() and p.dim == 1 else p
                for p in buf.placements)
-    new_l = new.redistribute(mesh, pl).to_local() if _is_dtensor(new) \
+    new_l = new.redistribute(mesh, pl).to_local() if is_dtensor(new) \
         else new
     loc = buf.to_local()
     coord = mesh.get_coordinate()

@@ -45,7 +45,7 @@ from repro_torch.distributed.sharding import (DEFAULT_RULES, fake_world,
                                               place, shardings_for)
 from repro_torch.launch.mesh import PRODUCTION_MESHES, production_device_mesh
 from repro_torch.models import registry, transformer as tfm
-from repro_torch.models.common import PSpec, logical_tree, map_tree
+from repro_torch.models.common import PSpec, logical_tree, map_tree, zip_tree
 from repro_torch.train import optimizer as opt
 from repro_torch.train.train_step import (make_microbatched_train_step,
                                           make_train_step)
@@ -102,16 +102,6 @@ def count_params_split(cfg) -> tuple[float, float]:
     return total, active
 
 
-def _zip_map(fn, *trees):
-    first = trees[0]
-    if isinstance(first, dict):
-        return {k: _zip_map(fn, *(t[k] for t in trees)) for k in first}
-    if isinstance(first, list):
-        return [_zip_map(fn, *(t[i] for t in trees))
-                for i in range(len(first))]
-    return fn(*trees)
-
-
 def place_tree(abs_tree, placements_tree, mesh):
     """Fake global tensors → DTensors of fake local shards (even shards of
     the placements; nothing is allocated)."""
@@ -120,7 +110,7 @@ def place_tree(abs_tree, placements_tree, mesh):
             loc = torch.empty(local_shape(a.shape, pl, mesh), dtype=a.dtype,
                               device=a.device)
         return place(loc, pl, mesh, local=True)
-    return _zip_map(leaf, abs_tree, placements_tree)
+    return zip_tree(leaf, abs_tree, placements_tree)
 
 
 def _unit_slices(cfg, placed: dict, key: str = "stack",

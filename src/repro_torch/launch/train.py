@@ -14,9 +14,18 @@ Presets:
 Fault tolerance is live here: kill -TERM mid-run → checkpoint → rerun with
 the same --ckpt-dir resumes where it left off.
 
-It trains on one device (``--device``, the card unless ``cpu`` is asked
-for), where placement is trivial.  With several CUDA devices visible it
-raises: placing model tensors on a mesh is not ported yet (ROADMAP A15d).
+Over several devices it runs one rank per device under ``torchrun``, as
+the reference's one process runs over every device it sees:
+
+    PYTHONPATH=src torchrun --standalone --nproc-per-node 8 \\
+        -m repro_torch.launch.train --arch olmo-1b --preset 100m
+
+The ranks form the reference's ``(data, model)`` mesh (8 give
+``{'data': 1, 'model': 8}``), place the model by ``DEFAULT_RULES`` and
+restore checkpoints onto it with the reference's ``sharding_fn``; NCCL
+on ``cuda:LOCAL_RANK``, or gloo with ``--device cpu``.  A lone process
+trains on its one device without placement (a single process that sees
+several CUDA devices refuses: start it under ``torchrun``).
 """
 from __future__ import annotations
 
@@ -28,9 +37,11 @@ import torch
 
 from repro_torch.configs.base import reduced
 from repro_torch.data.tokens import TokenPipeline, TokenPipelineConfig
-from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.distributed.sharding import (DEFAULT_RULES, logical_rules,
+                                              shardings_for)
+from repro_torch.launch.mesh import make_host_mesh, make_rank_mesh, world
 from repro_torch.models import registry, transformer as tfm
-from repro_torch.models.weights import param_tree
+from repro_torch.models.weights import logical_names, param_tree, place_model
 from repro_torch.train import optimizer as opt
 from repro_torch.train.train_step import make_train_step
 from repro_torch.train.trainer import Trainer, TrainerConfig
@@ -69,16 +80,32 @@ def main(argv: list[str] | None = None) -> None:
     args = ap.parse_args(argv)
 
     cfg = preset_config(args.arch, args.preset)
-    mesh = make_host_mesh(args.device)
-    if mesh.size > 1:
-        raise NotImplementedError(
-            f"training on a mesh of {mesh.size} devices: placing model "
-            f"tensors on a mesh is not ported yet (ROADMAP A15d); make one "
-            f"device visible (CUDA_VISIBLE_DEVICES)")
-    device = mesh.devices[0]
-    print(f"arch={cfg.name} preset={args.preset} "
-          f"params={tfm.count_params(cfg)/1e6:.1f}M "
-          f"mesh={dict(data=mesh.size, model=1)}")
+    with world(args.device) as w:
+        if not w.grouped and make_host_mesh(args.device).size > 1:
+            raise RuntimeError(
+                "several CUDA devices are visible to one process: start one "
+                "rank per device under torchrun (--nproc-per-node), or make "
+                "one device visible (CUDA_VISIBLE_DEVICES)")
+        report = _train(args, cfg, w)
+    if report.losses and w.rank == 0:
+        k = max(len(report.losses) // 10, 1)
+        print(f"done: steps={report.steps_run} "
+              f"loss {np.mean(report.losses[:k]):.3f} → "
+              f"{np.mean(report.losses[-k:]):.3f} "
+              f"resumed_from={report.resumed_from} "
+              f"stragglers={len(report.straggler_events)}")
+
+
+def _train(args, cfg, w):
+    """The reference's ``main`` body on this rank: the model placed on the
+    ranks' mesh under ``DEFAULT_RULES`` in a process group, plain on a
+    lone process."""
+    mesh = make_rank_mesh(w.device) if w.grouped else None
+    shape = (dict(zip(mesh.mesh_dim_names, mesh.shape)) if mesh is not None
+             else {"data": 1, "model": 1})
+    if w.rank == 0:
+        print(f"arch={cfg.name} preset={args.preset} "
+              f"params={tfm.count_params(cfg)/1e6:.1f}M mesh={shape}")
 
     pipe = TokenPipeline(TokenPipelineConfig(
         vocab=cfg.vocab, seq_len=args.seq, global_batch=args.batch))
@@ -94,25 +121,27 @@ def main(argv: list[str] | None = None) -> None:
                                          cfg.d_model), np.float32)
         return {**batch, **extra}
 
-    model = tfm.init_params(cfg, torch.Generator(device).manual_seed(0),
-                            device)
-    ocfg = opt.AdamWConfig(lr=args.lr, total_steps=args.steps,
-                           warmup_steps=max(args.steps // 20, 5),
-                           moment_dtype=cfg.moment_dtype)
-    opt_state = opt.init(param_tree(model), ocfg)
-    trainer = Trainer(
-        TrainerConfig(total_steps=args.steps, ckpt_every=args.ckpt_every,
-                      ckpt_dir=args.ckpt_dir),
-        make_train_step(cfg, ocfg), data_fn)
-    model, opt_state, report = trainer.run(model, opt_state)
+    with logical_rules(mesh, DEFAULT_RULES if mesh is not None else None):
+        model = tfm.init_params(cfg, torch.Generator(w.device).manual_seed(0),
+                                w.device)
+        if mesh is not None:
+            model = place_model(model)
+        ocfg = opt.AdamWConfig(lr=args.lr, total_steps=args.steps,
+                               warmup_steps=max(args.steps // 20, 5),
+                               moment_dtype=cfg.moment_dtype)
+        opt_state = opt.init(param_tree(model), ocfg)
+        logical = logical_names(cfg)
 
-    if report.losses:
-        k = max(len(report.losses) // 10, 1)
-        print(f"done: steps={report.steps_run} "
-              f"loss {np.mean(report.losses[:k]):.3f} → "
-              f"{np.mean(report.losses[-k:]):.3f} "
-              f"resumed_from={report.resumed_from} "
-              f"stragglers={len(report.straggler_events)}")
+        def sharding_fn(tree):
+            return shardings_for(tree, (logical, opt.state_logical(logical)))
+
+        trainer = Trainer(
+            TrainerConfig(total_steps=args.steps, ckpt_every=args.ckpt_every,
+                          ckpt_dir=args.ckpt_dir),
+            make_train_step(cfg, ocfg), data_fn,
+            sharding_fn if mesh is not None else None)
+        _, _, report = trainer.run(model, opt_state)
+    return report
 
 
 if __name__ == "__main__":

@@ -43,6 +43,18 @@ def map_tree(fn, tree: Any) -> Any:
     return fn(tree)
 
 
+def zip_tree(fn, tree: Any, *rest: Any) -> Any:
+    """``fn`` over the leaves of a tree of dicts and lists and the leaves
+    at the same places in the trees ``rest``."""
+    if isinstance(tree, dict):
+        return {k: zip_tree(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [zip_tree(fn, v, *(r[i] for r in rest))
+                for i, v in enumerate(tree)]
+    return fn(tree, *rest)
+
+
 def leaves(tree: Any) -> list:
     """The leaves of a tree of dicts and lists, keys in sorted order (the
     order ``jax.tree.leaves`` walks a dict)."""

@@ -36,7 +36,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.device_index import resolve_device
 from repro_torch.distributed.sharding import (batch_local, divisible,
-                                              get_device_mesh, like, shard,
+                                              is_dtensor, like, shard,
                                               write_slot)
 from . import griffin, moe as moe_mod, xlstm
 from .common import (DTYPES, PSpec, abstract, attention, decode_attention,
@@ -568,13 +568,18 @@ def _embed(model: Transformer, tokens: torch.Tensor,
            pos_offset: int | None = None) -> torch.Tensor:
     cfg = model.cfg
     dtype = DTYPES[cfg.compute_dtype]
-    if get_device_mesh() is None:
-        x = model.embed[tokens.long()].to(dtype)
-    else:
-        # the same rows: DTensor shards F.embedding's lookup and its
-        # backward (the index form's backward, an index_put, it does not
-        # in every torch version)
-        x = torch.nn.functional.embedding(tokens.long(), model.embed).to(dtype)
+    # one lookup for the plain and the placed model, so that a (1, 1) mesh
+    # is bitwise the plain step on the card too (the index form's backward
+    # is an index_put, which sums a row's cotangents in another order than
+    # F.embedding's, and which DTensor does not shard in every torch
+    # version).  On a mesh the table is gathered over each mesh axis that
+    # shards the ids (as GSPMD gathers an FSDP-sharded weight): where the
+    # ids and the table share an axis DTensor gathers the ids instead but
+    # keeps the vocabulary mask of its own rows, whose shape then fails
+    # the reduction over the vocabulary's shards
+    ids = tokens.long()
+    x = torch.nn.functional.embedding(
+        ids, _gathered_where_sharded(model.embed, ids)).to(dtype)
     if not cfg.rope_theta:                          # sinusoidal positions
         if pos_offset is None:
             pe = sinusoidal(tokens.shape[1], cfg.d_model, x.device)
@@ -583,6 +588,19 @@ def _embed(model: Transformer, tokens: torch.Tensor,
                                           device=x.device), cfg.d_model)
         x = x + pe.to(dtype)[None]
     return shard(x, "batch", "seq", None)
+
+
+def _gathered_where_sharded(w: torch.Tensor, ids: torch.Tensor
+                            ) -> torch.Tensor:
+    """DTensor ``w`` replicated on each mesh dimension that shards the
+    DTensor ``ids``; ``w`` as it is otherwise."""
+    if not (is_dtensor(w) and is_dtensor(ids)):
+        return w
+    from torch.distributed.tensor import Replicate
+    pl = tuple(Replicate() if q.is_shard() else p
+               for p, q in zip(w.placements, ids.placements))
+    return w if pl == tuple(w.placements) else \
+        w.redistribute(w.device_mesh, pl)
 
 
 def _enc_source(model: Transformer, batch: dict) -> torch.Tensor | None:

@@ -8,6 +8,10 @@ tree, given as numpy arrays, becomes the port's model here.  The stacked
 layers).  Caches and the AdamW state go both ways, so a prefill cache of
 one package feeds the other's decode, one optimizer's state the other's
 step, and caches and states compare leaf by leaf.
+
+:func:`place_model` places a model on the ranks of a ``DeviceMesh``: each
+parameter becomes a DTensor of the reference's placement for it
+(:func:`logical_names` under the active ``logical_rules``).
 """
 from __future__ import annotations
 
@@ -18,8 +22,8 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.device_index import resolve_device
-from .common import map_tree
-from .transformer import Transformer
+from .common import logical_tree, map_tree, zip_tree
+from .transformer import Transformer, init_specs
 
 
 def _split(tree: Any, n: int) -> list:
@@ -152,3 +156,38 @@ def cache_to_reference(caches: dict) -> dict:
     if "rem" in caches:
         out["rem"] = map_tree(_np, caches["rem"])
     return out
+
+
+def logical_names(cfg: ArchConfig) -> dict:
+    """The logical axis names of each parameter in the port's layout: the
+    reference's ``logical_tree(init_specs(cfg))`` with each unit (and
+    encoder layer) named as its stacked leaf less the leading ``layers``
+    axis.  AdamW's moments share them (``optimizer.state_logical``)."""
+    t = logical_tree(init_specs(cfg))
+    unit = lambda tree: map_tree(lambda names: names[1:], tree)  # noqa: E731
+    out = {k: v for k, v in t.items() if k not in ("stack", "encoder")}
+    out["units"] = [unit(t["stack"])] * cfg.n_units
+    if "encoder" in t:
+        out["encoder"] = {"layers": [unit(t["encoder"]["stack"])]
+                          * cfg.encoder_layers,
+                          "final_norm": t["encoder"]["final_norm"]}
+    return out
+
+
+def place_model(model: Transformer) -> Transformer:
+    """A model of ``model``'s values placed on the active ``DeviceMesh``
+    under the active rules (``sharding.logical_rules``): each parameter
+    a DTensor of its :func:`logical_names`' placements (``shardings_for``),
+    this rank's shard kept from the whole tensor, which every rank must
+    hold (the same generator seed on each): no collective.  Each unit's
+    parameter is a leaf of its own, with its own gradient."""
+    from repro_torch.distributed.sharding import (get_device_mesh, place,
+                                                  shardings_for)
+    mesh = get_device_mesh()
+    if mesh is None:
+        raise ValueError("place_model needs logical_rules over a DeviceMesh")
+    tree = param_tree(model)
+    pl = shardings_for(tree, logical_names(model.cfg))
+    placed = zip_tree(lambda p, q: place(p.detach(), q, mesh), tree, pl)
+    return Transformer(model.cfg, placed)
+

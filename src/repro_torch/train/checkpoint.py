@@ -22,8 +22,18 @@ A bfloat16 leaf is written as the reference writes one through
 ``restore`` checks the manifest's keys and shapes against the target
 (the reference checks only the number of leaves, so leaves written in
 another order would load permuted) and puts each leaf on its target
-leaf's device.  Placing leaves on a mesh (``sharding_fn``) is not ported
-yet (ROADMAP A15d) and raises.
+leaf's device, or, given a ``sharding_fn``, places it on the active
+``DeviceMesh`` (``sharding.logical_rules``): elastic, since the files hold
+whole leaves, never a device layout.
+
+In a process group of several ranks, ``save`` and ``wait`` are
+collective: every rank calls them in the same order.  Each rank
+gathers each leaf whole (``full_tensor()``) on its main thread, in leaf
+order; rank 0 alone writes, commits and collects old steps, so the files
+are byte for byte a one-process save of the same values; the other ranks
+meet it at a barrier once the commit is done (after the write of a
+blocking save, in ``wait`` after an async one, whose writer thread does
+file I/O only and never a collective).
 """
 from __future__ import annotations
 
@@ -36,6 +46,8 @@ from typing import Any, Callable, Iterator
 
 import numpy as np
 import torch
+
+from repro_torch.distributed.sharding import rank_and_size, whole
 
 _STACKED = {"units": "stack", "layers": "stack"}
 
@@ -110,6 +122,31 @@ def _load_npy(path: str, dtype: str) -> torch.Tensor:
     return torch.from_numpy(a)
 
 
+def _whole(t) -> torch.Tensor:
+    """A leaf whole and detached: a DTensor gathered (a collective)."""
+    return whole(torch.as_tensor(t).detach())
+
+
+def _barrier(size: int) -> None:
+    if size > 1:
+        import torch.distributed as dist
+        dist.barrier()
+
+
+def _place(tree: Any, placements: Any, mesh) -> Any:
+    """Each whole leaf of ``tree`` as a DTensor of the placements at its
+    place in ``placements`` on ``mesh``."""
+    from repro_torch.distributed.sharding import place
+
+    def walk(t, pl):
+        if isinstance(t, dict):
+            return {k: walk(v, pl[k]) for k, v in t.items()}
+        if isinstance(t, (tuple, list)):
+            return type(t)(walk(v, p) for v, p in zip(t, pl))
+        return place(t, pl, mesh)
+    return walk(tree, placements)
+
+
 class CheckpointManager:
     def __init__(self, directory: str, keep: int = 3):
         self.dir = directory
@@ -128,11 +165,12 @@ class CheckpointManager:
         host = []
         for _, paths, stacked in entries:
             if stacked:
-                host.append(torch.stack([_get(tree, p).detach().cpu()
+                host.append(torch.stack([_whole(_get(tree, p)).cpu()
                                          for p in paths]))
             else:
-                host.append(torch.as_tensor(_get(tree, paths[0])).detach()
+                host.append(_whole(_get(tree, paths[0]))
                             .to("cpu", copy=True))
+        rank, size = rank_and_size()
 
         def write():
             tmp = os.path.join(self.dir, f"step_{step:08d}.tmp")
@@ -152,16 +190,23 @@ class CheckpointManager:
             self._gc()
 
         self.wait()
-        if blocking:
+        if rank != 0:
+            if blocking:
+                _barrier(size)
+        elif blocking:
             write()
+            _barrier(size)
         else:
             self._thread = threading.Thread(target=write, daemon=True)
             self._thread.start()
 
     def wait(self) -> None:
+        """Wait for an async save to commit (collective: with several
+        ranks, every rank meets rank 0 after its commit)."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        _barrier(rank_and_size()[1])
 
     def _gc(self) -> None:
         steps = self.list_steps()
@@ -188,11 +233,19 @@ class CheckpointManager:
                 ) -> tuple[Any, dict]:
         """Rebuild ``target_tree``'s structure from step ``step``'s files,
         each leaf on the device of the target's leaf, in the file's
-        dtype."""
+        dtype.  With ``sharding_fn``, the restored tree (whole leaves on
+        the host) goes to ``sharding_fn(tree)``, a tree of placements of
+        the same structure as ``sharding.shardings_for`` gives, and each
+        leaf becomes a DTensor of its placements on the active
+        ``DeviceMesh``, each rank keeping its own shard (no collective):
+        any mesh, whatever the mesh that saved it."""
         if sharding_fn is not None:
-            raise NotImplementedError(
-                "restore with a sharding_fn: placing leaves on a mesh is "
-                "not ported yet (ROADMAP A15d)")
+            from repro_torch.distributed.sharding import get_device_mesh
+            mesh = get_device_mesh()
+            if mesh is None:
+                raise ValueError(
+                    "restore with a sharding_fn places leaves on the "
+                    "DeviceMesh of the active logical_rules; none is active")
         path = os.path.join(self.dir, f"step_{step:08d}")
         with open(os.path.join(path, "manifest.json")) as fh:
             manifest = json.load(fh)
@@ -212,9 +265,14 @@ class CheckpointManager:
                     f"{manifest['shapes'][i]}, the target's {key} {shape}")
             a = _load_npy(os.path.join(path, f"arr_{i:05d}__shard0.npy"),
                           manifest["dtypes"][i])
-            if stacked:
+            if sharding_fn is not None:        # placed below
+                new.update(zip(paths, a if stacked else [a]))
+            elif stacked:
                 for j, p in enumerate(paths):
                     new[p] = a[j].to(first.device, copy=True)
             else:
                 new[paths[0]] = a.to(first.device)
-        return _replace(target_tree, new), manifest["extras"]
+        tree = _replace(target_tree, new)
+        if sharding_fn is not None:
+            tree = _place(tree, sharding_fn(tree), mesh)
+        return tree, manifest["extras"]

@@ -12,6 +12,14 @@ float32, the elementwise math in ``math_dtype`` and the moments stored in
 ``torch.no_grad()`` and writes the parameters and moments in place.
 :func:`abstract_state` is the state's shapes and dtypes as fake tensors,
 for the dry run.
+
+On a model placed on a ``DeviceMesh`` (``models.weights.place_model``)
+the parameters, gradients and moments are DTensors of one placement each
+leaf (a gradient that comes back in another is redistributed to its
+parameter's), so the elementwise update runs on each rank's local shards
+as it is; the global norm adds each rank's squares of the shards it
+counts (``sharding.counted_here``) and all-reduces that sum once, so
+every rank clips by the same scalar.
 """
 from __future__ import annotations
 
@@ -21,7 +29,8 @@ from typing import Any
 
 import torch
 
-from repro_torch.models.common import DTYPES, leaves, map_tree
+from repro_torch.distributed.sharding import counted_here, is_dtensor, like
+from repro_torch.models.common import DTYPES, leaves, map_tree, zip_tree
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,9 +69,11 @@ def schedule(cfg: AdamWConfig, step) -> torch.Tensor:
 
 
 def init(params: Any, cfg: AdamWConfig) -> dict:
-    """Zero moments in ``moment_dtype`` beside each parameter, step 0."""
+    """Zero moments in ``moment_dtype`` beside each parameter (in its
+    placement, for a DTensor), step 0."""
     mdt = DTYPES[cfg.moment_dtype]
-    zeros = lambda p: torch.zeros(p.shape, dtype=mdt, device=p.device)  # noqa: E731
+    zeros = lambda p: torch.zeros_like(  # noqa: E731
+        p, dtype=mdt, memory_format=torch.contiguous_format)
     device = leaves(params)[0].device
     return {"m": map_tree(zeros, params),
             "v": map_tree(zeros, params),
@@ -87,12 +98,24 @@ def state_logical(params_logical: Any) -> dict:
     return {"m": params_logical, "v": params_logical, "step": ()}
 
 
+def _local(x: torch.Tensor) -> torch.Tensor:
+    """A DTensor's local shard; a plain tensor itself."""
+    return x.to_local() if is_dtensor(x) else x
+
+
 def global_norm(tree: Any) -> torch.Tensor:
     """sqrt of the float32 sum of each leaf's float32 sum of squares, the
     leaves in the port's order (the reference adds its stacked leaves, so
-    the two differ by float32 rounding)."""
-    sq = sum(torch.sum(torch.square(x.to(torch.float32)))
-             for x in leaves(tree))
+    the two differ by float32 rounding).  Of DTensor leaves each rank
+    adds the shards it counts and one all-reduce sums the ranks, so every
+    rank returns the same plain scalar."""
+    xs = leaves(tree)
+    sq = sum(torch.sum(torch.square(_local(x).to(torch.float32)))
+             if counted_here(x) else
+             torch.zeros((), device=_local(x).device) for x in xs)
+    if any(is_dtensor(x) for x in xs):
+        import torch.distributed as dist
+        dist.all_reduce(sq)
     return torch.sqrt(sq)
 
 
@@ -100,25 +123,29 @@ def clip_by_global_norm(grads: Any, max_norm: float
                         ) -> tuple[Any, torch.Tensor]:
     gn = global_norm(grads)
     scale = torch.clamp_max(max_norm / torch.clamp_min(gn, 1e-9), 1.0)
-    return map_tree(lambda g: (g.to(torch.float32) * scale).to(g.dtype),
-                    grads), gn
+    return map_tree(lambda g: (_local(g).to(torch.float32) * scale
+                               ).to(g.dtype), grads), gn
 
 
 @torch.no_grad()
 def apply(params: Any, grads: Any, state: dict, cfg: AdamWConfig
           ) -> tuple[Any, dict, dict]:
     """One AdamW step.  Writes ``params`` and the moments of ``state`` in
-    place and returns ``(params, new_state, metrics)``."""
-    grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
+    place and returns ``(params, new_state, metrics)``; of DTensors, the
+    local shards (the clipped gradients come back as local shards)."""
+    grads, gnorm = clip_by_global_norm(zip_tree(like, grads, params),
+                                       cfg.grad_clip)
     step = state["step"] + 1
-    lr = schedule(cfg, step)
+    s = _local(step)
+    lr = schedule(cfg, s)
     b1, b2 = cfg.b1, cfg.b2
-    bc1 = 1 - b1 ** step.to(torch.float32)
-    bc2 = 1 - b2 ** step.to(torch.float32)
+    bc1 = 1 - b1 ** s.to(torch.float32)
+    bc2 = 1 - b2 ** s.to(torch.float32)
     wdt = DTYPES[cfg.math_dtype]
     lr_w, bc1_w, bc2_w = lr.to(wdt), bc1.to(wdt), bc2.to(wdt)
     for p, g, m, v in zip(leaves(params), leaves(grads), leaves(state["m"]),
                           leaves(state["v"])):
+        p, m, v = _local(p), _local(m), _local(v)
         gw = g.to(wdt)
         mw = b1 * m.to(wdt) + (1 - b1) * gw
         vw = b2 * v.to(wdt) + (1 - b2) * gw * gw

@@ -9,8 +9,15 @@ Production behaviors, all testable on one CPU process:
   reference, whose donated buffers leave no old state to keep); halt after
   ``max_bad_steps`` consecutive bad steps
 * step-time watchdog: rolling p50; steps slower than ``straggler_factor``×p50
-  are logged as straggler events, with the process's rank as ``host``
+  are logged as straggler events, with the host's index as ``host``
 * deterministic data order keyed by (seed, step) so restart ≡ no-failure run
+
+In a process group (``torchrun``, one rank per device) every rank runs the
+loop on its shards of a placed model: the stop flag is agreed each step by
+a MAX all-reduce, so a signal that reaches the ranks at different steps
+still stops them all after the same step, which they save together; the
+checkpoint calls are collective (``checkpoint``); lines are printed on
+rank 0 only.
 
 The step runs eagerly on the model it is given (a
 :class:`~repro_torch.models.transformer.Transformer`), which it updates in
@@ -31,6 +38,7 @@ import numpy as np
 import torch
 
 from repro_torch.data.tokens import process_rank_and_count
+from repro_torch.distributed.sharding import rank_and_size, whole
 from repro_torch.models.weights import param_tree
 from .checkpoint import CheckpointManager
 
@@ -71,6 +79,21 @@ class Trainer:
         self.sharding_fn = sharding_fn
         self._stop = False
 
+    def _stopping(self) -> bool:
+        """The stop flag, agreed by every rank of a process group (a MAX
+        all-reduce on the group's device)."""
+        import torch.distributed as dist
+        if not (dist.is_available() and dist.is_initialized()):
+            return self._stop
+        dev = (torch.device("cuda", torch.cuda.current_device())
+               if dist.get_backend() == "nccl" else torch.device("cpu"))
+        flag = torch.tensor([int(self._stop)], device=dev)
+        dist.all_reduce(flag, op=dist.ReduceOp.MAX)
+        agreed = bool(flag.item())
+        if agreed:              # a rank's own signal is never cleared here
+            self._stop = True
+        return agreed
+
     def _install_signals(self):
         def handler(signum, frame):
             self._stop = True
@@ -104,14 +127,14 @@ class Trainer:
         consecutive_bad = 0
         step = start
         try:
-            while step < cfg.total_steps and not self._stop:
+            while step < cfg.total_steps and not self._stopping():
                 batch = self.data_fn(step)
                 t0 = time.perf_counter()
                 model, opt_state, metrics = self.train_step(
                     model, opt_state, batch)
                 if torch.cuda.is_available():
                     torch.cuda.synchronize()
-                loss = float(metrics["loss"])
+                loss = float(whole(metrics["loss"]))
                 dt = time.perf_counter() - t0
                 times.append(dt)
                 report.step_times.append(dt)
@@ -140,13 +163,13 @@ class Trainer:
                 if step % cfg.ckpt_every == 0:
                     self._save(step, model, opt_state,
                                blocking=not cfg.async_ckpt)
-                if step % cfg.log_every == 0:
+                if step % cfg.log_every == 0 and rank_and_size()[0] == 0:
                     print(f"step {step}: loss={loss:.4f} dt={dt*1e3:.0f}ms",
                           flush=True)
         finally:
             self._restore_signals()
 
-        if self._stop:
+        if self._stopping():
             report.interrupted = True
             self._save(step, model, opt_state, blocking=True)
         self.ckpt.wait()

@@ -69,6 +69,10 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
         "import repro_torch.launch.dryrun, repro_torch.distributed.roofline\n"
         "import repro_torch.distributed.op_cost\n"
         "import repro_torch.distributed.op_analysis\n"
+        "from repro_torch.launch.mesh import World, make_rank_mesh, world\n"
+        "from repro_torch.models.weights import logical_names, place_model\n"
+        "from repro_torch.distributed.sharding import (counted_here,\n"
+        "    local_chunk, place_rows)\n"
         "from repro_torch.models.registry import ARCH_NAMES, get_config\n"
         "[get_config(n) for n in ARCH_NAMES]   # every config module\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "

@@ -13,7 +13,11 @@ since they go on from different tokens.  Checkpoints and printed files go
 under ``tmp_path``.
 """
 import dataclasses
+import os
 import re
+import subprocess
+import sys
+from pathlib import Path
 from types import SimpleNamespace
 
 import jax
@@ -212,10 +216,40 @@ def test_train_main_runs_and_resumes(tmp_path, monkeypatch, capsys):
 
 
 def test_train_main_refuses_several_devices(monkeypatch):
+    """A lone process that sees several devices trains on none of them:
+    one rank per device runs under ``torchrun``."""
     monkeypatch.setattr(train, "make_host_mesh",
                         lambda device: mesh.make_mesh(["cpu", "cpu"]))
-    with pytest.raises(NotImplementedError, match="A15d"):
+    with pytest.raises(RuntimeError, match="torchrun"):
         train.main(["--device", "cpu", "--steps", "1"])
+
+
+def test_train_main_over_two_cpu_ranks(tmp_path):
+    """``main`` under ``torchrun`` on two gloo ranks: the reference's
+    header with its two-device mesh; rank 1 alone sends itself SIGTERM
+    while the data of step 2 is drawn, and both ranks stop after that
+    step and save step 3 together; a rerun resumes there to 6."""
+    root = Path(__file__).resolve().parents[1]
+    env = {k: v for k, v in os.environ.items() if k != "XLA_FLAGS"}
+    env.update(PYTHONPATH=str(root / "src"), OMP_NUM_THREADS="1")
+    argv = ["--steps", "6", "--batch", "2", "--seq", "16", "--ckpt-every",
+            "100", "--ckpt-dir", str(tmp_path), "--device", "cpu"]
+    done = (r"done: steps=(\d+) loss \d+\.\d{3} → \d+\.\d{3} "
+            r"resumed_from=(\w+) stragglers=\d+")
+    for sigterm, want in (("1:2", ("3", "None")), ("-", ("3", "3"))):
+        out = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nproc-per-node=2", str(root / "tests" / "_torch_mesh_children.py"),
+             "train", "-", sigterm] + argv,
+            env=env, capture_output=True, text=True, timeout=300)
+        assert out.returncode == 0, out.stderr[-3000:]
+        lines = [ln for ln in out.stdout.splitlines()
+                 if ln.startswith(("arch=", "done:"))]
+        assert lines[0] == ("arch=olmo-1b preset=smoke params=0.1M "
+                            "mesh={'data': 1, 'model': 2}")
+        assert re.fullmatch(done, lines[1]).groups() == want
+        assert sorted(p.name for p in tmp_path.iterdir()) == \
+            ["step_00000003"]
 
 
 def test_entry_points_raise_without_cuda(no_cuda, tmp_path):
@@ -225,6 +259,11 @@ def test_entry_points_raise_without_cuda(no_cuda, tmp_path):
         train.main(["--ckpt-dir", str(tmp_path)])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         mesh.make_host_mesh()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        with mesh.world():
+            pass
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        mesh.make_rank_mesh()
     assert not list(tmp_path.iterdir())
 
 

@@ -225,17 +225,37 @@ def test_sharding_rules_drop_conflicts_and_missing_axes():
 
 
 def test_shard_raises_under_rules_and_a_mesh():
+    """Under rules over axis names alone ``shard`` raises (names resolve,
+    but there are no ranks to place on); under a one-rank ``DeviceMesh``
+    it redistributes a DTensor to its names' placements and passes a
+    plain tensor through."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import Replicate, Shard
     from repro_torch.configs.base import reduced
-    from repro_torch.distributed.sharding import DEFAULT_RULES, logical_rules, shard
+    from repro_torch.distributed.sharding import (DEFAULT_RULES,
+                                                  logical_rules, named_mesh,
+                                                  place, shard)
     from repro_torch.models import registry, transformer as tfm
     x = torch.ones((4, 8))
     with logical_rules(("data", "model"), DEFAULT_RULES):
-        with pytest.raises(NotImplementedError, match="A15d"):
+        with pytest.raises(NotImplementedError, match="DeviceMesh"):
             shard(x, "batch", "embed")
         cfg = reduced(registry.get_config("olmo-1b"))
         model = tfm.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
-        with pytest.raises(NotImplementedError, match="A15d"):
+        with pytest.raises(NotImplementedError, match="DeviceMesh"):
             tfm.forward_train(model, {"tokens": torch.zeros((1, 4), dtype=torch.long)})
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = named_mesh((1, 1), ("data", "model"), "cpu")
+        with logical_rules(mesh, DEFAULT_RULES):
+            d = place(x, (Replicate(), Replicate()), mesh)
+            y = shard(d, "batch", "mlp")
+            assert tuple(y.placements) == (Shard(0), Shard(1))
+            assert torch.equal(y.full_tensor(), x)
+            assert shard(x, "batch", "mlp") is x
+    finally:
+        dist.destroy_process_group()
 
 
 def test_local_attention_window_mask():

@@ -585,12 +585,40 @@ def test_checkpoint_async_snapshot_survives_in_place_update(tmp_path, small):
 
 
 def test_checkpoint_restore_checks_keys_and_sharding(tmp_path, small):
+    """Restored with ``launch.train``'s ``sharding_fn`` on a one-rank gloo
+    group's (1, 1) mesh, every leaf is a DTensor of its placements whose
+    whole tensor is the saved one, bitwise; without a mesh in the rules the
+    ``sharding_fn`` has nowhere to place; mismatched keys raise."""
+    import torch.distributed as dist
+    from repro_torch.distributed.sharding import (DEFAULT_RULES,
+                                                  logical_rules, named_mesh,
+                                                  shardings_for)
     model, state = _trained(small, steps=1)
     mgr = CheckpointManager(str(tmp_path))
-    mgr.save(1, (weights.param_tree(model), state))
-    with pytest.raises(NotImplementedError, match="A15d"):
-        mgr.restore(1, (weights.param_tree(model), state),
-                    sharding_fn=lambda t: t)
+    tree = (weights.param_tree(model), state)
+    mgr.save(1, tree)
+    logical = weights.logical_names(small.cfg)
+
+    def sharding_fn(t):
+        return shardings_for(t, (logical, opt.state_logical(logical)))
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = named_mesh((1, 1), ("data", "model"), "cpu")
+        with logical_rules(mesh, DEFAULT_RULES):
+            placed, _ = mgr.restore(1, tree, sharding_fn=sharding_fn)
+            want = sharding_fn(tree)
+        got_l, want_l = jax.tree.leaves(placed), jax.tree.leaves(tree)
+        pls = jax.tree.leaves(want, is_leaf=lambda x: isinstance(
+            x, tuple) and all(hasattr(p, "is_shard") for p in x))
+        assert len(got_l) == len(want_l) == len(pls)
+        for g, w, p in zip(got_l, want_l, pls):
+            assert tuple(g.placements) == p
+            assert torch.equal(g.full_tensor(), w)
+        with pytest.raises(ValueError, match="DeviceMesh"):
+            mgr.restore(1, tree, sharding_fn=sharding_fn)
+    finally:
+        dist.destroy_process_group()
     with pytest.raises(ValueError, match="leaves"):
         mgr.restore(1, (weights.param_tree(model),))
     # the same number of leaves under other keys (m and v's trees swapped
