@@ -9,6 +9,8 @@
                                            # kernel rows, no ok line)
     python3 chip_smoke.py --train-ranks-only   # phases 1, 15 (c) and 17
                                                # alone (no ok line)
+    python3 chip_smoke.py --search-only    # phases 1-13 and 16 (b)'s exact
+                                           # cells alone (no ok line)
 
 Phases, each printed with its seconds:
 
@@ -120,16 +122,20 @@ Phases, each printed with its seconds:
    table bitwise ``sax_encode`` over the same rows, each symbol that
    differs from ``sax_encode_np`` borderline as in 11 (b), every row in
    its leaf, the leaf count of 11 (b)'s kernel-encoder build; four row
-   shards (``encode_distributed``) give the same table and a histogram
+   shards (``encode_distributed``, on ``[cuda:0] x 4`` and, with two
+   or more cards, over every card) give the same table and a histogram
    summing to N that equals the host bincount of the next-bit codes;
    seconds beside phase 11's builds; (b) ``search_distributed``: batch 0
    of exact ED on ``[cuda:0]`` bitwise phase 5's; on ``[cuda:0] x 4``
-   (four shards through the per-device code) exact ED, extended ED nbr=4
-   with re-rank, approximate nbr=4 on the placed ``DeviceIndex`` and one
-   DTW batch bitwise phases 5, 9 and 7's; shard 3 dead: the coverage
-   equals ``shard_coverage`` and the answers a float64 top-k over the
-   live shards' rows; two cards where there are two, else "cross-device:
-   not run (1 device)"; the launches of every kernel on (b); (c)
+   (four shards through the per-device code, their loops driven at once)
+   exact ED, extended ED nbr=4 with re-rank, approximate nbr=4 on the
+   placed ``DeviceIndex`` and one DTW batch bitwise phases 5, 9 and 7's;
+   shard 3 dead: the coverage equals ``shard_coverage`` and the answers a
+   float64 top-k over the live shards' rows; with two or more cards, the
+   same five paths on four shards over every card (``cuda:s % cards``),
+   each bitwise the ``[cuda:0] x 4`` answer, else "across cards: not run
+   (1 card)"; every timer waits for every card of its mesh; the launches
+   of every kernel on (b); (c)
    ``search_step`` over the whole collection ``[64, N, 256]``: one
    ``pairwise_l2`` and one ``lb_paa_interval`` launch, the ids phase 5's
    up to ties and the distances within rtol 1e-5 of phase 5's, each d²
@@ -1239,9 +1245,9 @@ def brute_force(torch, dev, q32, k, rows_of=None, live=None):
 
 
 def walk_calls(ops, sd, index, qb) -> list:
-    """The arguments of every ``dtw_band`` call that the lane walk
-    (``search_device._lane_walk``) makes in one DTW batch of ``qb``."""
-    calls, real, walk = [], ops.dtw_band, sd._lane_walk
+    """The arguments of every ``dtw_band`` call that the lane walk's steps
+    (``search_device._walk_step``) make in one DTW batch of ``qb``."""
+    calls, real, step = [], ops.dtw_band, sd._walk_step
     inside = [False]
 
     def record(qs, xs, mask, cutoff2, r, idx=None):
@@ -1252,16 +1258,16 @@ def walk_calls(ops, sd, index, qb) -> list:
     def walking(*a):
         inside[0] = True
         try:
-            return walk(*a)
+            return step(*a)
         finally:
             inside[0] = False
 
-    ops.dtw_band, sd._lane_walk = record, walking
+    ops.dtw_band, sd._walk_step = record, walking
     try:
         sd.exact_search_device_batch(index, qb, K, chunk=CHUNK, metric="dtw",
                                      band=BAND)
     finally:
-        ops.dtw_band, sd._lane_walk = real, walk
+        ops.dtw_band, sd._walk_step = real, step
     return calls
 
 
@@ -2526,6 +2532,23 @@ def step_against_exact(np, db, qb, ids, d, ex_ids, ex_d) -> tuple:
     return int((ids != ex_ids).sum())
 
 
+def sync_mesh(torch, mesh) -> None:
+    """Wait for every card of ``mesh``: ``torch.cuda.synchronize()`` alone
+    waits for the current card."""
+    for d in mesh.distinct:
+        torch.cuda.synchronize(d)
+
+
+def cross_card_mesh(torch, sharding):
+    """Four shards over every visible card (``cuda:s % cards``), or
+    ``None`` on one card: four shards, so each answer is bitwise the
+    ``[cuda:0] x 4`` one, the degraded one included."""
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        return None
+    return sharding.make_mesh([f"cuda:{s % cards}" for s in range(4)])
+
+
 def distributed_phase(torch, np, sd, ops, ref, mods, dist, sharding,
                       breakpoints, params, index, dev, db, batches,
                       dtw_batches, exact_ed, exact_dtw, paths_b0, lifecycle,
@@ -2543,11 +2566,13 @@ def distributed_phase(torch, np, sd, ops, ref, mods, dist, sharding,
     mesh4 = sharding.make_mesh(["cuda:0"] * 4)
 
     # -- (a) build_distributed: the kernel's table, the summed histogram ----
+    meshc = cross_card_mesh(torch, sharding)
+    sync_mesh(torch, mesh1)
     t1 = time.perf_counter()
     for m in mods.values():
         m.launches = 0
     idx_d = dist.build_distributed(db, params, mesh=mesh1)
-    torch.cuda.synchronize()
+    sync_mesh(torch, mesh1)
     out["build_s"] = time.perf_counter() - t1
     la = {name: m.launches for name, m in mods.items()}
     if la["sax_encode"] <= 0:
@@ -2574,18 +2599,26 @@ def distributed_phase(torch, np, sd, ops, ref, mods, dist, sharding,
     if leaves != lifecycle["kernel_leaves"]:
         fail(f"build_distributed gives {leaves} leaves, the kernel-encoder "
              f"device build {lifecycle['kernel_leaves']}")
-    t2 = time.perf_counter()
-    paa4, sax4, hist = dist.encode_distributed(db, w, b, mesh=mesh4)
-    enc4_s = time.perf_counter() - t2
-    hist = hist.cpu().numpy()
-    if not (np.array_equal(paa4, idx_d.paa) and np.array_equal(sax4,
-                                                               idx_d.sax)):
-        fail("the table of four row shards differs from one shard's")
-    if int(hist.sum()) != N or not np.array_equal(
-            hist, next_bit_hist(np, idx_d.sax, w, b)):
-        fail("the summed histogram is not the bincount of the next-bit "
-             "codes")
-    del paa4, sax4
+    encodes = {}
+    for label, mesh in (("[cuda:0] x 4", mesh4), ("cards", meshc)):
+        if mesh is None:
+            continue
+        sync_mesh(torch, mesh)
+        t2 = time.perf_counter()
+        paa4, sax4, hist = dist.encode_distributed(db, w, b, mesh=mesh)
+        sync_mesh(torch, mesh)
+        encodes[label] = time.perf_counter() - t2
+        hist = hist.cpu().numpy()
+        if not (np.array_equal(paa4, idx_d.paa)
+                and np.array_equal(sax4, idx_d.sax)):
+            fail(f"the table of four row shards on {label} differs from "
+                 f"one shard's")
+        if int(hist.sum()) != N or not np.array_equal(
+                hist, next_bit_hist(np, idx_d.sax, w, b)):
+            fail(f"the summed histogram on {label} is not the bincount of "
+                 f"the next-bit codes")
+        del paa4, sax4
+    enc4_s = encodes["[cuda:0] x 4"]
     out.update(launches_build=la, symbols_differ=differ,
                symbols_differ_worst_share=worst, leaves=leaves,
                height=idx_d.stats.height, encode_4_shards_s=enc4_s,
@@ -2598,9 +2631,10 @@ def distributed_phase(torch, np, sd, ops, ref, mods, dist, sharding,
           f" {differ} symbols differ from sax_encode_np, each borderline "
           f"(farthest at {worst:.3f} of its float32 gap); {leaves} leaves, "
           f"height {idx_d.stats.height}, every row inside its leaf; four "
-          f"row shards ({enc4_s:.3f} s) give the same table and a histogram"
-          f" summing to {int(hist.sum())} ({out['hist_nonzero']} of "
-          f"{1 << w} codes used) equal to the host bincount [{smi}]")
+          f"row shards (seconds {encodes}) give the same table and a "
+          f"histogram summing to {int(hist.sum())} ({out['hist_nonzero']} "
+          f"of {1 << w} codes used) equal to the host bincount [{smi}]")
+    out["encode_s"] = encodes
     del idx_d
     torch.cuda.empty_cache()
 
@@ -2611,38 +2645,55 @@ def distributed_phase(torch, np, sd, ops, ref, mods, dist, sharding,
 
     for m in mods.values():
         m.launches = 0
+    sync_mesh(torch, mesh1)
     t1 = time.perf_counter()
     same(dist.search_distributed(index, qb, K, mesh=mesh1), exact_ed[0][:2],
          "exact ED on the mesh [cuda:0]")
+    sync_mesh(torch, mesh1)
+    t_m1 = time.perf_counter() - t1
     for key in [k for k in index._device_cache if k[3] is mesh1]:
         del index._device_cache[key]           # free that layout's 4 GB
     torch.cuda.empty_cache()
-    t_m1 = time.perf_counter() - t1
-    times = {}
-    for label, fn, want in (
+    health = (True, True, True, False)
+
+    def mesh_paths(mesh):
+        """Each path of (b) on ``mesh``: its label, its call, the earlier
+        phase's answer it must equal (``None``: the degraded run, held
+        below)."""
+        return (
             ("exact ED", lambda: dist.search_distributed(
-                index, qb, K, mesh=mesh4), exact_ed[0][:2]),
+                index, qb, K, mesh=mesh), exact_ed[0][:2]),
             ("extended ED nbr=4 rerank", lambda: dist.search_distributed(
-                index, qb, K, nbr=4, mesh=mesh4),
+                index, qb, K, nbr=4, mesh=mesh),
              paths_b0[("ED", "extended", 4, True)][:2]),
             ("approximate ED nbr=4", lambda: sd.approximate_search_device_batch(
                 index, qb, K, nbr=4,
-                dev=index.device_index(chunk=CHUNK, mesh=mesh4)),
+                dev=index.device_index(chunk=CHUNK, mesh=mesh)),
              paths_b0[("ED", "approximate", 4, None)]),
             ("exact DTW band 25 cluster", lambda: dist.search_distributed(
                 index, dtw_batches[0], K, metric="dtw", band=BAND,
-                mesh=mesh4), exact_dtw[0][:2])):
-        t2 = time.perf_counter()
-        same(fn(), want, f"{label} on the mesh [cuda:0] x 4")
-        times[label] = time.perf_counter() - t2
+                mesh=mesh), exact_dtw[0][:2]),
+            ("degraded exact ED", lambda: dist.search_distributed(
+                index, qb, K, shard_health=health, mesh=mesh), None))
+
+    def run_paths(mesh, label):
+        seconds, got = {}, {}
+        for name, fn, want in mesh_paths(mesh):
+            sync_mesh(torch, mesh)
+            t2 = time.perf_counter()
+            got[name] = fn()
+            for dv in mesh.distinct:            # every card of the mesh
+                torch.cuda.synchronize(dv)
+            seconds[name] = time.perf_counter() - t2
+            if want is not None:
+                same(got[name], want, f"{name} on the mesh {label}")
+        return seconds, got
+
+    times, got4 = run_paths(mesh4, "[cuda:0] x 4")
     dev4 = index.device_index(chunk=CHUNK, mesh=mesh4)
     if not (isinstance(dev4.db, tuple) and dev4.n_shards == 4):
         fail("the four-entry mesh did not place four shards")
-    health = (True, True, True, False)
-    t2 = time.perf_counter()
-    ids, d, cov = dist.search_distributed(index, qb, K, shard_health=health,
-                                          mesh=mesh4)
-    times["degraded exact ED"] = time.perf_counter() - t2
+    ids, d, cov = got4["degraded exact ED"]
     want_cov = sd.shard_coverage(index, dev4.with_shard_health(health))
     if cov != want_cov or not 0.0 < cov < 1.0:
         fail(f"degraded coverage {cov} != shard_coverage {want_cov}")
@@ -2657,13 +2708,40 @@ def distributed_phase(torch, np, sd, ops, ref, mods, dist, sharding,
     for name, count in lb.items():
         if count <= 0:
             fail(f"kernel {name} was not launched by phase 12 (b)")
-    if torch.cuda.device_count() >= 2:
-        mesh2 = sharding.make_mesh(["cuda:0", "cuda:1"])
-        same(dist.search_distributed(index, qb, K, mesh=mesh2),
-             exact_ed[0][:2], "exact ED across two cards")
-        cross = "exact ED on [cuda:0, cuda:1] bitwise phase 5's"
+    for key in [k for k in index._device_cache if k[3] is not None]:
+        del index._device_cache[key]
+    del dev4
+    torch.cuda.empty_cache()
+    cross = {}
+    if meshc is not None:
+        for m in mods.values():
+            m.launches = 0
+        t2 = time.perf_counter()
+        devc = index.device_index(chunk=CHUNK, mesh=meshc)
+        sync_mesh(torch, meshc)
+        cross["placement_s"] = time.perf_counter() - t2
+        if [t.device for t in devc.db] != list(meshc.devices):
+            fail("the cross-card mesh did not place a shard on each entry")
+        cross["seconds"], gotc = run_paths(meshc, str(list(meshc.devices)))
+        same(gotc["degraded exact ED"], got4["degraded exact ED"],
+             "degraded exact ED across the cards")
+        cross["launches"] = {name: m.launches for name, m in mods.items()}
+        for name, count in cross["launches"].items():
+            if count <= 0:
+                fail(f"kernel {name} was not launched across the cards")
+        for key in [k for k in index._device_cache if k[3] is not None]:
+            del index._device_cache[key]
+        del devc
+        for dv in meshc.distinct:
+            with torch.cuda.device(dv):
+                torch.cuda.empty_cache()
+        cross_txt = (f"on {[str(x) for x in meshc.devices]}: every path "
+                     f"bitwise the [cuda:0] x 4 answer (degraded coverage "
+                     f"and answers included), placement "
+                     f"{cross['placement_s']:.3f} s, seconds "
+                     f"{cross['seconds']}, launches {cross['launches']}")
     else:
-        cross = "cross-device: not run (1 device)"
+        cross_txt = "across cards: not run (1 card)"
     out.update(mesh1_exact_s=t_m1, mesh4_s=times, launches_search=lb,
                coverage=cov, degraded_tied=tied, cross_device=cross)
     print(f"  (b) search_distributed on [cuda:0]: batch 0 of exact ED "
@@ -2673,11 +2751,7 @@ def distributed_phase(torch, np, sd, ops, ref, mods, dist, sharding,
           f"placed DeviceIndex (phase 9); seconds {times}; shard 3 dead: "
           f"coverage {cov:.7f} = shard_coverage, answers equal the float64 "
           f"top-{K} over the live shards' rows (tied {tied}); launches "
-          f"{lb}; {cross} [{smi}]")
-    for key in [k for k in index._device_cache if k[3] is not None]:
-        del index._device_cache[key]
-    del dev4
-    torch.cuda.empty_cache()
+          f"{lb}; {cross_txt} [{smi}]")
 
     # -- (c) search_step over the whole collection ---------------------------
     x = dev.db[0][:N]
@@ -4455,6 +4529,9 @@ def main() -> None:
     ap.add_argument("--train-ranks-only", action="store_true",
                     help="run phases 1, 15 (c) and (d) and 17 alone (prints "
                          "no ok line)")
+    ap.add_argument("--search-only", action="store_true",
+                    help="run phases 1-13 and 16 (b)'s exact cells, the "
+                         "search slice, alone (prints no ok line)")
     args = ap.parse_args()
 
     # phase 15 (c) compares two training runs under deterministic
@@ -4781,6 +4858,8 @@ def main() -> None:
                              dtw_batches, analysis["main_path"],
                              args.n_series, smi)
     phase("dry run (b): exact cells", t0)
+    if args.search_only:
+        return
 
     # ---- 14. the LM substrate ---------------------------------------------------
     t0 = time.perf_counter()

@@ -110,29 +110,34 @@ def search_step(q: torch.Tensor, db_ordered: torch.Tensor,
 # host orchestration
 # ---------------------------------------------------------------------------
 
+def _to_host(t: torch.Tensor) -> np.ndarray:
+    """A device table gathered to the host."""
+    return t.cpu().numpy()
+
+
 def encode_distributed(db: np.ndarray, w: int, b: int, mesh=None
                        ) -> tuple[np.ndarray, np.ndarray, torch.Tensor]:
     """Stage 1 and the root histogram of :func:`build_distributed`: ``db``
-    cut into ``mesh.size`` row shards, :func:`build_step` on each shard's
-    device, the table gathered to the host and the histograms summed on
-    the mesh's first device.  Returns ``(paa [N, w] f32, sax [N, w] u8,
-    hist [2**w] on mesh.devices[0])``.  Without ``mesh`` and a current
-    mesh, one shard on the current CUDA device (raises without CUDA)."""
+    cut into ``mesh.size`` row shards, :func:`build_step` launched on every
+    shard's device before the first gather (so the devices encode at once),
+    then the histograms summed on the mesh's first device and the table
+    gathered to the host.  Returns ``(paa [N, w] f32, sax [N, w] u8, hist
+    [2**w] on mesh.devices[0])``.  Without ``mesh`` and a current mesh, one
+    shard on the current CUDA device (raises without CUDA)."""
     if mesh is None:
         mesh = get_mesh() or make_mesh(["cuda"])
     db = np.ascontiguousarray(db, np.float32)
     N = db.shape[0]
     cuts = [s * N // mesh.size for s in range(mesh.size + 1)]
     home = mesh.devices[0]
-    paa, sax, hist = [], [], None
-    for s, d in enumerate(mesh.devices):
-        x = torch.from_numpy(db[cuts[s]:cuts[s + 1]]).to(d)
-        p, q, h = build_step(x, w, b)
-        paa.append(p.cpu().numpy())  # lint: allow-sync: the table's gather
-        sax.append(q.cpu().numpy().astype(np.uint8))  # lint: allow-sync: ditto
-        h = h.to(home)
-        hist = h if hist is None else hist + h          # the all-reduce
-    return np.concatenate(paa), np.concatenate(sax), hist
+    steps = [build_step(torch.from_numpy(db[cuts[s]:cuts[s + 1]]).to(d), w, b)
+             for s, d in enumerate(mesh.devices)]
+    hist = steps[0][2].to(home)
+    for _, _, h in steps[1:]:
+        hist = hist + h.to(home)                        # the all-reduce
+    paa = np.concatenate([_to_host(p) for p, _, _ in steps])
+    sax = np.concatenate([_to_host(q).astype(np.uint8) for _, q, _ in steps])
+    return paa, sax, hist
 
 
 def build_distributed(db: np.ndarray, params: DumpyParams | None = None,
@@ -320,7 +325,7 @@ def _lane_walk_counted(db_s, ids_s, qs, order, lbi_s, lbk_s, topd, topi,
     if NC:
         carry = op_cost.scaled("walk", NC, _walk_step, db_s, ids_s, qs,
                                order, lbi_s, lbk_s, cols, r, kseed, carry, 0)
-    return carry[:4] + (0,)
+    return carry[:4]
 
 
 def exact_counted(dev, prep: tuple, qs: torch.Tensor, *, k: int, metric,
@@ -331,10 +336,11 @@ def exact_counted(dev, prep: tuple, qs: torch.Tensor, *, k: int, metric,
     lane program with its LB slabs and walk), the other ``n_shards - 1``
     shards' lists as the all-gather delivers them, then the merge with
     ``shard_health``'s dead shards masked."""
-    from .search_device import _lane_knn, _merge_shards
+    from .search_device import _drive, _finished, _lane_knn, _merge_shards
     if metric.is_dtw and metric.order != "shared":
-        part = _lane_knn(dev, 0, prep, qs, k, metric,
-                         tables=_lb_tables_counted, walk=_lane_walk_counted)
+        (part,), _ = _drive([_lane_knn(
+            dev, 0, prep, qs, k, metric, tables=_lb_tables_counted,
+            walk=lambda *a: _finished(_lane_walk_counted(*a)))])
     else:
         part = _shard_knn_counted(dev, 0, prep, qs, k, metric)
     parts = [part[:4]] + [tuple(torch.empty_like(t) for t in part[:4])

@@ -15,12 +15,12 @@ Per shard of the ``[S, Tp, n]`` layout, the same plan as the reference:
 then the per-shard top-k lists merge with an in-merge fuzzy-duplicate dedup,
 and a k-sized host re-rank (direct-difference ED, or the float64 ``dtw_np``
 DP) restores bitwise id/distance parity with the host ``search.exact_search``.
-Shards run one after another from one host thread, on one device or, on a
-mesh (``DeviceIndex.shard``), each on its own device with its own copy of
-the queries, their shard-local results moved to the mesh's first device for
-the merge (the all-gather).  Each shard's early termination uses its local
-kth-best bound (≥ the global bound), so the merged result does not depend
-on the shard count or the placement.
+One host thread drives every shard's loop at once (:func:`_drive`), on one
+device or, on a mesh (``DeviceIndex.shard``), each on its own device with
+its own copy of the queries, their shard-local results moved to the mesh's
+first device for the merge (the all-gather).  Each shard's early
+termination uses its local kth-best bound (≥ the global bound), so the
+merged result does not depend on the shard count or the placement.
 
 DTW (``metric="dtw"``) shares the ED layout.  Its candidate distance is the
 cascade LB_Keogh → LB_Improved → masked banded DP (the ``lb_keogh``,
@@ -69,6 +69,7 @@ next bucket while this one computes.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import numpy as np
@@ -391,28 +392,77 @@ def _span_step(metric: Metric, qs: torch.Tensor, prep: tuple, slabs: tuple,
 
 def _shard_knn(dev: DeviceIndex, s: int, prep: tuple, qs: torch.Tensor,
                k: int, metric: Metric):
-    """One shard's span loop → ``(topd [Q,k], topi [Q,k], vis [Q],
-    stats int64[4], syncs)``: :func:`_span_prologue`, then
-    :func:`_span_step` over the sorted span schedule, which goes to the
-    host once, until the stop test (every :data:`STOP_CHECK_EVERY` spans)
-    finds no query that can still improve."""
+    """One shard's span loop, as a loop :func:`_drive` runs → ``(topd
+    [Q,k], topi [Q,k], vis [Q], stats int64[4])``: :func:`_span_prologue`,
+    then :func:`_span_step` over the sorted span schedule, which goes to
+    the host once, until the stop test (every :data:`STOP_CHECK_EVERY`
+    spans) finds no query that can still improve.  It yields before each
+    of those host reads."""
     slabs, n_sub, win_lb, suffix, order = _span_prologue(dev, s, prep, qs,
                                                          metric)
-    # the sorted span schedule goes to the host once per shard (one sync)
+    # the sorted span schedule goes to the host once per shard (one read)
+    yield
     sched = torch.stack([dev.win_start[s], dev.win_lead[s],
                          dev.win_size[s]])[:, order].cpu().numpy()
-    syncs = 1
 
     carry = _span_carry(qs.shape[0], k, qs.device)
     for i in range(win_lb.shape[1]):
         if i % STOP_CHECK_EVERY == 0:
-            syncs += 1
+            yield
             if not bool((suffix[:, i] < carry[0][:, k - 1]).any()):  # lint: allow-sync: the stop test
                 break
         start, lead, size = (int(v) for v in sched[:, i])  # lint: allow-sync: host array
         carry = _span_step(metric, qs, prep, slabs, win_lb, dev.chunk, n_sub,
                            carry, i, start, lead, size)
-    return carry + (syncs,)
+    return carry
+
+
+def _current(device: torch.device):
+    """A block with ``device`` the current card (nothing for the CPU): the
+    ops of one shard's step then find their card current and switch none."""
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()
+
+
+def _drive(loops: list, devices: list | None = None) -> tuple[list, list]:
+    """Run the shards' loops at once from one host thread → ``(their
+    results, their host reads)``, one entry a loop, in order.  Loop ``i``
+    runs with ``devices[i]`` current, where given.
+
+    A loop (:func:`_shard_knn`, :func:`_lane_knn`) is a generator that
+    queues its shard's device work and yields just before each read of the
+    device (the span schedule, a stop test).  Every loop first queues its
+    set-up; then it resumes the loops in turn, each through one
+    read and up to its next yield: one block of ``STOP_CHECK_EVERY`` steps.
+    A read waits for its own shard's device alone, so while the host waits
+    on one card, the others run the blocks already queued on them, as the
+    reference's shard-local loops run on every device at once.  A loop
+    whose stop test fires returns and gets no further step.  Each loop
+    makes the same reads, steps and stop decisions as it would alone, so
+    its result does not depend on the others, nor its reads."""
+    results = [None] * len(loops)
+    reads = [0] * len(loops)
+    cpu = torch.device("cpu")
+
+    def advance(i, loop, running):
+        try:
+            with _current(devices[i] if devices else cpu):
+                next(loop)
+        except StopIteration as stop:
+            results[i] = stop.value
+        else:
+            running.append((i, loop))
+
+    running = []
+    for i, loop in enumerate(loops):
+        advance(i, loop, running)
+    while running:
+        now, running = running, []
+        for i, loop in now:
+            reads[i] += 1
+            advance(i, loop, running)
+    return results, reads
 
 
 def _exact_knn_sharded(dev: DeviceIndex, prep: tuple, qs: torch.Tensor, *,
@@ -421,7 +471,8 @@ def _exact_knn_sharded(dev: DeviceIndex, prep: tuple, qs: torch.Tensor, *,
     original ids [Q,k], visited [Q], cascade stats int64[4], host syncs)``
     with invalid slots as ``inf / -1`` (stats all zero for ED).  Each shard
     runs the span loop (:func:`_shard_knn`; ED and the DTW ``"shared"``
-    order) or the lane-ordered DTW program (:func:`_lane_knn`).
+    order) or the lane-ordered DTW program (:func:`_lane_knn`), all of
+    them at once under :func:`_drive`.
 
     On a mesh each shard runs on its own device with its own copy of the
     queries and their prep, and its ``[Q, k]`` locals move to ``dev.device``
@@ -435,11 +486,11 @@ def _exact_knn_sharded(dev: DeviceIndex, prep: tuple, qs: torch.Tensor, *,
     knn = _lane_knn if metric.is_dtw and metric.order != "shared" \
         else _shard_knn
     inputs = _replicator((prep, qs), home)
-    parts = []
-    for s in range(dev.n_shards):
-        p = knn(dev, s, *inputs(dev.shard_device(s)), k, metric)
-        parts.append(_to_device(p[:4], home) + p[4:])
-    return _merge_shards(dev, parts, Q, k) + (sum(p[4] for p in parts),)
+    devices = [dev.shard_device(s) for s in range(dev.n_shards)]
+    parts, reads = _drive([knn(dev, s, *inputs(d), k, metric)
+                           for s, d in enumerate(devices)], devices)
+    parts = [_to_device(p, home) for p in parts]
+    return _merge_shards(dev, parts, Q, k) + (sum(reads),)
 
 
 def _merge_shards(dev: DeviceIndex, parts: list, Q: int, k: int) -> tuple:
@@ -473,13 +524,14 @@ def _cluster_groups(Q: int) -> int:
 def _lane_walk(db_s: torch.Tensor, ids_s: torch.Tensor, qs: torch.Tensor,
                order: torch.Tensor, lbi_s: torch.Tensor, lbk_s: torch.Tensor,
                topd: torch.Tensor, topi: torch.Tensor, r: int, kseed: int):
-    """Stage 4 of :func:`_lane_knn` for one group of queries: walk
+    """Stage 4 of :func:`_lane_knn` for one group of queries, as a loop
+    :func:`_drive` runs (it yields before each stop test): walk
     ``DTW_LANE_CHUNK``-wide chunks of every query's LB_Improved-sorted lanes
     (``order``, ``lbi_s``, ``lbk_s [Qg, Tp]``) from rank ``kseed`` on, each
     chunk's lanes masked against the re-read cutoff, while the smallest
     unvisited LB of some query is below its cutoff.  Returns ``(topd, topi,
-    vis, stats int64[4], syncs)``; ``vis`` counts the chunks a query had a
-    lane in, the seed chunk included.
+    vis, stats int64[4])``; ``vis`` counts the chunks a query had a lane
+    in, the seed chunk included.
 
     The reference tests that condition on the device before every chunk.
     Here it is a device-side flag ``running`` (sticky: once false, no lane
@@ -488,15 +540,14 @@ def _lane_walk(db_s: torch.Tensor, ids_s: torch.Tensor, qs: torch.Tensor,
     chunks: chunks run after it turned false see no lane, merge only
     ``+inf`` and count nothing."""
     C, NC, cols, carry = _walk_init(order, topd, topi, kseed)
-    syncs = 0
     for c in range(NC):
         if c % STOP_CHECK_EVERY == 0:
-            syncs += 1
+            yield
             if not bool(carry[4]):  # lint: allow-sync: the stop test
                 break
         carry = _walk_step(db_s, ids_s, qs, order, lbi_s, lbk_s, cols, r,
                            kseed, carry, c)
-    return carry[:4] + (syncs,)
+    return carry[:4]
 
 
 def _walk_init(order: torch.Tensor, topd: torch.Tensor, topi: torch.Tensor,
@@ -589,9 +640,9 @@ def _lb_tables(db_s: torch.Tensor, alive_s: torch.Tensor, qs: torch.Tensor,
 def _lane_knn(dev: DeviceIndex, s: int, prep: tuple, qs: torch.Tensor,
               k: int, metric: Metric, tables=None, walk=None):
     """One shard of the per-query-ordered DTW program (``Metric.order`` ∈
-    {"perq", "cluster"}) → ``(topd, topi, vis, stats, syncs)``; ``vis``
-    counts the gather chunks a query was live for, the analogue of spans
-    visited.
+    {"perq", "cluster"}), as a loop :func:`_drive` runs → ``(topd, topi,
+    vis, stats)``; ``vis`` counts the gather chunks a query was live for,
+    the analogue of spans visited.
 
     (1) LB_Keogh and LB_Improved tables ``[Q, Tp]`` over every lane, in
     ``DTW_LB_CHUNK``-lane slabs (dead lanes ``+inf``); (2) each query's lanes
@@ -606,7 +657,10 @@ def _lane_knn(dev: DeviceIndex, s: int, prep: tuple, qs: torch.Tensor,
 
     ``tables`` and ``walk`` run stages 1 and 4 (by default
     :func:`_lb_tables` and :func:`_lane_walk`, looked up when called; the
-    dry run gives its counted forms)."""
+    dry run gives its counted forms).  ``walk`` returns a loop (a
+    generator, as :func:`_lane_walk`; :func:`_finished` makes one of a
+    result) whose result's first four entries are ``(topd, topi, vis,
+    stats)``."""
     tables = tables or _lb_tables
     walk = walk or _lane_walk
     Q = qs.shape[0]
@@ -619,7 +673,7 @@ def _lane_knn(dev: DeviceIndex, s: int, prep: tuple, qs: torch.Tensor,
     topi = torch.full((Q, k), -1, dtype=torch.int32, device=device)
     if Tp == 0:                                              # empty shard
         return (topd, topi, torch.zeros(Q, dtype=torch.int32, device=device),
-                torch.zeros(4, dtype=torch.int64, device=device), 0)
+                torch.zeros(4, dtype=torch.int64, device=device))
     kseed = min(k, Tp)
 
     # ---- stage 1: LB tables over every lane --------------------------------
@@ -645,9 +699,9 @@ def _lane_knn(dev: DeviceIndex, s: int, prep: tuple, qs: torch.Tensor,
     # ---- stage 4: gather-chunk walk of the sorted ranks --------------------
     G = _cluster_groups(Q) if metric.order == "cluster" else 1
     if G == 1:
-        topd, topi, vis, stw, syncs = walk(
-            db_s, ids_s, qs, order, lbi_s, lbk_s, topd, topi, r, kseed)
-        return topd, topi, vis, st + stw, syncs
+        topd, topi, vis, stw = (yield from walk(
+            db_s, ids_s, qs, order, lbi_s, lbk_s, topd, topi, r, kseed))[:4]
+        return topd, topi, vis, st + stw
     # cluster: group queries by estimated work at the seed cutoff
     est = (lbi_all < topd[:, k - 1][:, None]).sum(dim=1)
     perm = torch.argsort(est, stable=True)
@@ -656,13 +710,20 @@ def _lane_knn(dev: DeviceIndex, s: int, prep: tuple, qs: torch.Tensor,
     parts = []
     for g in range(G):
         rows = perm[g * Qg:(g + 1) * Qg]
-        parts.append(walk(db_s, ids_s, qs[rows], order[rows], lbi_s[rows],
-                          lbk_s[rows], topd[rows], topi[rows], r, kseed))
+        parts.append((yield from walk(
+            db_s, ids_s, qs[rows], order[rows], lbi_s[rows], lbk_s[rows],
+            topd[rows], topi[rows], r, kseed)))
     topd = torch.cat([p[0] for p in parts])[inv]
     topi = torch.cat([p[1] for p in parts])[inv]
     vis = torch.cat([p[2] for p in parts])[inv]
-    return (topd, topi, vis, st + sum(p[3] for p in parts),
-            sum(p[4] for p in parts))
+    return topd, topi, vis, st + sum(p[3] for p in parts)
+
+
+def _finished(result):
+    """``result`` as a loop that makes no host read: a generator that
+    returns it at once (the dry run's counted walk, which reads nothing)."""
+    yield from ()
+    return result
 
 
 def _finalize_exact(index: DumpyIndex, qs: np.ndarray, ids_dev: np.ndarray,
@@ -1103,17 +1164,20 @@ def _scan_leaf_schedule(dev: DeviceIndex, leaves: torch.Tensor, dist2,
         loc = dev.on(device)
         leaves_s, lfc, cols, lane_nbr_s, inputs_s = on(device)
         a, z = dev.leaf_bounds[s], dev.leaf_bounds[s + 1]
-        topd = torch.full((Q, k), _INF, dtype=torch.float32, device=device)
-        topi = torch.full((Q, k), -1, dtype=torch.int32, device=device)
-        for j in range(nbr):
-            mine = (leaves_s[:, j] >= a) & (leaves_s[:, j] < z)
-            if lane_nbr_s is not None:
-                mine &= j < lane_nbr_s
-            starts = loc.leaf_start[lfc[:, j]].long() - s * Tp  # shard-local
-            sizes = torch.where(mine, loc.leaf_size[lfc[:, j]], 0)
-            topd, topi = _merge_leaf_rank(
-                functools.partial(dist2, inputs_s), dev.db[s], dev.ids[s],
-                dev.alive[s], starts, sizes, cols, topd, topi)
+        with _current(device):
+            topd = torch.full((Q, k), _INF, dtype=torch.float32,
+                              device=device)
+            topi = torch.full((Q, k), -1, dtype=torch.int32, device=device)
+            for j in range(nbr):
+                mine = (leaves_s[:, j] >= a) & (leaves_s[:, j] < z)
+                if lane_nbr_s is not None:
+                    mine &= j < lane_nbr_s
+                starts = loc.leaf_start[lfc[:, j]].long() - s * Tp  # local
+                sizes = torch.where(mine, loc.leaf_size[lfc[:, j]], 0)
+                topd, topi = _merge_leaf_rank(
+                    functools.partial(dist2, inputs_s), dev.db[s],
+                    dev.ids[s], dev.alive[s], starts, sizes, cols, topd,
+                    topi)
         parts.append(_to_device((topd, topi), home))
     topd = torch.stack([p[0] for p in parts])                 # [S, Q, k]
     topi = torch.stack([p[1] for p in parts])

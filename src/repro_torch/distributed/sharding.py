@@ -65,7 +65,8 @@ class Mesh:
 def _canonical(device) -> torch.device:
     """A mesh entry as a concrete device: ``"cuda"`` becomes ``cuda:<the
     current device>``, so ``"cuda"`` and ``"cuda:0"`` name one device.
-    Raises where CUDA is asked for and absent."""
+    Raises where CUDA is asked for and absent, and for a card this machine
+    does not have: an entry never falls back to another device."""
     device = torch.device(device)
     if device.type == "cuda":
         if not torch.cuda.is_available():
@@ -74,6 +75,10 @@ def _canonical(device) -> torch.device:
                 "build a mesh of 'cpu' entries to run on the CPU")
         if device.index is None:
             device = torch.device("cuda", torch.cuda.current_device())
+        elif device.index >= torch.cuda.device_count():
+            raise RuntimeError(
+                f"mesh entry {device} names an absent card: this machine "
+                f"has {torch.cuda.device_count()} CUDA device(s)")
     return device
 
 

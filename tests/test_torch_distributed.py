@@ -18,6 +18,7 @@ from _torch_port import (assert_ties_only, build_pair, clear_of_breakpoints,
 from repro.core.device_index import DeviceIndex as RDev
 from repro.core.distributed import build_distributed as r_build_distributed
 from repro.core.distributed import build_step as r_build_step
+from repro.core.distributed import search_distributed as r_search_dist
 from repro.core.distributed import search_step as r_search_step
 from repro.core.sax import next_bit_codes_jnp, sax_encode_np as r_encode
 from repro.core.search import exact_search, extended_search
@@ -25,11 +26,13 @@ from repro.core.search_device import exact_search_device_batch as r_exact
 from repro.core.search_device import extended_search_device_batch as r_ext
 from repro.core.search_device import shard_coverage as r_coverage
 from repro.data.series import random_walks
+from repro_torch.core import distributed as D
 from repro_torch.core import search_device as sd
 from repro_torch.core.baselines.brute import brute_force_knn
 from repro_torch.core.distributed import (_topk_lowest, build_distributed,
                                           build_step, encode_distributed,
                                           search_distributed, search_step)
+from repro_torch.core.metric import resolve
 from repro_torch.core.sax import next_bit_codes_t
 from repro_torch.distributed.sharding import get_mesh, make_mesh, use_mesh
 
@@ -324,3 +327,137 @@ def test_mesh_entry_points_need_cuda_or_an_explicit_cpu(fuzzy, mesh4):
     with pytest.raises(ValueError, match="a mesh of 4 devices for 2"):
         pi.device_index(n_shards=2, device=CPU).shard(mesh4)
     assert make_mesh([CPU, "cpu"]).distinct == (torch.device(CPU),)
+
+
+# ---------------------------------------------------------------------------
+# the shards' loops driven at once (search_device._drive)
+# ---------------------------------------------------------------------------
+
+#: span widths: ~60 spans a shard for ED, ~16 for DTW: several stop tests
+CHUNK = {"ed": 16, "dtw": 64}
+BAND = 6
+METRICS = [("ed", None), ("dtw", "shared"), ("dtw", "perq"),
+           ("dtw", "cluster")]
+COUNTERS = sd.STAT_KEYS + ("dp_survivors",)
+
+
+@pytest.fixture(scope="module")
+def wide():
+    """4000 x 64, fuzzy, tombstoned: ~1000 rows a shard of four."""
+    ri, pi = build_pair(random_walks(4000, 64, seed=21), th=64,
+                        fuzzy_f=0.1)
+    for v in VICTIMS:
+        ri.delete(v)
+        pi.delete(v)
+    return ri, pi
+
+
+@pytest.mark.parametrize("metric,order", METRICS)
+def test_interleaved_mesh_equals_reference(wide, mesh4, metric, order):
+    """The four shards' loops driven at once on the four-entry mesh: ids
+    and distances bitwise the reference's ``search_distributed``, and with
+    the spans (or chunks) visited and the cascade counters, bitwise the
+    reference's four-shard batch; the host syncs equal the sum of the
+    shards' reads when each loop is driven alone."""
+    ri, pi = wide
+    qs = random_walks(8, 64, seed=22)
+    kw = dict(metric=metric, band=BAND if metric == "dtw" else None)
+    chunk = CHUNK[metric]
+    got = sd.exact_search_device_batch(pi, qs, K, chunk=chunk, mesh=mesh4,
+                                       order=order, return_stats=True, **kw)
+    want = r_exact(ri, qs, K, dev=RDev.from_index(ri, chunk=chunk,
+                                                  n_shards=4),
+                   order=order, return_stats=True, **kw)
+    for a, b in zip(got[:3], want[:3]):
+        np.testing.assert_array_equal(a, b)
+    assert {c: got[3][c] for c in COUNTERS} == want[3]
+    r_ids, r_d = r_search_dist(ri, qs, K, **kw)
+    np.testing.assert_array_equal(got[0], r_ids)
+    np.testing.assert_array_equal(got[1], r_d)
+    dev = pi.device_index(chunk=chunk, mesh=mesh4)
+    met = resolve(metric, 64, kw["band"], order)
+    prep, _ = sd._prep_batch(met, torch.from_numpy(qs), 8, 8)
+    knn = sd._shard_knn if order in (None, "shared") else sd._lane_knn
+    kk = sd._result_margin(dev, K) + 8
+    alone = [sd._drive([knn(dev, s, prep, torch.from_numpy(qs), kk, met)])
+             for s in range(4)]
+    assert got[3]["host_syncs"] == sum(r for _, (r,) in alone)
+
+
+def _record_steps(monkeypatch, dev, name, db_arg):
+    """Wrap ``search_device.<name>`` (``_span_step`` or ``_walk_step``):
+    every call appends the shard whose rows it reads."""
+    shard_of = {dev.db[s].data_ptr(): s for s in range(dev.n_shards)}
+    calls, real = [], getattr(sd, name)
+
+    def step(*a):
+        calls.append(shard_of[db_arg(a).data_ptr()])
+        return real(*a)
+
+    monkeypatch.setattr(sd, name, step)
+    return calls
+
+
+@pytest.mark.parametrize("metric,order", [("ed", None), ("dtw", "shared"),
+                                          ("dtw", "perq")])
+def test_a_stopped_shard_gets_no_further_step(wide, mesh4, monkeypatch,
+                                              metric, order):
+    """With a stop test every 2 steps (and 16-lane walk chunks), the
+    shards' steps interleave, every shard takes exactly the steps it takes
+    driven alone, a shard whose stop test fired before its last span (or
+    chunk) takes no further step, and the reads are one a stop test (and
+    one for each span schedule)."""
+    _, pi = wide
+    monkeypatch.setattr(sd, "STOP_CHECK_EVERY", 2)
+    monkeypatch.setattr(sd, "DTW_LANE_CHUNK", 16)
+    qs = torch.from_numpy(random_walks(6, 64, seed=23))
+    dev = pi.device_index(chunk=CHUNK[metric], mesh=mesh4)
+    met = resolve(metric, 64, BAND if metric == "dtw" else None, order)
+    prep, _ = sd._prep_batch(met, qs, 8, 8)
+    lanes = order == "perq"
+    knn = sd._lane_knn if lanes else sd._shard_knn
+    calls = _record_steps(
+        monkeypatch, dev, "_walk_step" if lanes else "_span_step",
+        (lambda a: a[0]) if lanes else (lambda a: a[3][0]))
+    parts, reads = sd._drive([knn(dev, s, prep, qs, K, met)
+                              for s in range(4)])
+    together = list(calls)
+    steps = [together.count(s) for s in range(4)]
+    total = [-(-(dev.shard_rows - K) // 16) if lanes
+             else dev.win_start[s].shape[0] for s in range(4)]
+    assert any(n < t for n, t in zip(steps, total))    # a stop test fired
+    # interleaved: shard 1 steps before shard 0 takes its last step
+    assert together.index(1) < len(together) - together[::-1].index(0) - 1
+    for s in range(4):
+        calls.clear()
+        (part,), (r,) = sd._drive([knn(dev, s, prep, qs, K, met)])
+        assert calls == [s] * steps[s]
+        for a, b in zip(part, parts[s]):
+            assert torch.equal(a, b)
+        tests = (steps[s] // 2 + 1 if steps[s] < total[s]
+                 else -(-total[s] // 2))
+        assert reads[s] == r == tests + (0 if lanes else 1)
+
+
+def test_encode_distributed_launches_every_shard_before_a_gather(
+        monkeypatch):
+    events = []
+    real_step, real_host = D.build_step, D._to_host
+
+    def step(x, w, b):
+        events.append("launch")
+        return real_step(x, w, b)
+
+    def host(t):
+        events.append("gather")
+        return real_host(t)
+
+    monkeypatch.setattr(D, "build_step", step)
+    monkeypatch.setattr(D, "_to_host", host)
+    db = random_walks(1003, 64, seed=24)
+    paa, sax, hist = encode_distributed(db, 8, 8,
+                                        mesh=make_mesh([CPU] * 4))
+    assert events == ["launch"] * 4 + ["gather"] * 8
+    one = encode_distributed(db, 8, 8, mesh=make_mesh([CPU]))
+    for a, b in zip((paa, sax, hist), one):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
