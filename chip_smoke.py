@@ -9,8 +9,10 @@
                                            # kernel rows, no ok line)
     python3 chip_smoke.py --train-ranks-only   # phases 1, 15 (c) and 17
                                                # alone (no ok line)
-    python3 chip_smoke.py --search-only    # phases 1-13 and 16 (b)'s exact
-                                           # cells alone (no ok line)
+    python3 chip_smoke.py --search-only    # phases 1-13, 16 (b)'s exact
+                                           # cells and 18 (no ok line)
+    python3 chip_smoke.py --skew-only      # phases 1, 2 and 18 alone (no
+                                           # ok line)
 
 Phases, each printed with its seconds:
 
@@ -47,11 +49,12 @@ Phases, each printed with its seconds:
 7. DTW main path: 128 held-out queries in 2 batches of 64 through
    ``exact_search_device_batch(metric="dtw")`` (k=10, band 25 = 10% of the
    length, order "cluster") on the same ``DeviceIndex`` (no second layout
-   is built), every result held against an independent float64 check on
-   the card (LB_Keogh over every live row, then a banded DP over the rows
-   it cannot rule out), one batch rerun with ``order="perq"``,
-   ``order="shared"`` and ``n_shards=4`` (each bitwise equal), the cascade
-   counters and the launch count of each kernel on this phase; then
+   is built), batch 0's results held against an independent float64
+   check on the card (LB_Keogh over every live row, LB_Improved, then a
+   banded DP over the rows they cannot rule out), batch 0 rerun with
+   ``order="perq"`` and ``n_shards=4`` and its first 16 queries with
+   ``order="shared"`` (each bitwise equal), the cascade counters and the launch count of each kernel on
+   this phase; then
    ``dtw_band`` at the lane walk's real calls (one "cluster" group of 16
    queries x 128 lanes, with the walk's mask and cutoff, recorded from a
    rerun of batch 0): bitwise against its twin, its time, and its bound
@@ -73,7 +76,7 @@ Phases, each printed with its seconds:
    DTW: LB_Keogh then the banded DP, all 128 queries); recall and every
    query's k-th distance monotone in nbr; extended with ``n_shards=4``
    bitwise equal to one shard (ED, DTW).  Prints queries/s (the median of
-   passes over each configuration's batches, repeated for at least 2 s,
+   passes over each configuration's batches, repeated for at least 1 s,
    with the slowest and fastest pass), recall@10 against phases 5 and 7, launches of each kernel a batch and
    ``max_memory_allocated`` for each configuration; ``lb_paa_interval`` on
    the routing edge table and ``lb_keogh``, ``lb_improved`` and
@@ -110,13 +113,13 @@ Phases, each printed with its seconds:
    differ from ``sax_encode_np``, every row inside its leaf's SAX region,
    one exact ED batch against the float64 brute force, the layout equal
    to (a)'s where no symbol differs; (c) ``save`` and ``load`` (seconds,
-   GB, sha256 checks included) under a temporary directory in ``build/``
-   (the first 1 M series where the disk holds no two generations of the
-   whole collection), then one exact ED batch on the loaded index bitwise
-   equal to phase 5's; (d) 1 000 inserts through the write-ahead log, a
-   save crashed at ``index.save.commit``, a load that replays the log: the
-   pre-crash ``db`` and ``alive``, 8 inserted series found at distance 0;
-   (e) ``repro_torch.robustness.smoke`` on the card;
+   GB, sha256 checks included) of the first 1 M series under a temporary
+   directory in ``build/``, then one exact ED batch on the loaded index
+   bitwise equal to the same batch before the save; (d) 1 000 inserts
+   through the write-ahead log, a save crashed at ``index.save.commit``, a
+   load that replays the log: the pre-crash ``db`` and ``alive``, 8
+   inserted series found at distance 0; (e)
+   ``repro_torch.robustness.smoke`` on the card;
 12. distributed build and search, and the baseline indexes, on the same
    collection: (a) ``build_distributed`` on the mesh ``[cuda:0]``: its
    table bitwise ``sax_encode`` over the same rows, each symbol that
@@ -144,7 +147,7 @@ Phases, each printed with its seconds:
    at that shape against its twin on three column slices and bitwise a
    call over each slice alone, timed beside its bound, its twin and
    ``torch.cdist(q, x).square()``; (d) Dumpy, iSAX2+ and TARDIS over the
-   first 1 M series (w=16, b=8, th=10 000): host build seconds, leaves,
+   first 250 000 series (w=16, b=8, th=10 000): host build seconds, leaves,
    height, fill factor, ``DeviceIndex`` set-up, exact ED batch 0 against a
    float64 brute force over those series with its launches, recall@10 of
    extended search at nbr 1, 4, 16 against it, and ``lb_paa_interval`` at
@@ -263,14 +266,42 @@ Phases, each printed with its seconds:
    Two ranks on the one card are not run: NCCL refuses two ranks on one
    device and gloo's CUDA collectives crash there
    (``scripts/probe_two_ranks_one_card.py``, ``PERF.md``).
+18. the skewed collection and Dumpy-Fuzzy (run in the search slice, after
+   16 (b)'s exact cells; ``--skew-only`` runs phases 1, 2 and 18 alone):
+   (a) ``clustered_series`` at the run's size x 256, 64 clusters, seed 1
+   (the reference benchmark's ``skew``), its seconds, peak host bytes and
+   cluster shares; (b) Dumpy-Fuzzy (``fuzzy_f`` 0.1, ``max_replica`` 3)
+   built on the host, in a forked process, and with ``backend="device"``
+   beside it, the SHA-256 of their tree JSON, leaf layout, routing arrays
+   and stats equal; plain Dumpy built on the host; each layout's leaves,
+   height, nodes, fill factor, leaf sizes, ``lmax`` and bytes on the card;
+   (c) exact ED (128 queries) and DTW (64, band 25, ``cluster``) on both
+   layouts, held against float64 checks over the collection itself, no
+   repeated id, the two layouts equal up to ties; (d) approximate and
+   extended ED at nbr 1, 4, 16 and extended DTW at nbr 4 on both layouts,
+   recall@10 of each; on Dumpy-Fuzzy approximate nbr=1 on the host
+   ``route_to_leaf``'s leaf and equal to the host ``approximate_search``
+   up to ties, extended ED bitwise the host ``extended_search``, every
+   configuration equal to the float64 top-10 over its scheduled leaves,
+   each id once; (e) a 64-lane bucket (25% DTW, a dead lane) on
+   Dumpy-Fuzzy lane by lane against lone requests; (f) 1 000 ids deleted
+   (replicated ones first): every replica dead in the ``DeviceIndex``, an
+   exact ED batch free of them and equal to the float64 brute force over
+   the live rows; (g) each kernel's launches in the phase (none may be 0),
+   ``lb_paa_interval`` at Dumpy-Fuzzy's leaf table and routing edges
+   against its in-order sum and timed.  Its layouts are freed before
+   phase 14.
 """
 from __future__ import annotations
 
 import argparse
+import gc
 import json
+import multiprocessing
 import os
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -288,7 +319,7 @@ LENGTH = 256
 CHUNK = 2048
 N_DTW = 128            # DTW queries: 2 batches of 64
 NBRS = (1, 4, 16)      # leaf budgets of the approximate and extended paths
-QPS_WINDOW_S = 2.0     # phase 9 times each configuration over at least
+QPS_WINDOW_S = 1.0     # phase 9 times each configuration over at least
 QPS_MIN_PASSES = 3     # this many seconds and passes over its batches
 BAND = 25              # default_band(256): the paper's 10% Sakoe-Chiba band
 # DTW cascade cost model for the bounds: float32 operations per element of
@@ -298,6 +329,17 @@ LBK_OPS, LBI_OPS, DTW_CELL_OPS = 7, 20, 5
 # the floor of one step of the DP's chain of 2n-1 dependent anti-diagonals:
 # a dependent min and add, 4 cycles of f32 latency each
 CHAIN_STEP_CYCLES = 8
+# the float64 DTW check drops the pairs past its bound every this many
+# anti-diagonals of the DP
+DTW_ABANDON_EVERY = 16
+# the float64 ED brute force keeps this many candidates past k + 1 from
+# its |q|² + |x|² - 2 q·x pass before their direct differences
+BRUTE_SLACK = 8
+# phase 7 holds dtw_band at this many of the walk's recorded calls
+WALK_SAMPLE = 16
+# phase 7's rerun with order="shared" (the slowest order) takes batch 0's
+# first this many queries
+DTW_SHARED_QUERIES = 16
 DTW_WIDE = (2, 5, 2600, 2500)   # (Q, m, n, r): a band no shared frontier holds
 # the operations the lb_improved kernel itself does per element (its source
 # note: d = v - clip(v, lo, hi) in place of two gaps, an FMA counting two)
@@ -330,9 +372,12 @@ LBPAA_EDGES = [(1, 1, 1), (5, 333, 3), (9, 77, 64), (33, 1500, 33),
 # the leaf table at scale: the shard-0 table repeated, 757 x 25 = 18 925
 # leaves, as a 100 M-series collection at th = 10 000 has
 LB_SCALE = 25
-# phase 12 (d): the structure comparison runs on the first 1 M series (the
-# iSAX2+ host build grows faster than linearly in the collection)
-BASELINE_ROWS = 1_000_000
+# phase 12 (d): the structure comparison runs on the first 250 000 series
+# (the iSAX2+ host build grows faster than linearly in the collection)
+BASELINE_ROWS = 250_000
+# phase 11 (c), (d): save, load, the crashed save and its recovery run on
+# the first 1 M series (a 1.12 GB store)
+SAVE_ROWS = 1_000_000
 # phase 10, serving: the knob bounds, coalescing settings and rates of
 # benchmarks/bench_serving.py
 SERVE_K_MAX, SERVE_NBR_MAX = 10, 4
@@ -341,7 +386,7 @@ SERVE_LADDER = (1, 2, 4, 8, 16, 32, 64)
 KNOB_MIX = ((5, 1), (10, 4), (10, 2), (5, 4), (10, 1), (5, 2))
 RATE_FRACS = (0.25, 0.6, 1.0, 1.4)   # of the closed-loop batch-64 rate
 DTW_MIX_FRAC = 0.5                   # of the closed-loop 25%-DTW rate
-LOAD_S = 2.0                         # each rate's arrival schedule spans this
+LOAD_S = 1.0                         # each rate's arrival schedule spans this
 # phase 11: the routing arrays a device build must match
 # (tests/test_build_pipeline.py)
 ROUTING_FIELDS = ("node_csl", "node_shift", "node_lam", "edge_parent",
@@ -391,6 +436,14 @@ DRYRUN_KINDS = ("build", "search", "search_sharded", "search_dtw",
                 "serving")
 DRYRUN_TIMEOUT_S, DRYRUN_STEPS = 300, 3
 OLMO_DECODE_HAND_BOUND_MS = 1.413
+# phase 18: the reference benchmark's skewed collection and its Dumpy-Fuzzy
+# (benchmarks/common.py: clustered_series(n, length, n_clusters=64, seed=1),
+# "dumpy-fuzzy" at fuzzy_f 0.1), max_replica 3; 128 ED queries (one batch
+# of them for DTW and the extended DTW path at nbr 4), 1 000 tombstones
+SKEW_CLUSTERS, SKEW_SEED = 64, 1
+SKEW_FUZZY_F, SKEW_MAX_REPLICA = 0.1, 3
+SKEW_ED_QUERIES, SKEW_DTW_NBR, SKEW_TOMBSTONES = 128, 4, 1000
+SKEW_CHILD_TIMEOUT_S = 400     # the forked host build's limit
 
 
 def fail(msg: str) -> None:
@@ -1119,14 +1172,19 @@ def check_dtw_kernels(torch, ops, ref, envelope, gather, qs_main, dev,
 def schedule_rows(torch, np, dev, leaves):
     """``rows_of(qi)``: the rows (of the one-shard layout, whose flattened
     coordinates are shard 0's) of the leaves ``leaves [Q, nbr]`` a search
-    scheduled for query ``qi``, as a CUDA index tensor."""
+    scheduled for query ``qi``, as an index tensor on the layout's device.
+    On a fuzzy layout each id keeps its first row only: its replicas hold
+    the same series, and a top-k counts an id once."""
     start = dev.leaf_start.cpu().numpy()
     size = dev.leaf_size.cpu().numpy()
+    ids = dev.ids[0].cpu().numpy() if dev.has_duplicates else None
 
     def rows_of(qi):
         rows = np.concatenate([np.arange(start[lf], start[lf] + size[lf])
-                               for lf in leaves[qi]])
-        return torch.from_numpy(rows).cuda()
+                               for lf in leaves[qi] if lf >= 0])
+        if ids is not None:
+            rows = rows[np.sort(np.unique(ids[rows], return_index=True)[1])]
+        return torch.from_numpy(rows).to(dev.db[0].device)
 
     return rows_of
 
@@ -1139,17 +1197,20 @@ def dtw_float64_check(torch, dev, q32, d_port, r, k, rows_of=None):
     whose LB is at most the port's k-th distance × (1 + 1e-5) (every row
     where the port returned fewer than k).  That is exact: LB ≤ DTW, and
     the port's k-th distance is the DTW of a real row, so it is at least
-    the true k-th.  Returns ``(d [Q, k+1] f64, ids [Q, k+1], rows given the
-    DP)``, padded with ``inf / -1``."""
+    the true k-th.  LB_Improved in float64 then drops more pairs, by the
+    same test, and a pair leaves the DP, +inf, once its partial cost
+    passes that bound.  Returns ``(d [Q, k+1]
+    f64, ids [Q, k+1], rows given the DP)``, padded with ``inf / -1``."""
     F = torch.nn.functional
     inf = float("inf")
     db0, ids0, alive0 = dev.db[0], dev.ids[0], dev.alive[0]
+    on = db0.device
     Q, n = q32.shape
     q = q32.double()
     U = F.pad(q, (r, r), value=-inf).unfold(1, 2 * r + 1, 1).amax(-1)
     L = F.pad(q, (r, r), value=inf).unfold(1, 2 * r + 1, 1).amin(-1)
     thr = (torch.as_tensor(d_port[:, k - 1], dtype=torch.float64,
-                           device="cuda") * (1 + 1e-5)) ** 2
+                           device=on) * (1 + 1e-5)) ** 2
     qi_l, row_l = [], []
     step = 4096
     if rows_of is None:
@@ -1170,33 +1231,62 @@ def dtw_float64_check(torch, dev, q32, d_port, r, k, rows_of=None):
             row_l.append(rows[keep])
             qi_l.append(torch.full_like(row_l[-1], qq))
     qi, rows = torch.cat(qi_l), torch.cat(row_l)
+    # LB_Improved in float64 over the pairs LB_Keogh kept: LB_Keogh plus
+    # LB_Keogh of q against the envelope of x clipped to q's envelope
+    keep = []
+    for p0 in range(0, len(rows), 1 << 16):
+        qq, x = qi[p0:p0 + (1 << 16)], db0[rows[p0:p0 + (1 << 16)]].double()
+        Uq, Lq, a = U[qq], L[qq], q[qq]
+        h = torch.minimum(torch.maximum(x, Lq), Uq)[:, None]
+        Uh = F.max_pool1d(h, 2 * r + 1, 1, r)[:, 0]
+        Lh = -F.max_pool1d(-h, 2 * r + 1, 1, r)[:, 0]
+        lb = (((x - Uq).clamp_min(0) ** 2 + (Lq - x).clamp_min(0) ** 2
+               ).sum(-1)
+              + ((a - Uh).clamp_min(0) ** 2 + (Lh - a).clamp_min(0) ** 2
+                 ).sum(-1))
+        keep.append(lb <= thr[qq])
+    if keep:
+        keep = torch.cat(keep)
+        qi, rows = qi[keep], rows[keep]
     # the DP over the (query, row) pairs, anti-diagonal by anti-diagonal:
     # slot t of diagonal d = i + j holds D(i, j) with i - j = t - r
+    # A step moves i + j on by 1 or 2, so every warping path meets one of
+    # two neighbouring diagonals, and (costs being >= 0) their least cell
+    # bounds the final DTW²: every DTW_ABANDON_EVERY diagonals the pairs
+    # above their bound ``thr`` leave the DP, as they left it at the LB
+    # test, and keep +inf.
     T = 2 * r + 1
-    tt = torch.arange(T, device="cuda") - r
-    dist = torch.empty(len(rows), dtype=torch.float64, device="cuda")
+    tt = torch.arange(T, device=on) - r
+    dist = torch.full((len(rows),), inf, dtype=torch.float64, device=on)
     chunk = 1 << 19
     for p0 in range(0, len(rows), chunk):
-        a = q[qi[p0:p0 + chunk]]
-        b = db0[rows[p0:p0 + chunk]].double()
+        pos = torch.arange(p0, min(p0 + chunk, len(rows)), device=on)
+        a = q[qi[pos]]
+        b = db0[rows[pos]].double()
+        cut = thr[qi[pos]]
         P = a.shape[0]
-        pad = torch.full((P, 1), inf, dtype=torch.float64, device="cuda")
-        d1 = torch.full((P, T), inf, dtype=torch.float64, device="cuda")
+        d1 = torch.full((P, T), inf, dtype=torch.float64, device=on)
         d2 = d1.clone()
         for d in range(2 * n - 1):
             i2 = d + tt
             i, j = i2 // 2, (d - tt) // 2
             valid = (i2 % 2 == 0) & (i >= 0) & (i < n) & (j >= 0) & (j < n)
             c = (b[:, j.clamp(0, n - 1)] - a[:, i.clamp(0, n - 1)]) ** 2
+            pad = torch.full((len(pos), 1), inf, dtype=torch.float64,
+                             device=on)
             up = torch.cat([pad, d1[:, :-1]], 1)          # D(i-1, j)
             left = torch.cat([d1[:, 1:], pad], 1)         # D(i, j-1)
             best = torch.minimum(torch.minimum(up, left), d2)  # D(i-1, j-1)
             if d == 0:
                 best = torch.where(tt == 0, 0.0, best)
             d2, d1 = d1, torch.where(valid, c + best, inf)
-        dist[p0:p0 + P] = d1[:, r].sqrt()
-    bd = torch.full((Q, k + 1), inf, dtype=torch.float64, device="cuda")
-    bi = torch.full((Q, k + 1), -1, dtype=torch.int64, device="cuda")
+            if d % DTW_ABANDON_EVERY == DTW_ABANDON_EVERY - 1:
+                go = torch.minimum(d1.amin(1), d2.amin(1)) <= cut
+                pos, a, b, cut, d1, d2 = (t[go] for t in (pos, a, b, cut,
+                                                          d1, d2))
+        dist[pos] = d1[:, r].sqrt()
+    bd = torch.full((Q, k + 1), inf, dtype=torch.float64, device=on)
+    bi = torch.full((Q, k + 1), -1, dtype=torch.int64, device=on)
     for qq in range(Q):
         sel = qi == qq
         dd, ii = dist[sel], ids0[rows[sel]].long()
@@ -1216,11 +1306,12 @@ def brute_force(torch, dev, q32, k, rows_of=None, live=None):
     if live is not None:
         alive0 = alive0 & live
     q = q32.double()
+    on = db0.device
     if rows_of is not None:
         Q = q32.shape[0]
         bd = torch.full((Q, k + 1), float("inf"), dtype=torch.float64,
-                        device="cuda")
-        bi = torch.full((Q, k + 1), -1, dtype=torch.int64, device="cuda")
+                        device=on)
+        bi = torch.full((Q, k + 1), -1, dtype=torch.int64, device=on)
         for qq in range(Q):
             rows = rows_of(qq)
             rows = rows[alive0[rows]]
@@ -1229,19 +1320,25 @@ def brute_force(torch, dev, q32, k, rows_of=None, live=None):
             bd[qq, :len(v)] = v.sqrt()
             bi[qq, :len(v)] = ids0[rows[j]].long()
         return bd, bi
-    best_d, best_i = [], []
+    # candidates by |q|² + |x|² - 2 q·x in float64 (a relative error near
+    # 1e-15, BRUTE_SLACK rows to spare), then their direct differences
+    best_d, best_r = [], []
     step = 8192
+    qq = (q * q).sum(-1)[:, None]
+    c = k + 1 + BRUTE_SLACK
     for c0 in range(0, db0.shape[0], step):
         x = db0[c0:c0 + step].double()
-        d = ((x[None, :, :] - q[:, None, :]) ** 2).sum(-1)
+        d = qq + (x * x).sum(-1)[None, :] - 2.0 * (q @ x.T)
         d = torch.where(alive0[c0:c0 + step][None, :], d, float("inf"))
-        v, j = torch.topk(d, min(k + 1, d.shape[1]), dim=1, largest=False)
+        v, j = torch.topk(d, min(c, d.shape[1]), dim=1, largest=False)
         best_d.append(v)
-        best_i.append(ids0[c0:c0 + step].long()[j])
-    d = torch.cat(best_d, 1)
-    i = torch.cat(best_i, 1)
+        best_r.append(j + c0)
+    v, j = torch.topk(torch.cat(best_d, 1), c, dim=1, largest=False)
+    rows = torch.gather(torch.cat(best_r, 1), 1, j)
+    d = ((db0[rows].double() - q[:, None, :]) ** 2).sum(-1)
+    d = torch.where(torch.isinf(v), float("inf"), d)
     v, j = torch.topk(d, k + 1, dim=1, largest=False)
-    return v.sqrt(), torch.gather(i, 1, j)
+    return v.sqrt(), ids0[torch.gather(rows, 1, j)].long()
 
 
 def walk_calls(ops, sd, index, qb) -> list:
@@ -1490,6 +1587,9 @@ def search_paths_phase(torch, np, sd, hs, ops, ref, gather, dtw_np, index,
     main path's ``DeviceIndex`` and queries.  Every check fails the run on
     a miss; returns the per-configuration summary."""
     builds = index._n_device_builds
+    # the host extended_search that check 1 holds batch 0 to runs in a
+    # forked process while the card runs the configurations
+    host = start_forked(host_search_child, hs, index, batches[0], NBRS)
     qs_ed = np.concatenate(batches)
     gt = {"ED": [set(r.tolist()) for ids, _, _ in exact_ed for r in ids],
           "DTW": [set(r.tolist()) for ids, _, _ in exact_dtw for r in ids]}
@@ -1597,10 +1697,12 @@ def search_paths_phase(torch, np, sd, hs, ops, ref, gather, dtw_np, index,
 
     # -- check 1: ED extended + re-rank bitwise equal to the host -------------
     t1 = time.perf_counter()
+    got, wait_s = finish_forked(host, "phase 9's host searches")
+    host[0].join(60)
     for nbr in NBRS:
         ids, d, _ = out[("ED", "extended", nbr, True)][0]
-        for i, q in enumerate(batches[0]):
-            h_ids, h_d, _ = hs.extended_search(index, q, K, nbr)
+        for i, (_, _, ext) in enumerate(got["results"]):
+            h_ids, h_d = ext[nbr]
             m = len(h_ids)
             if not (np.array_equal(ids[i, :m], h_ids)
                     and np.array_equal(d[i, :m], h_d)
@@ -1609,7 +1711,9 @@ def search_paths_phase(torch, np, sd, hs, ops, ref, gather, dtw_np, index,
                      f"host extended_search")
     print(f"  ED extended (rerank=True) bitwise equal to the host "
           f"extended_search for all {BATCH} queries of batch 0 at nbr "
-          f"{NBRS} ({time.perf_counter() - t1:.3f} s)")
+          f"{NBRS} (the host's {got['s']:.3f} s in a forked process beside "
+          f"the configurations, {wait_s:.3f} s waited for; "
+          f"{time.perf_counter() - t1:.3f} s)")
 
     # -- check 3: float64 over each query's scheduled leaves ------------------
     t1 = time.perf_counter()
@@ -1742,8 +1846,9 @@ def serving_knobs(B: int, offset: int) -> tuple[list, list, list]:
     return ks, nbrs, mets
 
 
-def bucket_parity(torch, np, sd, dtw_np, index, dev, db, qs) -> dict:
-    """Phase 10 (a): a bucket of every ladder size, each live lane held
+def bucket_parity(torch, np, sd, dtw_np, index, dev, db, qs,
+                  ladder=SERVE_LADDER) -> dict:
+    """Phase 10 (a): a bucket of every ``ladder`` size, each live lane held
     against the same request alone (``extended_search_device_batch(
     rerank=False)``) — schedules bitwise; ids and distances bitwise, or
     else counted (fault C7) and held ties-only at rtol 1e-5 — and against a
@@ -1752,7 +1857,7 @@ def bucket_parity(torch, np, sd, dtw_np, index, dev, db, qs) -> dict:
     lanes = differ = tied = dtw_lanes = 0
     gap = 0.0
     offset = 0
-    for B in SERVE_LADDER:
+    for B in ladder:
         qb = qs[offset % len(qs):][:B].copy()
         if len(qb) < B:
             qb = np.concatenate([qb, qs[:B - len(qb)]])
@@ -1791,7 +1896,7 @@ def bucket_parity(torch, np, sd, dtw_np, index, dev, db, qs) -> dict:
                          f"request alone beyond ties at rtol 1e-5 (max rel "
                          f"{g:.3e})")
             # float64 top-k over the lane's own scheduled leaves
-            q32 = torch.from_numpy(qb[i:i + 1]).cuda()
+            q32 = torch.from_numpy(qb[i:i + 1]).to(dev.db[0].device)
             rows_of = schedule_rows(torch, np, dev, leaves[i:i + 1, :nbr])
             if m == "ed":
                 bd, bi = brute_force(torch, dev, q32, k, rows_of)
@@ -1806,7 +1911,7 @@ def bucket_parity(torch, np, sd, dtw_np, index, dev, db, qs) -> dict:
             tied += check_exact(np, ids[i:i + 1, :k], d[i:i + 1, :k],
                                 bd.cpu().numpy(), bi.cpu().numpy(), dist, k)
         offset += B
-    print(f"  bucket parity: buckets of {SERVE_LADDER} lanes (k 1..10, nbr "
+    print(f"  bucket parity: buckets of {ladder} lanes (k 1..10, nbr "
           f"1..4, every fourth lane DTW band {BAND}, lane 1 dead from 4 "
           f"lanes up): {lanes} live lanes ({dtw_lanes} DTW), schedules "
           f"bitwise equal to each request alone; ids and distances differ "
@@ -2340,7 +2445,7 @@ def lifecycle_phase(torch, np, sd, ops, mods, DumpyIndex, device_build,
     del idx_np, dev_np
     torch.cuda.empty_cache()
 
-    # -- (b) device build, the sax_encode kernel --------------------------------
+    # -- (b) device build, the sax_encode kernel -----------------------------
     t1 = time.perf_counter()
     x = torch.from_numpy(db).cuda()
     ms, _ = time_ms(torch, lambda t: ops.sax_encode(t, w, b), [(x,)] * 5,
@@ -2407,12 +2512,10 @@ def lifecycle_phase(torch, np, sd, ops, mods, DumpyIndex, device_build,
     free = shutil.disk_usage(build_dir).free
     # two generations (the crashed overwrite renames its own into place)
     # and the write-ahead log, with a tenth to spare
-    n_save = db.shape[0]
+    n_save = min(db.shape[0], SAVE_ROWS)
     if free < 2.2 * n_save * per_row:
-        n_save = 1_000_000
-        print(f"  REDUCED: {free} bytes free under build/ hold no two "
-              f"generations of {db.shape[0]} rows: saving the first "
-              f"{n_save} series instead")
+        fail(f"{free} bytes free under build/ hold no two generations of "
+             f"{n_save} rows")
     out["saved_rows"] = n_save
     if n_save == db.shape[0]:
         saved, want_ids, want_d = index, exact_ed[0][0], exact_ed[0][1]
@@ -2493,7 +2596,7 @@ def lifecycle_phase(torch, np, sd, ops, mods, DumpyIndex, device_build,
         del back
         torch.cuda.empty_cache()
 
-    # -- (e) the robustness smoke on the card ---------------------------------
+    # -- (e) the robustness smoke on the card --------------------------------
     t1 = time.perf_counter()
     if not (smoke.crash_on_commit_smoke(device="cuda")
             and smoke.degraded_search_smoke(device="cuda")):
@@ -2565,7 +2668,7 @@ def distributed_phase(torch, np, sd, ops, ref, mods, dist, sharding,
     mesh1 = sharding.make_mesh(["cuda:0"])
     mesh4 = sharding.make_mesh(["cuda:0"] * 4)
 
-    # -- (a) build_distributed: the kernel's table, the summed histogram ----
+    # -- (a) build_distributed: the kernel's table, the summed histogram -----
     meshc = cross_card_mesh(torch, sharding)
     sync_mesh(torch, mesh1)
     t1 = time.perf_counter()
@@ -2638,7 +2741,7 @@ def distributed_phase(torch, np, sd, ops, ref, mods, dist, sharding,
     del idx_d
     torch.cuda.empty_cache()
 
-    # -- (b) search_distributed against phases 5, 7 and 9 -------------------
+    # -- (b) search_distributed against phases 5, 7 and 9 --------------------
     def same(got, want, what):
         if not all(np.array_equal(a, b) for a, b in zip(got, want)):
             fail(f"{what} differs from the earlier result")
@@ -2823,7 +2926,7 @@ def distributed_phase(torch, np, sd, ops, ref, mods, dist, sharding,
 
 def baselines_phase(torch, np, sd, ops, ref, mods, baselines, DumpyIndex,
                     params, db, batches, floor, smi) -> tuple[dict, list]:
-    """Phase 12 (d): Dumpy, iSAX2+ and TARDIS over the first 1 M series,
+    """Phase 12 (d): Dumpy, iSAX2+ and TARDIS over the first 250 000 series,
     each through the same device paths: its host build, structure, set-up,
     exact ED batch 0 against a float64 brute force over those series, and
     recall@10 of extended search at nbr 1, 4, 16 against it, with
@@ -4516,6 +4619,556 @@ def dryrun_phase(torch, np, rows, distributed, n_series: int, smi,
     return out
 
 
+def layout_bytes(torch, dev) -> int:
+    """Bytes of a ``DeviceIndex``'s tensors (its layout on the card)."""
+    import dataclasses
+    return sum(v.numel() * v.element_size()
+               for v in (getattr(dev, f.name) for f in dataclasses.fields(dev))
+               if isinstance(v, torch.Tensor))
+
+
+class timed_calls:
+    """Context manager: the seconds spent in ``module.name`` for each
+    ``(module, name)`` while the block runs (the device synchronized at
+    each call's end, so asynchronous work is charged to its call)."""
+
+    def __init__(self, sync, *targets):
+        self.sync, self.targets = sync, targets
+        self.s = {name: 0.0 for _, name in targets}
+
+    def __enter__(self):
+        self.real = [getattr(m, name) for m, name in self.targets]
+        for (m, name), fn in zip(self.targets, self.real):
+            def call(*a, _fn=fn, _name=name, **kw):
+                t = time.perf_counter()
+                try:
+                    # lint: allow-timing: self.sync() synchronizes the card
+                    return _fn(*a, **kw)
+                finally:
+                    self.sync()
+                    self.s[_name] += time.perf_counter() - t
+            setattr(m, name, call)
+        return self
+
+    def __exit__(self, *exc):
+        for (m, name), fn in zip(self.targets, self.real):
+            setattr(m, name, fn)
+
+
+def layout_digest(np, ix) -> dict:
+    """What a backend comparison holds of an index, as SHA-256 digests: the
+    tree JSON, the leaf layout, every routing array of ``ROUTING_FIELDS``;
+    and its stats (``plans_evaluated`` apart: the backends count plans per
+    row and per word group)."""
+    import hashlib
+    from repro_torch.core.index import _tree_to_json
+
+    def sha(a) -> str:
+        a = np.ascontiguousarray(a)
+        return hashlib.sha256(f"{a.dtype}{a.shape}".encode()
+                              + a.tobytes()).hexdigest()
+
+    out = {"tree JSON": hashlib.sha256(json.dumps(
+        _tree_to_json(ix.root)).encode()).hexdigest()}
+    for f in ("order", "leaf_offsets", "leaf_sym", "leaf_card"):
+        out[f"flat.{f}"] = sha(getattr(ix.flat, f))
+    for f in ROUTING_FIELDS:
+        out[f"routing_flat.{f}"] = sha(getattr(ix.routing_flat, f))
+    out["stats"] = dict(vars(ix.stats))
+    out["stats"].pop("plans_evaluated")
+    return out
+
+
+def host_build_child(DumpyIndex, db, params, parts: bool, conn) -> None:
+    """A forked process's work: the host build of ``db``, sending through
+    ``conn`` its seconds, its fuzzy step's, and its ``layout_digest`` or,
+    with ``parts``, the pieces of the index (tree, leaf layout, PAA, SAX,
+    stats; ``db`` stays with the parent) — or the error it raised."""
+    import numpy as np
+    from repro_torch.core import fuzzy
+    try:
+        with timed_calls(lambda: None, (fuzzy, "fuzzy_duplicates")) as tc:
+            t = time.perf_counter()
+            # lint: allow-timing: the host build, numpy alone
+            ix = DumpyIndex.build(db, params)
+            s = time.perf_counter() - t
+        out = dict(build_s=s, fuzzy_s=tc.s["fuzzy_duplicates"])
+        if parts:
+            out["parts"] = (ix.root, ix.flat, ix.paa, ix.sax, ix.stats)
+        else:
+            out["digest"] = layout_digest(np, ix)
+        conn.send(out)
+    except BaseException as e:          # the parent reports it and fails
+        conn.send(dict(error=repr(e)))
+    finally:
+        conn.close()
+
+
+def host_search_child(hs, index, qs, nbrs, conn) -> None:
+    """A forked process's work: for each query of ``qs``, the host
+    ``route_to_leaf`` leaf, ``approximate_search`` and ``extended_search``
+    at each of ``nbrs`` (ED, k = K) on ``index``, sent through ``conn`` with
+    their seconds (or the error they raised)."""
+    try:
+        t = time.perf_counter()
+        out = []
+        for q in qs:
+            paa, sax = hs._encode_query(index, q)
+            out.append((hs.route_to_leaf(index, paa, sax).leaf_id,
+                        hs.approximate_search(index, q, K)[:2],
+                        {nbr: hs.extended_search(index, q, K, nbr)[:2]
+                         for nbr in nbrs}))
+        # lint: allow-timing: host numpy searches alone
+        conn.send(dict(results=out, s=time.perf_counter() - t))
+    except BaseException as e:          # the parent reports it and fails
+        conn.send(dict(error=repr(e)))
+    finally:
+        conn.close()
+
+
+def start_forked(target, *args) -> tuple:
+    """``target(*args, conn)`` in a forked process (host numpy work beside
+    this process's device work), its result read by a thread here as soon
+    as it is sent (a large one takes seconds through the pipe):
+    ``(process, reader thread, {"got": result})``.  Both are daemons, so a
+    failing run stops them; ``finish_forked`` waits for the result."""
+    ctx = multiprocessing.get_context("fork")
+    recv, send = ctx.Pipe(duplex=False)
+    child = ctx.Process(target=target, args=args + (send,), daemon=True)
+    child.start()
+    send.close()
+    box: dict = {}
+
+    def read() -> None:
+        try:
+            box["got"] = recv.recv()
+        except EOFError:              # the process died without a word
+            box["got"] = dict(error="no result (the process ended)")
+
+    reader = threading.Thread(target=read, daemon=True)
+    reader.start()
+    return child, reader, box
+
+
+def finish_forked(started: tuple, what: str) -> tuple[dict, float]:
+    """The result of a ``start_forked``, and the seconds waited for it;
+    fails the run where the process raised or sent nothing in time.  The
+    process is left to exit; the caller joins it when it is done."""
+    child, reader, box = started
+    t = time.perf_counter()
+    reader.join(SKEW_CHILD_TIMEOUT_S)
+    # lint: allow-timing: a wait on another process's result, no device work
+    wait_s = time.perf_counter() - t
+    if "got" not in box:
+        child.terminate()
+        fail(f"{what}: the forked process sent nothing in "
+             f"{SKEW_CHILD_TIMEOUT_S} s")
+    if "error" in box["got"]:
+        fail(f"{what}: the forked process raised {box['got']['error']}")
+    return box["got"], wait_s
+
+
+def skew_fuzzy_phase(torch, np, sd, hs, ops, ref, mods, DumpyIndex, params,
+                     qs, n_series: int, rand: dict | None, floor, smi,
+                     device: str = "cuda") -> tuple[dict, dict]:
+    """Phase 18: Dumpy and Dumpy-Fuzzy on the skewed collection, parts
+    (a)–(g), each printed with its seconds.  ``params`` is phase 3's
+    ``DumpyParams``; ``rand`` holds phases 5 and 7's figures to print
+    beside these (``None`` where they did not run).  Every check fails the
+    run on a miss.  Returns ``(summary, {kernel: lb_paa_interval's new
+    shapes})``; the caller frees nothing: every layout dies with this
+    frame."""
+    import dataclasses
+    import tracemalloc
+    from types import SimpleNamespace
+    from repro_torch.core import build_device, fuzzy
+    from repro_torch.core.lb import dtw_np
+    from repro_torch.data import series
+    cuda = device == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def peak_reset():
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+
+    def peak():
+        return torch.cuda.max_memory_allocated() if cuda else None
+
+    out = {}
+    for m in mods.values():
+        m.launches = 0
+
+    # -- (a) the collection --------------------------------------------------
+    t1 = time.perf_counter()
+    tracemalloc.start()
+    db = series.clustered_series(n_series, LENGTH, n_clusters=SKEW_CLUSTERS,
+                                 seed=SKEW_SEED)
+    host_peak = tracemalloc.get_traced_memory()[1]
+    tracemalloc.stop()
+    gen_s = time.perf_counter() - t1
+    sizes = np.bincount(series.cluster_assignment(
+        n_series, SKEW_CLUSTERS, SKEW_SEED), minlength=SKEW_CLUSTERS)
+    if not np.isfinite(db).all() or db.shape != (n_series, LENGTH):
+        fail(f"clustered_series gave {db.shape}, or a non-finite value")
+    out["data"] = dict(gen_s=gen_s, host_peak_bytes=host_peak,
+                       largest_cluster_share=float(sizes.max() / n_series),
+                       clusters_nonempty=int((sizes > 0).sum()))
+    print(f"  (a) clustered_series({n_series}, {LENGTH}, n_clusters="
+          f"{SKEW_CLUSTERS}, seed={SKEW_SEED}) in {gen_s:.3f} s, peak "
+          f"{host_peak} host bytes (tracemalloc; the result alone "
+          f"{db.nbytes}); the largest cluster holds "
+          f"{sizes.max() / n_series:.7f} of the rows, "
+          f"{int((sizes > 0).sum())} of {SKEW_CLUSTERS} clusters non-empty")
+
+    # -- (b) builds ----------------------------------------------------------
+    t1 = time.perf_counter()
+    p_fz = dataclasses.replace(params, fuzzy_f=SKEW_FUZZY_F,
+                               max_replica=SKEW_MAX_REPLICA)
+    builds = {}
+    # the host builds (Dumpy-Fuzzy's, sending the digests of its layout,
+    # and plain Dumpy's, sending the index) run in forked processes while
+    # this one builds Dumpy-Fuzzy on the device
+    fz_host = start_forked(host_build_child, DumpyIndex, db, p_fz, False)
+    pl_host = start_forked(host_build_child, DumpyIndex, db, params, True)
+    with timed_calls(sync, (fuzzy, "fuzzy_duplicates"),
+                     (build_device, "_encode"),
+                     (build_device, "_lexsort_words")) as tc:
+        sync()
+        t2 = time.perf_counter()
+        fz = DumpyIndex.build(db, p_fz, backend="device", device=device)
+        sync()
+        dev_s = time.perf_counter() - t2
+    split_s = dict(tc.s)
+    t2 = time.perf_counter()
+    want = layout_digest(np, fz)
+    digest_s = time.perf_counter() - t2
+    got, wait_s = finish_forked(fz_host, "Dumpy-Fuzzy's host build")
+    for key, value in want.items():
+        if got["digest"][key] != value:
+            fail(f"Dumpy-Fuzzy: the backends' layouts differ in {key}")
+    print(f"  (b) Dumpy-Fuzzy (fuzzy_f {SKEW_FUZZY_F}, max_replica "
+          f"{SKEW_MAX_REPLICA}): host build {got['build_s']:.3f} s in a "
+          f"forked process (fuzzy step {got['fuzzy_s']:.3f} s), device build "
+          f"{dev_s:.3f} s beside it (encode {split_s['_encode']:.3f} s, word "
+          f"sort {split_s['_lexsort_words']:.3f} s, fuzzy step "
+          f"{split_s['fuzzy_duplicates']:.3f} s), digests {digest_s:.3f} s, "
+          f"then {wait_s:.3f} s waiting for the host build: the SHA-256 of "
+          f"the tree JSON, flat.order, flat.leaf_offsets, the leaf symbols, "
+          f"every routing array and the stats (n_duplicates "
+          f"{want['stats']['n_duplicates']}) equal between the backends")
+    builds["fuzzy"] = dict(host_build_s=got["build_s"],
+                           host_fuzzy_s=got["fuzzy_s"],
+                           device_build_s=dev_s,
+                           device_encode_s=split_s["_encode"],
+                           device_sort_s=split_s["_lexsort_words"],
+                           device_fuzzy_s=split_s["fuzzy_duplicates"],
+                           digest_s=digest_s, wait_s=wait_s)
+    got, wait_s = finish_forked(pl_host, "Dumpy's host build")
+    root, flat, paa, sax, stats = got["parts"]
+    pl = DumpyIndex(params, root, flat, db, paa, sax, stats)
+    builds["plain"] = dict(host_build_s=got["build_s"], wait_s=wait_s)
+    print(f"  (b) Dumpy: host build {got['build_s']:.3f} s in a forked "
+          f"process, then {wait_s:.3f} s waiting for it")
+    layouts = {"plain": pl, "fuzzy": fz}
+    devs = {}
+    for label, ix in layouts.items():
+        t2 = time.perf_counter()
+        dv = devs[label] = ix.device_index(chunk=CHUNK, device=device)
+        sync()
+        up_s = time.perf_counter() - t2
+        size = np.diff(ix.flat.leaf_offsets)
+        st = ix.stats
+        row = dict(leaves=ix.flat.n_leaves, height=st.height,
+                   nodes=ix.routing_flat.n_nodes,
+                   fill_factor=st.fill_factor, leaf_max=int(size.max()),
+                   leaf_p99=float(np.percentile(size, 99)),
+                   leaf_median=float(np.median(size)),
+                   n_duplicates=st.n_duplicates,
+                   total_rows=int(len(ix.flat.order)), lmax=dv.lmax,
+                   layout_bytes=layout_bytes(torch, dv), upload_s=up_s)
+        builds[label].update(row)
+        built_s = builds[label].get("device_build_s",
+                                    builds[label]["host_build_s"])
+        print(f"  (b) {label}: {row['leaves']} leaves, height {st.height}, "
+              f"{row['nodes']} nodes, fill factor {st.fill_factor:.7f}; "
+              f"leaf size max {row['leaf_max']}, p99 {row['leaf_p99']:.1f}, "
+              f"median {row['leaf_median']:.1f}; n_duplicates "
+              f"{st.n_duplicates}, total rows {row['total_rows']}; lmax "
+              f"{dv.lmax}; layout {row['layout_bytes']} bytes on the "
+              f"{device} ({up_s:.3f} s to place); build "
+              f"{built_s:.3f} s")
+        if dv.has_duplicates != (label == "fuzzy"):
+            fail(f"{label}: has_duplicates is {dv.has_duplicates}")
+    out["builds"] = builds
+    print(f"  (b) {time.perf_counter() - t1:.3f} s")
+
+    # the host searches that (d) holds the card's against run in a forked
+    # process while (c) runs on the card
+    ed_b = [qs[i:i + BATCH] for i in range(0, SKEW_ED_QUERIES, BATCH)]
+    host_search = start_forked(host_search_child, hs, fz, ed_b[0], NBRS)
+
+    # the collection itself, for the float64 checks: row i is id i
+    x = torch.from_numpy(db).to(device)
+    coll = SimpleNamespace(
+        db=[x], ids=[torch.arange(n_series, dtype=torch.int32,
+                                  device=device)],
+        alive=[torch.ones(n_series, dtype=torch.bool, device=device)])
+
+    # -- (c) exact ED and DTW on both layouts --------------------------------
+    t1 = time.perf_counter()
+    dtw_b = ed_b[0]
+    exact, figures = {}, {}
+    for label, ix in layouts.items():
+        for metric, bs in (("ED", ed_b), ("DTW", [dtw_b])):
+            kw = {} if metric == "ED" else dict(metric="dtw", band=BAND)
+            peak_reset()
+            sync()
+            t2 = time.perf_counter()
+            res = [sd.exact_search_device_batch(ix, qb, K, chunk=CHUNK,
+                                                return_stats=True,
+                                                device=device, **kw)
+                   for qb in bs]
+            el = time.perf_counter() - t2
+            exact[(label, metric)] = [(r[0], r[1]) for r in res]
+            vis = np.concatenate([r[2] for r in res])
+            figures[(label, metric)] = dict(
+                qps=len(bs) * BATCH / el, visited=float(vis.mean()),
+                host_syncs=sum(r[3]["host_syncs"] for r in res),
+                peak_bytes=peak(), s=el,
+                counters={c: sum(r[3][c] for r in res) for c in res[0][3]
+                          if c != "host_syncs" and metric == "DTW"})
+    search_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    tied = 0
+    for bi_, qb in enumerate(ed_b):
+        bd, bi = brute_force(torch, coll, torch.from_numpy(qb).to(device), K)
+        bd, bi = bd.cpu().numpy(), bi.cpu().numpy()
+        for label in layouts:
+            ids, d = exact[(label, "ED")][bi_]
+            tied += check_exact(
+                np, ids, d, bd, bi,
+                lambda qi, i, qb=qb: np.sqrt(((db[i].astype(np.float64)
+                                               - qb[qi].astype(np.float64))
+                                              ** 2).sum()), K)
+        ok, gap = ties_only(np, *exact[("fuzzy", "ED")][bi_],
+                            *exact[("plain", "ED")][bi_])
+        if not ok:
+            fail(f"exact ED batch {bi_}: Dumpy-Fuzzy differs from Dumpy "
+                 f"beyond ties (max rel {gap:.3e})")
+    ids_f, d_f = exact[("fuzzy", "DTW")][0]
+    bd, bi, dp_rows = dtw_float64_check(
+        torch, coll, torch.from_numpy(dtw_b).to(device), d_f, BAND, K)
+    bd, bi = bd.cpu().numpy(), bi.cpu().numpy()
+    for label in layouts:
+        tied += check_exact(np, *exact[(label, "DTW")][0], bd, bi,
+                            lambda qi, i: dtw_np(dtw_b[qi], db[i], BAND), K)
+    ok, gap = ties_only(np, ids_f, d_f, *exact[("plain", "DTW")][0])
+    if not ok:
+        fail(f"exact DTW: Dumpy-Fuzzy differs from Dumpy beyond ties (max "
+             f"rel {gap:.3e})")
+    for (label, metric), fg in figures.items():
+        r = (rand or {}).get(metric)
+        unit = "spans" if metric == "ED" else "gather chunks"
+        print(f"  (c) exact {metric} on {label}: "
+              f"{fg['qps']:.2f} qps, mean {unit} "
+              f"visited {fg['visited']:.2f}, host syncs {fg['host_syncs']}, "
+              f"peak {fg['peak_bytes']} bytes"
+              + (f", cascade {fg['counters']}" if fg["counters"] else "")
+              + (f" (Rand, phase {5 if metric == 'ED' else 7}: "
+                 f"{r['qps']:.2f} qps, peak {r['peak_bytes']} bytes)"
+                 if r else "") + f" [{smi}]")
+    print(f"  (c) every exact batch (ED: {SKEW_ED_QUERIES} queries, DTW: "
+          f"{BATCH}, band {BAND}, order cluster) of both layouts equal to "
+          f"the float64 check over the collection (DTW's DP on {dp_rows} "
+          f"(query, row) pairs), no repeated id, Dumpy-Fuzzy equal to Dumpy "
+          f"up to ties; tied positions {tied}; searches {search_s:.3f} s, "
+          f"checks {time.perf_counter() - t1:.3f} s")
+    out["exact"] = {f"{m} {lb}": fg for (lb, m), fg in figures.items()}
+
+    # -- (d) approximate and extended ----------------------------------------
+    t1 = time.perf_counter()
+    configs = ([("ED", "approximate", nbr) for nbr in NBRS]
+               + [("ED", "extended", nbr) for nbr in NBRS]
+               + [("DTW", "extended", SKEW_DTW_NBR)])
+    runs, paths = {}, []
+    for label, ix in layouts.items():
+        for metric, path, nbr in configs:
+            bs = ed_b if metric == "ED" else [dtw_b]
+            kw = dict(nbr=nbr) if metric == "ED" else dict(
+                nbr=nbr, metric="dtw", band=BAND)
+            fn = (sd.approximate_search_device_batch if path == "approximate"
+                  else sd.extended_search_device_batch)
+            sync()
+            t2 = time.perf_counter()
+            res = [fn(ix, qb, K, device=device, **kw) for qb in bs]
+            sync()
+            ms = (time.perf_counter() - t2) * 1e3 / len(bs)
+            runs[(label, metric, path, nbr)] = res
+            truth = [r for r in exact[(label, metric)]]
+            rec = float(np.mean([
+                hs.average_precision(row, ex_row)
+                for (ids, _, _), (ex_ids, _) in zip(res, truth)
+                for row, ex_row in zip(ids, ex_ids)]))
+            paths.append(dict(layout=label, metric=metric, path=path,
+                              nbr=nbr, ms_a_batch=ms, recall=rec))
+    for metric, path, nbr in configs:
+        row = {x["layout"]: x for x in paths
+               if (x["metric"], x["path"], x["nbr"]) == (metric, path, nbr)}
+        print(f"  (d) {metric} {path} nbr={nbr}: recall@{K} (average "
+              f"precision against (c)) Dumpy {row['plain']['recall']:.7f}, "
+              f"Dumpy-Fuzzy {row['fuzzy']['recall']:.7f} (gain "
+              f"{row['fuzzy']['recall'] - row['plain']['recall']:+.7f}); ms a "
+              f"batch {row['plain']['ms_a_batch']:.3f} / "
+              f"{row['fuzzy']['ms_a_batch']:.3f} [{smi}]")
+    search_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    dv = devs["fuzzy"]
+    # approximate nbr=1: the host route_to_leaf's leaf and the host
+    # approximate_search's answer (each sums in its own order: ties at
+    # rtol 1e-5); extended ED (re-ranked): bitwise the host extended_search
+    got, host_wait_s = finish_forked(host_search, "the host searches")
+    for i, (leaf, (h_ids, h_d), ext) in enumerate(got["results"]):
+        ids, d, leaves = runs[("fuzzy", "ED", "approximate", 1)][0]
+        if leaf != leaves[i, 0]:
+            fail(f"Dumpy-Fuzzy approximate nbr=1 query {i}: leaf "
+                 f"{leaves[i, 0]} is not the host route_to_leaf's")
+        m = len(h_ids)
+        ok, gap = ties_only(np, ids[i:i + 1, :m], d[i:i + 1, :m],
+                            h_ids[None], h_d[None])
+        if not ok or (ids[i, m:] != -1).any():
+            fail(f"Dumpy-Fuzzy approximate nbr=1 query {i} differs from the "
+                 f"host approximate_search (max rel {gap:.3e})")
+        for nbr in NBRS:
+            e_ids, e_d, _ = runs[("fuzzy", "ED", "extended", nbr)][0]
+            h_ids, h_d = ext[nbr]
+            m = len(h_ids)
+            if not (np.array_equal(e_ids[i, :m], h_ids)
+                    and np.array_equal(e_d[i, :m], h_d)
+                    and (e_ids[i, m:] == -1).all()):
+                fail(f"Dumpy-Fuzzy extended ED nbr={nbr} query {i} differs "
+                     f"from the host extended_search")
+    host_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    # every result: the float64 top-k over its scheduled leaves, each id once
+    tied = 0
+    for (label, metric, path, nbr), res in runs.items():
+        if label != "fuzzy":
+            continue
+        bs = ed_b if metric == "ED" else [dtw_b]
+        for qb, (ids, d, leaves) in zip(bs, res):
+            q32 = torch.from_numpy(qb).to(device)
+            rows_of = schedule_rows(torch, np, dv, leaves)
+            if metric == "ED":
+                bd, bi = brute_force(torch, dv, q32, K, rows_of)
+                dist = (lambda qi, i, qb=qb: np.sqrt(
+                    ((db[i].astype(np.float64)
+                      - qb[qi].astype(np.float64)) ** 2).sum()))
+            else:
+                bd, bi, _ = dtw_float64_check(torch, dv, q32, d, BAND, K,
+                                              rows_of)
+                dist = lambda qi, i, qb=qb: dtw_np(qb[qi], db[i], BAND)
+            tied += check_exact(np, ids, d, bd.cpu().numpy(),
+                                bi.cpu().numpy(), dist, K)
+    print(f"  (d) Dumpy-Fuzzy: approximate nbr=1 on the host route_to_leaf's "
+          f"leaf and equal to the host approximate_search up to ties, "
+          f"extended ED (re-ranked) bitwise the host extended_search at nbr "
+          f"{NBRS} ({BATCH} queries); every configuration equal to the "
+          f"float64 top-{K} over its scheduled leaves, each id once (tied "
+          f"positions {tied}); searches {search_s:.3f} s, the host's "
+          f"searches {got['s']:.3f} s in a forked process beside (c) "
+          f"({host_wait_s:.3f} s waited for, {host_s:.3f} s with the "
+          f"comparisons), float64 checks {time.perf_counter() - t1:.3f} s")
+    out["paths"] = paths
+
+    # -- (e) one 64-lane bucket, 25% DTW, one dead lane ----------------------
+    t1 = time.perf_counter()
+    out["bucket"] = bucket_parity(torch, np, sd, dtw_np, fz, dv, db, qs,
+                                  ladder=(SERVE_LADDER[-1],))
+    print(f"  (e) ({time.perf_counter() - t1:.3f} s)")
+
+    # -- (f) tombstones: every replica of a deleted id dies ------------------
+    t1 = time.perf_counter()
+    ids_rows = dv.ids[0].cpu().numpy()
+    copies = np.bincount(ids_rows[ids_rows >= 0], minlength=n_series)
+    n_del = min(SKEW_TOMBSTONES, n_series // 4)
+    top = np.unique(exact[("fuzzy", "ED")][0][0])
+    top = top[top >= 0]
+    rng = np.random.default_rng(SKEW_SEED)
+    pool = np.setdiff1d(np.flatnonzero(copies > 1), top)
+    victims = np.concatenate([top, rng.permutation(pool)])[:n_del]
+    if len(victims) < n_del:
+        rest = np.setdiff1d(np.arange(n_series), victims)
+        victims = np.concatenate([victims, rng.permutation(rest)])[:n_del]
+    for v in victims:
+        fz.delete(int(v))
+    dv_t = fz.device_index(chunk=CHUNK, device=device)
+    hit = torch.isin(dv_t.ids[0], torch.from_numpy(victims).to(
+        dv_t.ids[0].device, torch.int32))
+    if (dv_t.alive[0] & hit).any():
+        fail("a replica of a deleted id is still alive in the DeviceIndex")
+    ids, d, _ = sd.exact_search_device_batch(fz, ed_b[0], K, chunk=CHUNK,
+                                             device=device)
+    if np.isin(ids, victims).any():
+        fail("exact ED after delete returned a deleted id")
+    live = torch.ones(n_series, dtype=torch.bool, device=device)
+    live[torch.from_numpy(victims).to(device)] = False
+    bd, bi = brute_force(torch, coll, torch.from_numpy(ed_b[0]).to(device),
+                         K, live=live)
+    tied = check_exact(np, ids, d, bd.cpu().numpy(), bi.cpu().numpy(),
+                       lambda qi, i: np.sqrt(((db[i].astype(np.float64)
+                                               - ed_b[0][qi].astype(
+                                                   np.float64)) ** 2).sum()),
+                       K)
+    out["tombstones"] = dict(deleted=int(n_del),
+                             rows_killed=int(hit.sum()),
+                             replicated=int((copies[victims] > 1).sum()),
+                             answers_deleted=int(len(top)))
+    print(f"  (f) {n_del} ids deleted ({out['tombstones']['replicated']} of "
+          f"them replicated, {len(top)} from batch 0's answers): "
+          f"{int(hit.sum())} rows dead in the DeviceIndex, none alive; exact "
+          f"ED batch 0 returns none of them and equals the float64 brute "
+          f"force over the live rows (tied {tied}) "
+          f"({time.perf_counter() - t1:.3f} s)")
+
+    # -- (g) the kernels -----------------------------------------------------
+    launches = {name: m.launches for name, m in mods.items()}
+    out["launches"] = launches
+    print(f"  (g) launches in phase 18: {launches}")
+    if cuda:
+        for name, n_l in launches.items():
+            if n_l <= 0:
+                fail(f"kernel {name} was not launched in phase 18")
+    new_shapes = []
+    if cuda:
+        paa, _ = ops.sax_encode(torch.from_numpy(ed_b[0]).to(device), dv.w,
+                                params.sax.b)
+        w = dv.w
+        for label, lo, hi in (("leaf table", dv.leaf_lo_g, dv.leaf_hi_g),
+                              ("routing edges", dv.rt_lo, dv.rt_hi)):
+            a = (paa, paa, lo, hi, LENGTH)
+            lbpaa_bitwise(torch, ops, ref, a, f"Dumpy-Fuzzy {label}")
+            ms, host = time_ms(torch, ops.lb_paa_interval, [a] * 20)
+            plain, _ = time_ms(torch, ref.lb_paa_interval_ref, [a] * 20)
+            Q, L = paa.shape[0], lo.shape[0]
+            b_ms, b_by = bound(4 * (2 * Q * w + 2 * L * w + Q * L),
+                               7 * Q * L * w + Q * L)
+            new_shapes.append(dict(shape=[Q, L, w],
+                                   path=f"Dumpy-Fuzzy {label} (18)", ms=ms,
+                                   plain_ms=plain, bound_ms=b_ms,
+                                   bound_by=b_by, library_ms=None))
+            print(f"  (g) lb_paa_interval at the Dumpy-Fuzzy {label} "
+                  f"[{Q},{L},{w}]: bitwise equal to the in-order sum; kernel "
+                  f"{ms:.5f} ms (host {host:.4f} ms a call; launch floor "
+                  f"{floor:.5f} ms), twin {plain:.5f} ms, bound {b_ms:.6f} ms "
+                  f"({b_by}) [{smi}]")
+    for child, _, _ in (fz_host, pl_host, host_search):
+        child.join(60)
+    return out, {"lb_paa_interval": new_shapes}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n-series", type=int, default=4_000_000,
@@ -4530,8 +5183,10 @@ def main() -> None:
                     help="run phases 1, 15 (c) and (d) and 17 alone (prints "
                          "no ok line)")
     ap.add_argument("--search-only", action="store_true",
-                    help="run phases 1-13 and 16 (b)'s exact cells, the "
-                         "search slice, alone (prints no ok line)")
+                    help="run phases 1-13, 16 (b)'s exact cells and 18, "
+                         "the search slice, alone (prints no ok line)")
+    ap.add_argument("--skew-only", action="store_true",
+                    help="run phases 1, 2 and 18 alone (prints no ok line)")
     args = ap.parse_args()
 
     # phase 15 (c) compares two training runs under deterministic
@@ -4630,6 +5285,17 @@ def main() -> None:
             print(f"  {src[:-3]} ptxas: {line}")
     print(f"  library {so.relative_to(ROOT)}")
     phase("build kernels", t0)
+    params = DumpyParams(sax=SaxParams(w=16, b=8),
+                         split=SplitParams(th=10_000))
+    if args.skew_only:
+        t0 = time.perf_counter()
+        skew, _ = skew_fuzzy_phase(
+            torch, np, search_device, search, ops, ref, mods, DumpyIndex,
+            params, query_workload(N_QUERIES, LENGTH), args.n_series, None,
+            launch_floor(torch, n_iter=50), smi)
+        print(json.dumps({"skew_fuzzy": skew}))
+        phase("skewed collection and Dumpy-Fuzzy", t0)
+        return
 
     # ---- 3. data and index -------------------------------------------------
     t0 = time.perf_counter()
@@ -4638,8 +5304,6 @@ def main() -> None:
     print(f"  data: {db.shape[0]} x {db.shape[1]} float32, {N_QUERIES} "
           f"held-out queries ({time.perf_counter() - t0:.3f} s)")
     t1 = time.perf_counter()
-    params = DumpyParams(sax=SaxParams(w=16, b=8),
-                         split=SplitParams(th=10_000))
     index = DumpyIndex.build(db, params)
     host_build_s = time.perf_counter() - t1
     print(f"  host build: {index.flat.n_leaves} leaves, height "
@@ -4694,6 +5358,7 @@ def main() -> None:
           f"span run")
     print(f"  launches on the main path: {launches}")
     print(f"  torch.cuda.max_memory_allocated: {peak} bytes")
+    rand = {"ED": dict(qps=N_QUERIES / elapsed, peak_bytes=peak)}
     for name in ed_kernels:
         if launches[name] <= 0:
             fail(f"kernel {name} was not launched on the ED main path")
@@ -4754,42 +5419,48 @@ def main() -> None:
     print(f"  cascade counters (both batches): {total}")
     print(f"  launches on the DTW path: {dtw_launches}")
     print(f"  torch.cuda.max_memory_allocated: {peak} bytes")
+    rand["DTW"] = dict(qps=N_DTW / elapsed, peak_bytes=peak)
     for name in ("lb_keogh", "lb_improved", "dtw_band"):
         if dtw_launches[name] <= 0:
             fail(f"kernel {name} was not launched on the DTW main path")
 
     t1 = time.perf_counter()
     tied, dp_rows = 0, 0
-    for qb, (ids, d, _) in zip(dtw_batches, dtw_results):
+    for qb, (ids, d, _) in zip(dtw_batches[:1], dtw_results[:1]):
         bd, bi, n_rows = dtw_float64_check(
             torch, dev, torch.from_numpy(qb).cuda(), d, BAND, K)
         dp_rows += n_rows
         tied += check_exact(
             np, ids, d, bd.cpu().numpy(), bi.cpu().numpy(),
             lambda qi, i: dtw_np(qb[qi], db[i], BAND), K)
-    print(f"  all {N_DTW} DTW top-{K} agree with the independent float64 "
-          f"check (tied positions {tied}; its DP ran on {dp_rows} "
+    print(f"  batch 0's {BATCH} DTW top-{K} agree with the independent "
+          f"float64 check (tied positions {tied}; its DP ran on {dp_rows} "
           f"(query, row) pairs) ({time.perf_counter() - t1:.3f} s)")
 
-    for label, kw in (("order=perq", dict(order="perq")),
-                      ("order=shared", dict(order="shared")),
-                      ("n_shards=4", dict(n_shards=4))):
+    # each query's exact answer is its own, so a rerun of the batch's
+    # first queries holds them against the whole batch's rows
+    for label, kw, nq in (("order=perq", dict(order="perq"), BATCH),
+                          ("order=shared", dict(order="shared"),
+                           DTW_SHARED_QUERIES),
+                          ("n_shards=4", dict(n_shards=4), BATCH)):
         t1 = time.perf_counter()
         ids_o, d_o, _ = exact_search_device_batch(
-            index, dtw_batches[0], K, chunk=CHUNK, metric="dtw", band=BAND,
-            **kw)
-        if not (np.array_equal(ids_o, dtw_results[0][0])
-                and np.array_equal(d_o, dtw_results[0][1])):
+            index, dtw_batches[0][:nq], K, chunk=CHUNK, metric="dtw",
+            band=BAND, **kw)
+        if not (np.array_equal(ids_o, dtw_results[0][0][:nq])
+                and np.array_equal(d_o, dtw_results[0][1][:nq])):
             fail(f"DTW {label} differs from order=cluster")
-        print(f"  DTW {label} rerun of batch 0 is bitwise equal to "
-              f"order=cluster ({time.perf_counter() - t1:.3f} s)")
+        print(f"  DTW {label} rerun of batch 0's first {nq} queries is "
+              f"bitwise equal to order=cluster "
+              f"({time.perf_counter() - t1:.3f} s)")
     if index._n_device_builds != builds:
         fail("the DTW phase built a second DeviceIndex layout")
     print(f"  no DeviceIndex built by the DTW phase (layouts cached: "
           f"{sorted(k[:2] for k in index._device_cache)})")
     t1 = time.perf_counter()
     calls = walk_calls(ops, search_device, index, dtw_batches[0])
-    walk = check_walk_dtw(torch, ops, dtw2_masked_gather, calls, clock_hz)
+    walk = check_walk_dtw(torch, ops, dtw2_masked_gather, calls, clock_hz,
+                          n_sample=WALK_SAMPLE)
     next(r for r in rows if r["name"] == "dtw_band").update(walk)
     print(f"  ({time.perf_counter() - t1:.3f} s)")
     phase("DTW main path", t0)
@@ -4858,10 +5529,28 @@ def main() -> None:
                              dtw_batches, analysis["main_path"],
                              args.n_series, smi)
     phase("dry run (b): exact cells", t0)
+
+    # ---- 18. the skewed collection and Dumpy-Fuzzy --------------------------
+    t0 = time.perf_counter()
+    print(f"  torch.cuda.memory_allocated before: "
+          f"{torch.cuda.memory_allocated()} bytes")
+    skew, skew_shapes = skew_fuzzy_phase(
+        torch, np, search_device, search, ops, ref, mods, DumpyIndex, params,
+        qs, args.n_series, rand, floor, smi)
+    new_shapes["lb_paa_interval"] += skew_shapes["lb_paa_interval"]
+    print(json.dumps({"skew_fuzzy": skew}))
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  torch.cuda.memory_allocated after: "
+          f"{torch.cuda.memory_allocated()} bytes (its layouts freed)")
+    phase("skewed collection and Dumpy-Fuzzy", t0)
     if args.search_only:
         return
 
     # ---- 14. the LM substrate ---------------------------------------------------
+    # phase 16's production cells count on the host in a child process from
+    # here on, beside phases 14 and 15
+    proc = dryrun_start(dry_dir)
     t0 = time.perf_counter()
     del index, dev
     torch.cuda.empty_cache()
@@ -4874,9 +5563,8 @@ def main() -> None:
     print(json.dumps({"lm_entry": lm_entry}))
     phase("LM entry points", t0)
 
-    # ---- 16. the dry run -----------------------------------------------------------
+    # ---- 16. the dry run (its child counting since phase 14) ----------------------
     t0 = time.perf_counter()
-    proc = dryrun_start(dry_dir)
     print(json.dumps({"dryrun": dryrun_phase(
         torch, np, rows, distributed, args.n_series, smi, proc, dry_dir,
         dry_exact)}))
@@ -4896,12 +5584,14 @@ def main() -> None:
                          else dtw_launches)[r["name"]]
         r["floor_ms"] = floor
         r["new_shapes"] = new_shapes.get(r["name"], [])
+        r["skew_fuzzy_launches"] = skew["launches"][r["name"]]
         # phase 15 (b): launches a decode step of OLMo-1B with the head
         r["lm_decode_launches_per_step"] = \
             lm_entry["b"]["head"]["launches_per_step"][r["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "floor_ms", "new_shapes", "lm_decode_launches_per_step")
+            "floor_ms", "new_shapes", "lm_decode_launches_per_step",
+            "skew_fuzzy_launches")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

@@ -120,9 +120,9 @@ def plan_node_grouped(words: np.ndarray, counts: np.ndarray, card: np.ndarray,
                       b: int) -> tuple[tuple[int, ...], int]:
     """Stage 3, optimized evaluator: the same objective from the node's
     (distinct SAX word, multiplicity) pairs.  Returns ``(csl, n_evals)``."""
-    bits = next_bits_np(words[:, avail], card[avail], b)
-    codes = pack_bits_np(bits)
-    seg_vars = weighted_segment_variances(words[:, avail], counts, b)
+    cols = words[:, avail]
+    codes = pack_bits_np(next_bits_np(cols, card[avail], b))
+    seg_vars = weighted_segment_variances(cols, counts, b)
     return plan_split(codes, counts, seg_vars, avail, c_n, split)
 
 

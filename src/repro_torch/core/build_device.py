@@ -166,27 +166,28 @@ def device_build(db: np.ndarray, params: DumpyParams | None = None, *,
             return []
 
         # -- Stage 3: adaptive split plan over grouped words ---------------
+        node_words = words[wsel]
+        extra_words = sax[extras].astype(np.int64) if len(extras) else None
         if is_root:
             csl = tuple(range(w)) if len(avail) == w else tuple(avail)
         else:
             if len(extras):
-                pw = np.concatenate([words[wsel],
-                                     sax[extras].astype(np.int64)])
+                pw = np.concatenate([node_words, extra_words])
                 pc = np.concatenate([wcount[wsel],
                                      np.ones(len(extras), np.int64)])
             else:
-                pw, pc = words[wsel], wcount[wsel]
+                pw, pc = node_words, wcount[wsel]
             csl, nev = plan_node_grouped(pw, pc, node.card, avail,
                                          int(pc.sum()), p.split, b)
             stats.plans_evaluated += nev
         node.csl = csl
         cl = list(csl)
 
-        wsids = pack_bits_np(next_bits_np(words[wsel][:, cl],
+        wsids = pack_bits_np(next_bits_np(node_words[:, cl],
                                           node.card[cl], b))
         wgroups = partition_by_sid(wsids)           # sid → idx into wsel
         if len(extras):
-            esids = pack_bits_np(next_bits_np(sax[extras][:, cl].astype(np.int64),
+            esids = pack_bits_np(next_bits_np(extra_words[:, cl],
                                               node.card[cl], b))
             egroups = partition_by_sid(esids)
         else:

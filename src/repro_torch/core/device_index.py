@@ -147,6 +147,12 @@ class DeviceIndex:
         return len(self.row_bounds) - 1
 
     @property
+    def n_live_shards(self) -> int:
+        if self.shard_health is None:
+            return self.n_shards
+        return sum(bool(h) for h in self.shard_health)
+
+    @property
     def shard_rows(self) -> int:
         rb = self.row_bounds
         return max(max(rb[s + 1] - rb[s] for s in range(self.n_shards)), 1)

@@ -71,6 +71,9 @@ class FlatLeaves:
     def n_leaves(self) -> int:
         return len(self.leaf_offsets) - 1
 
+    def leaf_slice(self, leaf_id: int) -> np.ndarray:
+        return self.order[self.leaf_offsets[leaf_id]:self.leaf_offsets[leaf_id + 1]]
+
 
 @dataclasses.dataclass
 class FlatRouting:
@@ -104,6 +107,10 @@ class FlatRouting:
     grp_lo: np.ndarray        # [G, w] float32 member region bounds (clamped)
     grp_hi: np.ndarray        # [G, w] float32
     depth: int                # max #descent steps to reach any leaf
+
+    @property
+    def n_nodes(self) -> int:
+        return len(self.node_lam)
 
     @property
     def gmax(self) -> int:

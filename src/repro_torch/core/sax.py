@@ -27,10 +27,15 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 from scipy.special import ndtri
+
+# sax_encode_np's chunks of a large collection, and the threads that encode
+# them
+ENCODE_ROWS, ENCODE_WORKERS = 1 << 16, 4
 
 
 @dataclasses.dataclass(frozen=True)
@@ -111,9 +116,31 @@ def sax_from_paa_np(paa: np.ndarray, b: int) -> np.ndarray:
 
 
 def sax_encode_np(x: np.ndarray, params: SaxParams) -> tuple[np.ndarray, np.ndarray]:
-    """Host encoder: returns ``(paa [..., w] float32, sax [..., w] uint8)``."""
-    p = paa_np(np.asarray(x, dtype=np.float64), params.w)
-    return p.astype(np.float32), sax_from_paa_np(p, params.b)
+    """Host encoder: ``x [N, n]`` → ``(paa [N, w] float32, sax [N, w]
+    uint8)``.
+
+    Encoded in chunks of ``ENCODE_ROWS`` rows, several chunks on
+    ``ENCODE_WORKERS`` threads: each row's float64 mean is its own, so the
+    chunks change no bit, and no float64 copy of the whole collection is
+    held."""
+    x = np.asarray(x)
+    paa = np.empty((x.shape[0], params.w), np.float32)
+    sax = np.empty((x.shape[0], params.w), np.uint8)
+
+    def encode(r0: int) -> None:
+        rows = slice(r0, r0 + ENCODE_ROWS)
+        p = paa_np(np.asarray(x[rows], dtype=np.float64), params.w)
+        paa[rows] = p
+        sax[rows] = sax_from_paa_np(p, params.b)
+
+    starts = range(0, x.shape[0], ENCODE_ROWS)
+    if len(starts) > 1:
+        with ThreadPoolExecutor(max_workers=ENCODE_WORKERS) as pool:
+            list(pool.map(encode, starts))
+    else:
+        for r0 in starts:
+            encode(r0)
+    return paa, sax
 
 
 def paa_t(x: torch.Tensor, w: int) -> torch.Tensor:

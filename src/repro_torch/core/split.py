@@ -97,9 +97,35 @@ def objective(child_sizes: np.ndarray, sum_var: float, lam: int,
     fill = child_sizes / th
     sigma_f = float(fill.std())
     o = float((child_sizes > th).mean())
+    return _score(sigma_f, o, sum_var, lam, alpha)
+
+
+def _score(sigma_f: float, o: float, sum_var: float, lam: int,
+           alpha: float) -> float:
+    """Eq. 1 from a plan's fill-factor deviation ``sigma_f`` and overflow
+    share ``o``."""
     proximity = math.exp(math.sqrt(max(sum_var, 0.0) / lam))
     compactness = alpha * math.exp(-(1.0 + o) * sigma_f)
     return proximity + compactness
+
+
+def _occupied(hist: np.ndarray, m: int) -> tuple[list, np.ndarray]:
+    """The occupied codes of an ``m``-bit histogram as per-bit columns
+    (MSB first) and their counts: what :func:`_fold` marginalizes."""
+    nz = np.flatnonzero(hist)
+    return [(nz >> (m - 1 - i)) & 1 for i in range(m)], hist[nz]
+
+
+def _fold(occ: tuple[list, np.ndarray], keep: tuple[int, ...],
+          dtype) -> np.ndarray:
+    """Child sizes of plan ``keep`` from :func:`_occupied`'s codes: the
+    counts are integers, so the sums are exact and equal a dense
+    reshape-and-sum's."""
+    bitcols, w = occ
+    sub = np.zeros(len(w), np.int64)
+    for pos in keep:
+        sub = (sub << 1) | bitcols[pos]
+    return np.bincount(sub, weights=w, minlength=1 << len(keep)).astype(dtype)
 
 
 def _marginalize(hist: np.ndarray, m: int, keep: tuple[int, ...]) -> np.ndarray:
@@ -107,10 +133,9 @@ def _marginalize(hist: np.ndarray, m: int, keep: tuple[int, ...]) -> np.ndarray:
 
     Axis 0 = MSB.  Sums over the dropped bit positions; returns ``2**len(keep)``.
     """
-    drop = tuple(i for i in range(m) if i not in keep)
-    if not drop:
+    if len(keep) == m:
         return hist
-    return hist.reshape((2,) * m).sum(axis=drop).reshape(-1)
+    return _fold(_occupied(hist, m), keep, hist.dtype)
 
 
 def choose_split_plan(base_hist: np.ndarray,
@@ -128,7 +153,11 @@ def choose_split_plan(base_hist: np.ndarray,
 
     Returns the chosen segment ids (a tuple, ascending).  The DFS evaluates
     each plan once (``visit`` memoization), deriving every child-size vector
-    from its parent plan's histogram rather than rescanning series.
+    from its parent plan's histogram rather than rescanning series.  Plans
+    are scored in batches of equal arity: a row's ``std`` and ``mean`` in a
+    stacked ``[plans, 2**lam]`` array are bitwise its own, and the batches
+    are read in visit order, so the first plan of the best score wins, as
+    with one :func:`objective` a plan.
     """
     m = len(candidate_segments)
     if m == 0:
@@ -143,15 +172,37 @@ def choose_split_plan(base_hist: np.ndarray,
     best_plan: tuple[int, ...] = (0,)
     evals = 0
 
+    pending: list[tuple[tuple[int, ...], np.ndarray]] = []
+    held = 0
+
+    def flush() -> None:
+        nonlocal best_score, best_plan, held
+        sigma = np.empty(len(pending))
+        over = np.empty(len(pending))
+        by_lam: dict[int, list[int]] = {}
+        for i, (keep, _) in enumerate(pending):
+            by_lam.setdefault(len(keep), []).append(i)
+        for rows in by_lam.values():
+            H = np.stack([pending[i][1] for i in rows])
+            sigma[rows] = (H / th).std(axis=1)
+            over[rows] = (H > th).mean(axis=1)
+        for (keep, _), sf, o in zip(pending, sigma, over):
+            score = _score(float(sf), float(o),
+                           float(seg_vars[list(keep)].sum()), len(keep),
+                           alpha)
+            if score > best_score:
+                best_score = score
+                best_plan = keep
+        pending.clear()
+        held = 0
+
     def consider(keep: tuple[int, ...], hist: np.ndarray) -> None:
-        nonlocal best_score, best_plan, evals
-        lam = len(keep)
-        sum_var = float(seg_vars[list(keep)].sum())
-        score = objective(hist, sum_var, lam, th, alpha)
+        nonlocal evals, held
         evals += 1
-        if score > best_score:
-            best_score = score
-            best_plan = keep
+        pending.append((keep, hist))
+        held += hist.size
+        if held >= 1 << 22:
+            flush()
 
     def dfs(keep: tuple[int, ...], hist: np.ndarray) -> None:
         """Recurse to sub-plans of size ``len(keep)-1`` by dropping one bit."""
@@ -169,16 +220,20 @@ def choose_split_plan(base_hist: np.ndarray,
             dfs(sub, sub_hist)
 
     # Top level: all lam_max-subsets, marginalized straight from the base
-    # histogram; then DFS downward reusing each parent's histogram.
+    # histogram's occupied codes; then DFS downward reusing each parent's
+    # histogram.
+    occ = _occupied(base_hist, m)
     for combo in itertools.combinations(range(m), lam_max):
         if evals > params.max_eval_plans:
             break
         if combo in visit:
             continue
         visit.add(combo)
-        hist = _marginalize(base_hist, m, combo)
+        hist = (base_hist if lam_max == m
+                else _fold(occ, combo, base_hist.dtype))
         consider(combo, hist)
         dfs(combo, hist)
+    flush()
 
     return tuple(sorted(candidate_segments[i] for i in best_plan))
 

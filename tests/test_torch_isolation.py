@@ -75,6 +75,10 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
         "    local_chunk, place_rows)\n"
         "from repro_torch.models.registry import ARCH_NAMES, get_config\n"
         "[get_config(n) for n in ARCH_NAMES]   # every config module\n"
+        "from repro_torch.data.series import (clustered_series,\n"
+        "    cluster_assignment)\n"
+        "x = clustered_series(300, 16, n_clusters=8)\n"
+        "assert x.shape == (300, 16) and len(cluster_assignment(300, 8)) == 300\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r}]\n"
         "assert not bad, bad\n"
