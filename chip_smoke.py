@@ -434,15 +434,19 @@ DRYRUN_SHAPES = ("train_4k", "decode_32k")
 DRYRUN_KINDS = ("build", "search", "search_sharded", "search_dtw",
                 "search_approx", "search_extended", "search_bucket",
                 "serving")
+# ... and two cells of the recurrent architectures, counted by a second
+# child at once: xLSTM's loops by trip, Griffin's scan
+DRYRUN_CELLS = ("xlstm-1.3b:train_4k", "recurrentgemma-9b:prefill_32k")
 DRYRUN_TIMEOUT_S, DRYRUN_STEPS = 300, 3
 OLMO_DECODE_HAND_BOUND_MS = 1.413
 # phase 18: the reference benchmark's skewed collection and its Dumpy-Fuzzy
 # (benchmarks/common.py: clustered_series(n, length, n_clusters=64, seed=1),
-# "dumpy-fuzzy" at fuzzy_f 0.1), max_replica 3; 128 ED queries (one batch
-# of them for DTW and the extended DTW path at nbr 4), 1 000 tombstones
+# "dumpy-fuzzy" at fuzzy_f 0.1), max_replica 3; 128 ED queries (the first
+# 32 of them for DTW and the extended DTW path at nbr 4), 1 000 tombstones
 SKEW_CLUSTERS, SKEW_SEED = 64, 1
 SKEW_FUZZY_F, SKEW_MAX_REPLICA = 0.1, 3
 SKEW_ED_QUERIES, SKEW_DTW_NBR, SKEW_TOMBSTONES = 128, 4, 1000
+SKEW_DTW_QUERIES = 32
 SKEW_CHILD_TIMEOUT_S = 400     # the forked host build's limit
 
 
@@ -4222,36 +4226,52 @@ def train_ranks_checks(np, shutil, lm_entry, smi, root, ckpt, gates,
     return out
 
 
-def dryrun_start(out_dir: Path, device: str = "cuda") -> subprocess.Popen:
+def dryrun_start(out_dir: Path, device: str = "cuda"
+                 ) -> list[subprocess.Popen]:
     """Phase 16 (a), started in the background: ``launch.dryrun`` on the
     16 x 16 production mesh (a fake process group of 256 ranks, fake CUDA
-    tensors) for OLMo-1B's train_4k and decode_32k and eight Dumpy
-    cells."""
+    tensors) for OLMo-1B's train_4k and decode_32k and eight Dumpy cells
+    in one child, ``DRYRUN_CELLS`` in another."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    return subprocess.Popen(
-        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-         "olmo-1b,dumpy", "--shape", ",".join(DRYRUN_SHAPES), "--kinds",
-         ",".join(DRYRUN_KINDS), "--mesh", "single", "--out", str(out_dir),
-         "--device", device],
-        env=env, cwd=str(ROOT), stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT, text=True)
+    common = ["--mesh", "single", "--out", str(out_dir), "--device", device]
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = []
+    # each child's output to its own file: two pipes read one after the
+    # other could fill and stall the child read second
+    for i, which in enumerate((
+            ["--arch", "olmo-1b,dumpy", "--shape", ",".join(DRYRUN_SHAPES),
+             "--kinds", ",".join(DRYRUN_KINDS)],
+            ["--cells", ",".join(DRYRUN_CELLS)])):
+        with open(out_dir / f"child{i}.log", "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun", *which,
+                 *common], env=env, cwd=str(ROOT), stdout=log,
+                stderr=subprocess.STDOUT))
+    return procs
 
 
-def dryrun_cells(proc: subprocess.Popen, out_dir: Path, smi) -> dict:
+def dryrun_cells(torch, procs: list, out_dir: Path, smi) -> dict:
     """Phase 16 (a), collected: every record without ``error`` or a skip,
     its bottleneck, step bound, GiB a device and loop trip counts
-    printed."""
-    try:
-        log, _ = proc.communicate(timeout=DRYRUN_TIMEOUT_S)
-    except subprocess.TimeoutExpired:
-        proc.kill()
-        proc.communicate()
-        fail(f"the dry run took over {DRYRUN_TIMEOUT_S} s")
-    if proc.returncode != 0:
-        fail(f"the dry run failed ({proc.returncode}): {log[-2000:]}")
+    printed; each LM cell's peak beside the card's memory, and none above
+    it."""
+    # lint: allow-timing: the children count on the host
+    deadline = time.perf_counter() + DRYRUN_TIMEOUT_S
+    for i, proc in enumerate(procs):
+        try:
+            proc.wait(timeout=max(1.0, deadline - time.perf_counter()))
+        except subprocess.TimeoutExpired:
+            for p in procs:
+                p.kill()
+                p.wait()
+            fail(f"the dry run took over {DRYRUN_TIMEOUT_S} s")
+        if proc.returncode != 0:
+            log = (out_dir / f"child{i}.log").read_text()
+            fail(f"the dry run failed ({proc.returncode}): {log[-2000:]}")
     out = {}
-    tags = [f"olmo-1b__{s}__pod_16x16" for s in DRYRUN_SHAPES] + \
-        [f"dumpy-{k}__pod_16x16" for k in DRYRUN_KINDS]
+    lm = [f"olmo-1b__{s}__pod_16x16" for s in DRYRUN_SHAPES] + \
+        [f"{c.replace(':', '__')}__pod_16x16" for c in DRYRUN_CELLS]
+    tags = lm + [f"dumpy-{k}__pod_16x16" for k in DRYRUN_KINDS]
     for tag in tags:
         path = out_dir / f"{tag}.json"
         if not path.exists():
@@ -4263,7 +4283,9 @@ def dryrun_cells(proc: subprocess.Popen, out_dir: Path, smi) -> dict:
         gib = rec["memory"]["peak_per_device"] / 2**30
         loops = rec["cost"]["loops"]
         out[tag] = dict(bottleneck=r["bottleneck"], step_s=r["step_s"],
-                        gib_per_device=gib, analyze_s=rec["compile_s"],
+                        gib_per_device=gib,
+                        peak_bytes=rec["memory"]["peak_per_device"],
+                        analyze_s=rec["compile_s"],
                         flops=rec["cost"]["flops_per_device"],
                         collective_bytes=rec["collectives"]["total_bytes"],
                         loops=loops)
@@ -4276,19 +4298,33 @@ def dryrun_cells(proc: subprocess.Popen, out_dir: Path, smi) -> dict:
     for kind in ("search_sharded", "search_dtw"):
         if not out[f"dumpy-{kind}__pod_16x16"]["loops"]:
             fail(f"dry run dumpy-{kind}: no loop counted by its trips")
+    if not out["xlstm-1.3b__train_4k__pod_16x16"]["loops"]:
+        fail("dry run xlstm-1.3b train_4k: no loop counted by its trips")
+    total = (torch.cuda.get_device_properties(0).total_memory
+             if torch.cuda.is_available() else None)
+    for tag in lm:
+        peak = out[tag]["peak_bytes"]
+        print(f"  (a) {tag}: peak {peak} B a device "
+              f"({out[tag]['gib_per_device']:.3f} GiB) against the card's "
+              f"total_memory {total} B")
+        if total is not None and peak > total:
+            fail(f"dry run {tag}: its peak {peak} B a device is over the "
+                 f"card's {total} B")
     print(f"  (a) bounds from data-sheet peaks at 700 W; card here: {smi}")
     return out
 
 
 def dryrun_one_device(torch, np, smi, device: str = "cuda") -> dict:
     """Phase 16 (b): the dry run on a 1 x 1 mesh against the card: the
-    ``100m`` train step at 8 x 512 and OLMo-1B's decode step at B 4 over a
-    64-position cache.  Each: the dry run's FLOPs equal ``FlopCounterMode``
-    over the real step, its peak beside ``max_memory_allocated`` over the
-    step, and the measured step no faster than the dry run's bound."""
+    ``100m`` train step at 8 x 512, OLMo-1B's decode step at B 4 over a
+    64-position cache, its prefill at phase 14 (b)'s 4 x 2048, and reduced
+    xLSTM's train step at 8 x 512 (its loops counted by trip, the backward
+    too).  Each: the dry run's FLOPs equal ``FlopCounterMode`` over the
+    real step, its peak beside ``max_memory_allocated`` over the step, and
+    the measured step no faster than the dry run's bound."""
     from torch.utils.flop_counter import FlopCounterMode
 
-    from repro_torch.configs.base import RunShape
+    from repro_torch.configs.base import RunShape, reduced
     from repro_torch.data.tokens import (TokenPipeline,
                                          TokenPipelineConfig)
     from repro_torch.distributed import op_cost, roofline, sharding
@@ -4335,7 +4371,11 @@ def dryrun_one_device(torch, np, smi, device: str = "cuda") -> dict:
             ("100m train", preset_config("olmo-1b", "100m"),
              RunShape("100m", TRAIN_S, TRAIN_B, "train")),
             ("olmo-1b decode", registry.get_config("olmo-1b"),
-             RunShape("serve", SERVE_P + SERVE_T, SERVE_B, "decode"))):
+             RunShape("serve", SERVE_P + SERVE_T, SERVE_B, "decode")),
+            ("olmo-1b prefill", registry.get_config("olmo-1b"),
+             RunShape("prefill", OLMO_S, OLMO_B, "prefill")),
+            ("xlstm reduced train", reduced(registry.get_config("xlstm-1.3b")),
+             RunShape("xlstm", TRAIN_S, TRAIN_B, "train"))):
         # lint: allow-timing: the dry run runs on the host (fake tensors)
         t1 = time.perf_counter()
         cost, rl = predicted(cfg, shape)
@@ -4356,6 +4396,14 @@ def dryrun_one_device(torch, np, smi, device: str = "cuda") -> dict:
 
             def run():
                 step(model, state, batch)
+        elif shape.kind == "prefill":
+            prefill = torch.no_grad()(registry.make_prefill_step(cfg))
+            tokens = torch.from_numpy(np.random.default_rng(0).integers(
+                0, cfg.vocab, (shape.global_batch, shape.seq_len),
+                dtype=np.int32)).to(device)
+
+            def run():
+                prefill(model, {"tokens": tokens})
         else:
             caches = tfm.init_cache(cfg, shape.global_batch, shape.seq_len,
                                     device)
@@ -4386,10 +4434,12 @@ def dryrun_one_device(torch, np, smi, device: str = "cuda") -> dict:
                    peak_ratio=cost.peak_bytes / peak if peak else None,
                    step_ms=ms, bound_ms=bound_ms,
                    bottleneck=rl.bottleneck, measured_over_bound=ms / bound_ms,
-                   dryrun_s=t_dry)
+                   dryrun_s=t_dry, loops=cost.loops)
         out[label] = row
         extra = (f", PERF.md's hand bound {OLMO_DECODE_HAND_BOUND_MS} ms"
                  if shape.kind == "decode" else "")
+        if cost.loops:
+            extra += f", loops counted by trip {cost.loops}"
         print(f"  (b) {label} [{shape.global_batch} x {shape.seq_len}] on a "
               f"1 x 1 mesh: FLOPs {cost.flops:.6e} (dry run) vs "
               f"{real_flops:.6e} (FlopCounterMode over the step on the "
@@ -4401,13 +4451,15 @@ def dryrun_one_device(torch, np, smi, device: str = "cuda") -> dict:
         if cost.flops != real_flops:
             fail(f"{label}: the dry run counts {cost.flops} FLOPs, the "
                  f"card's step {real_flops}")
+        if label.startswith("xlstm") and not cost.loops:
+            fail(f"{label}: the dry run counted no loop by its trips")
         if ms < bound_ms:
             fail(f"{label}: the step took {ms:.4f} ms, under its dry-run "
                  f"bound {bound_ms:.4f} ms")
         del model, run
         if shape.kind == "train":
             del state, step
-        else:
+        elif shape.kind == "decode":
             del caches
         if cuda:
             torch.cuda.empty_cache()
@@ -4599,10 +4651,10 @@ def dryrun_kernels(torch, rows, distributed, n_series: int, smi,
 
 
 def dryrun_phase(torch, np, rows, distributed, n_series: int, smi,
-                 proc: subprocess.Popen, out_dir: Path,
+                 proc: list, out_dir: Path,
                  exact: dict | None = None) -> dict:
     """Phase 16: the dry run, (b) and (c) while (a) runs in its own
-    process (killed if the phase fails first); ``exact`` is (b)'s exact
+    processes (killed if the phase fails first); ``exact`` is (b)'s exact
     cells, counted before phase 14 (:func:`dryrun_exact`)."""
     try:
         out = {"one_device": dryrun_one_device(torch, np, smi)}
@@ -4611,11 +4663,12 @@ def dryrun_phase(torch, np, rows, distributed, n_series: int, smi,
         if rows is not None:
             out["kernels"] = dryrun_kernels(torch, rows, distributed,
                                             n_series, smi)
-        out["cells"] = dryrun_cells(proc, out_dir, smi)
+        out["cells"] = dryrun_cells(torch, proc, out_dir, smi)
     finally:
-        if proc.poll() is None:
-            proc.kill()
-            proc.communicate()
+        for p in proc:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
     return out
 
 
@@ -4919,7 +4972,7 @@ def skew_fuzzy_phase(torch, np, sd, hs, ops, ref, mods, DumpyIndex, params,
 
     # -- (c) exact ED and DTW on both layouts --------------------------------
     t1 = time.perf_counter()
-    dtw_b = ed_b[0]
+    dtw_b = ed_b[0][:SKEW_DTW_QUERIES]
     exact, figures = {}, {}
     for label, ix in layouts.items():
         for metric, bs in (("ED", ed_b), ("DTW", [dtw_b])):
@@ -4935,7 +4988,7 @@ def skew_fuzzy_phase(torch, np, sd, hs, ops, ref, mods, DumpyIndex, params,
             exact[(label, metric)] = [(r[0], r[1]) for r in res]
             vis = np.concatenate([r[2] for r in res])
             figures[(label, metric)] = dict(
-                qps=len(bs) * BATCH / el, visited=float(vis.mean()),
+                qps=sum(map(len, bs)) / el, visited=float(vis.mean()),
                 host_syncs=sum(r[3]["host_syncs"] for r in res),
                 peak_bytes=peak(), s=el,
                 counters={c: sum(r[3][c] for r in res) for c in res[0][3]
@@ -4981,7 +5034,8 @@ def skew_fuzzy_phase(torch, np, sd, hs, ops, ref, mods, DumpyIndex, params,
                  f"{r['qps']:.2f} qps, peak {r['peak_bytes']} bytes)"
                  if r else "") + f" [{smi}]")
     print(f"  (c) every exact batch (ED: {SKEW_ED_QUERIES} queries, DTW: "
-          f"{BATCH}, band {BAND}, order cluster) of both layouts equal to "
+          f"{SKEW_DTW_QUERIES}, band {BAND}, order cluster) of both layouts "
+          f"equal to "
           f"the float64 check over the collection (DTW's DP on {dp_rows} "
           f"(query, row) pairs), no repeated id, Dumpy-Fuzzy equal to Dumpy "
           f"up to ties; tied positions {tied}; searches {search_s:.3f} s, "

@@ -39,7 +39,12 @@ Counting rules (:class:`OpCost`):
   ``alias_bytes`` (returned storages that are arguments: parameters and
   moments updated in place, a cache written in place), ``temp_bytes``, and
   ``peak_bytes = argument + output + temp - alias``, the most live at once,
-  as the reference's ``memory_analysis`` splits it;
+  as the reference's ``memory_analysis`` splits it.  Each tracked storage
+  keeps the aten op that made it (``"argument"`` for the program's own);
+  under ``analyze(..., sites=True)`` also the model code that ran the op
+  (or the autograd node, in the backward pass), and ``peak_sites`` holds
+  the live bytes at the peak grouped by the two, largest first (it is not
+  part of a record);
 * ``flops_global`` — the unscaled ``FlopCounterMode`` total: the same
   formulas over the DTensor-level ops at their global shapes (the
   counterpart of XLA's raw ``cost_analysis``);
@@ -49,6 +54,8 @@ Counting rules (:class:`OpCost`):
 from __future__ import annotations
 
 import dataclasses
+import os
+import sys
 import time
 import weakref
 from collections import Counter
@@ -130,6 +137,7 @@ class OpCost:
     loops: dict = dataclasses.field(default_factory=dict)
     n_ops: int = 0
     seconds: float = 0.0
+    peak_sites: list = dataclasses.field(default_factory=list)
 
     def add_flops(self, flops: float, dtype: str) -> None:
         self.flops += flops
@@ -201,6 +209,29 @@ def _storage_tensors(tree) -> list[torch.Tensor]:
     return out
 
 
+#: files whose frames do not name a site (the counting and placing code)
+_NOT_SITES = tuple(os.sep + os.path.join("repro_torch", *p) for p in (
+    ("distributed", "op_cost.py"), ("distributed", "sharding.py"),
+    ("analysis", "contracts.py")))
+_PKG = os.sep + "repro_torch" + os.sep
+
+
+def _site() -> str:
+    """The innermost ``repro_torch`` function running the current op
+    (``module.function``), prefixed by the autograd node in the backward
+    pass (a recomputed forward names its own function)."""
+    node = torch._C._current_autograd_node()
+    where = f"{node.name()} " if node is not None else ""
+    f = sys._getframe(2)
+    while f is not None:
+        fn = f.f_code.co_filename
+        if _PKG in fn and not fn.endswith(_NOT_SITES):
+            mod = fn.rsplit(_PKG, 1)[1][:-3].replace(os.sep, ".")
+            return f"{where}{mod}.{f.f_code.co_name}"
+        f = f.f_back
+    return where.strip() or "?"
+
+
 class _CostMode(TorchDispatchMode):
     def __init__(self, tracer: "_Tracer"):
         super().__init__()
@@ -222,38 +253,55 @@ class _Tracer(contracts.Census):
     also counts cost and live storage bytes; the kernels are swapped for
     their ``abstract`` functions."""
 
-    def __init__(self):
+    def __init__(self, sites: bool = False):
         super().__init__("cpu")
         self.cost = OpCost()
         self.suspend = 0
         self.live = 0
         self.peak = 0
-        self._storages: dict[int, tuple[weakref.finalize, int]] = {}
+        self.sites = sites
+        self.unroll = False
+        self._storages: dict[int, tuple[weakref.finalize, int, tuple]] = {}
+        self._site_live: Counter = Counter()
+        self._peak_sites: dict = {}
         self._args: set[int] = set()
         self._dtype_counts: Counter = Counter()
         self._spans: dict = {}
 
     # -- storage -------------------------------------------------------------
-    def _track(self, t: torch.Tensor) -> None:
+    def _track(self, t: torch.Tensor, op: str) -> None:
         st = t.untyped_storage()
         key = id(st)
         if key in self._storages:
             return
         n = st.nbytes()
+        site = (op, _site() if self.sites and op != "argument" else "")
         fin = weakref.finalize(st, self._free, key, n)
         fin.atexit = False
-        self._storages[key] = (fin, n)
+        self._storages[key] = (fin, n, site)
         self.live += n
+        if self.sites:
+            self._site_live[site] += n
+            if self.live > self.peak:
+                self._peak_sites = dict(self._site_live)
         self.peak = max(self.peak, self.live)
 
     def _free(self, key: int, n: int) -> None:
-        if self._storages.pop(key, None) is not None:
+        e = self._storages.pop(key, None)
+        if e is not None:
             self.live -= n
+            if self.sites:
+                self._site_live[e[2]] -= n
+
+    def peak_sites(self) -> list[dict]:
+        """The live bytes at the peak by (aten op, site), largest first."""
+        return [{"op": op, "site": site, "bytes": n} for (op, site), n in
+                sorted(self._peak_sites.items(), key=lambda e: -e[1]) if n]
 
     def add_arguments(self, tree) -> int:
         n0 = self.live
         for t in _storage_tensors(tree):
-            self._track(t)
+            self._track(t, "argument")
             self._args.add(id(t.untyped_storage()))
         return self.live - n0
 
@@ -270,7 +318,7 @@ class _Tracer(contracts.Census):
         return out, alias
 
     def release(self) -> None:
-        for fin, _ in self._storages.values():
+        for fin, _, _ in self._storages.values():
             fin.detach()
         self._storages.clear()
 
@@ -302,7 +350,7 @@ class _Tracer(contracts.Census):
                 if not any(t is i for i in ins)]
         for t in outs:
             self._dtype_counts[str(t.dtype).replace("torch.", "")] += 1
-            self._track(t)
+            self._track(t, base)
         from torch.utils.flop_counter import flop_registry
         fl = flop_registry.get(func._overloadpacket)
         if fl is not None:
@@ -377,7 +425,7 @@ class _Tracer(contracts.Census):
         e["flops"] += flops
         e["bytes"] += nbytes
         for t in _plain_tensors(outputs):
-            self._track(t)
+            self._track(t, name)
 
     # -- loops counted by trip count -----------------------------------------------
     def _work(self) -> Counter:
@@ -495,6 +543,27 @@ def scaled(name: str, trips: int, step: Callable, *args, **kwargs):
     return out
 
 
+def counting() -> bool:
+    """Whether :func:`analyze` is running and loops are counted by trip
+    (:func:`scaled`), not run trip by trip (:func:`unrolled`)."""
+    return _active is not None and not _active.unroll
+
+
+class unrolled:
+    """Context manager: under :func:`analyze`, the loops that would count
+    one trip ``trips`` times (:func:`counting`) run every trip instead —
+    the count :func:`scaled` must equal."""
+
+    def __enter__(self):
+        if _active is None:
+            raise RuntimeError("op_cost.unrolled runs inside analyze only")
+        self._was, _active.unroll = _active.unroll, True
+        return self
+
+    def __exit__(self, *exc):
+        _active.unroll = self._was
+
+
 @dataclasses.dataclass
 class Program:
     """A device program ready to count (the counterpart of a JAX
@@ -516,19 +585,20 @@ class Program:
         return cost
 
 
-def analyze(fn: Callable, *args, **kwargs) -> OpCost:
+def analyze(fn: Callable, *args, sites: bool = False, **kwargs) -> OpCost:
     """Run ``fn(*args, **kwargs)`` once on fake tensors and count one
     device's work.  The arguments are fake tensors (or DTensors of fake
     local shards, or modules holding them) made in one ``FakeTensorMode``,
     which is entered for the run; their storages are the program's
-    arguments."""
+    arguments.  ``sites`` also names the code that made each storage and
+    fills ``OpCost.peak_sites`` (slower: a stack walk an op)."""
     from torch._guards import detect_fake_mode
     from torch._subclasses.fake_tensor import FakeTensorMode
     fake = detect_fake_mode(_storage_tensors((args, kwargs))) or \
         FakeTensorMode()
     # lint: allow-timing: fake tensors launch nothing; the host's time
     t0 = time.perf_counter()
-    tracer = _Tracer()
+    tracer = _Tracer(sites)
     arg_bytes = tracer.add_arguments((args, kwargs))
     try:
         with fake, tracer:
@@ -543,6 +613,7 @@ def analyze(fn: Callable, *args, **kwargs) -> OpCost:
         c.aten_ops = dict(sorted(tracer.aten_ops.items()))
         c.dtypes = dict(sorted(tracer._dtype_counts.items()))
         c.host_syncs = dict(sorted(tracer.host_syncs.items()))
+        c.peak_sites = tracer.peak_sites()
         c.seconds = time.perf_counter() - t0
     finally:
         tracer.release()

@@ -5,6 +5,7 @@ and Dumpy's own build and search cells, at full size without allocating
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch olmo-1b --shape train_4k
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch all --mesh both
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch dumpy --mesh single
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --cells xlstm-1.3b:train_4k
 
 Each cell runs once on fake tensors (``FakeTensorMode``): the parameters,
 optimizer state and batch are DTensors of fake local shards, placed by the
@@ -18,8 +19,9 @@ collective bytes and live memory.  The record has the reference's keys
 ``cost_xla_raw``) and a three-term H100 roofline
 (``distributed.roofline``).  A cell that cannot be traced records
 ``error`` with the op that stopped it.  Dumpy's exact cells count their
-host-driven loops by trip count, every span and walk chunk run (the
-record's ``cost.loops``).
+host-driven loops by trip count, every span and walk chunk run, and so
+do the models' sequence loops (``models.common.scan``: xLSTM's chunks and
+steps, forward and backward); the record's ``cost.loops`` sums them.
 
 Artifacts: ``artifacts/dryrun/<arch>__<shape>__<mesh>.json``.  CUDA unless
 ``--device cpu`` is given (the tracing is the same; fake tensors allocate
@@ -215,20 +217,28 @@ def _first_line(e: BaseException) -> str:
 def lower_cell(arch: str, shape_name: str, mesh, mesh_name: str,
                device: str | torch.device = "cuda") -> dict:
     """One LM cell's record (the reference's ``lower_cell``)."""
+    return lower_cell_cost(arch, shape_name, mesh, mesh_name, device)[0]
+
+
+def lower_cell_cost(arch: str, shape_name: str, mesh, mesh_name: str,
+                    device: str | torch.device = "cuda",
+                    sites: bool = False) -> tuple[dict, "op_cost.OpCost"]:
+    """:func:`lower_cell`'s record and the ``OpCost`` behind it (None for
+    a skipped cell); ``sites`` fills its ``peak_sites``."""
     cfg = registry.get_config(arch)
     shape = SHAPES[shape_name]
     ok, why = cell_applicable(cfg, shape)
     if not ok:
         return {"arch": arch, "shape": shape_name, "mesh": mesh_name,
-                "skipped": why}
+                "skipped": why}, None
     rules = rules_for(cfg, shape, mesh)
     t0 = time.time()
     step, args = cell_program(cfg, shape, mesh, rules, device)
     t_lower = time.time() - t0
     with traced(mesh, rules):
-        cost = op_cost.analyze(step, *args)
-    return cell_record(arch, shape_name, mesh_name, cfg, shape, math.prod(mesh.shape),
-                       cost, t_lower)
+        cost = op_cost.analyze(step, *args, sites=sites)
+    return cell_record(arch, shape_name, mesh_name, cfg, shape,
+                       math.prod(mesh.shape), cost, t_lower), cost
 
 
 def cell_record(arch, shape_name, mesh_name, cfg, shape, n_dev, cost,
@@ -353,6 +363,9 @@ def main(argv=None) -> None:
     ap.add_argument("--device", default="cuda",
                     help="device type of the fake tensors and the mesh "
                          "(cuda unless cpu is asked)")
+    ap.add_argument("--cells", default=None,
+                    help="comma-separated arch:shape cells, counted in "
+                         "place of --arch x --shape (no dumpy cells)")
     args = ap.parse_args(argv)
     device = resolve_device(args.device)
 
@@ -362,15 +375,17 @@ def main(argv=None) -> None:
     shapes = list(SHAPES) if args.shape == "all" else args.shape.split(",")
     kinds = (list(DUMPY_KINDS) if args.kinds == "all"
              else args.kinds.split(","))
-    dumpy = args.arch == "all" or "dumpy" in named
+    dumpy = args.cells is None and (args.arch == "all" or "dumpy" in named)
+    lm_cells = ([tuple(c.split(":")) for c in args.cells.split(",")]
+                if args.cells else [(a, s) for a in archs for s in shapes])
     failures = 0
     for mesh_name in _meshes(args.mesh):
         shape_, _ = PRODUCTION_MESHES[mesh_name]
         with fake_world(math.prod(shape_)):
             mesh = production_device_mesh(
                 multi_pod=mesh_name.startswith("multi"), device=device)
-            cells = [(a, s) for a in archs for s in shapes]
-            cells += [("dumpy", k) for k in (kinds if dumpy else ())]
+            cells = lm_cells + [("dumpy", k) for k in
+                                (kinds if dumpy else ())]
             for arch, shape in cells:
                 tag = (f"dumpy-{shape}__{mesh_name}" if arch == "dumpy"
                        else f"{arch}__{shape}__{mesh_name}")

@@ -11,10 +11,11 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.distributed.sharding import shard
-from .common import PSpec, rms_norm
+from .common import PSpec, rms_norm, untracked
 
 RGLRU_C = 8.0
 
@@ -63,10 +64,29 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 
 
 def _gates(p, xr: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The recurrence's ``(a, b)`` in float32.  Without autograd each
+    ``[B, S, R]`` result is made once and updated in place (the same
+    values, op for op: ``1 - a·a`` as ``-(a·a) + 1``)."""
     dtype = xr.dtype
-    rgate = torch.sigmoid((xr @ p.w_a.to(dtype)).float())
-    igate = torch.sigmoid((xr @ p.w_x.to(dtype)).float())
+    if not untracked(xr, p.w_a, p.w_x, p.lam):
+        # the elementwise part checkpointed: its backward recomputes the
+        # float32 gates from the two products instead of keeping them
+        return checkpoint(_gate_math, xr @ p.w_a.to(dtype),
+                          xr @ p.w_x.to(dtype), xr, p.lam,
+                          use_reentrant=False, preserve_rng_state=False)
     log_a0 = F.logsigmoid(p.lam.float())                      # log a ∈ (−,0)
+    a = (xr @ p.w_a.to(dtype)).float().sigmoid_()
+    a.mul_(RGLRU_C).mul_(log_a0[None, None, :]).exp_()
+    b = torch.mul(a, a).neg_().add_(1.0).clamp_min_(1e-9).sqrt_()
+    b.mul_((xr @ p.w_x.to(dtype)).float().sigmoid_()).mul_(xr)
+    return a, b
+
+
+def _gate_math(ra, rx, xr, lam):
+    """:func:`_gates` from its products ``xr @ w_a`` and ``xr @ w_x``."""
+    rgate = torch.sigmoid(ra.float())
+    igate = torch.sigmoid(rx.float())
+    log_a0 = F.logsigmoid(lam.float())                        # log a ∈ (−,0)
     log_a = RGLRU_C * rgate * log_a0[None, None, :]
     a = torch.exp(log_a)
     b = torch.sqrt(torch.clamp_min(1.0 - a * a, 1e-9)) * igate * xr.float()
@@ -76,15 +96,53 @@ def _gates(p, xr: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 def linear_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``h_t = a_t h_{t-1} + b_t`` along axis 1 from ``h_{-1} = 0``, as a
     doubling (Hillis–Steele) scan of ``(a, b)`` pairs under
-    ``(a1, b1) ∘ (a2, b2) = (a1·a2, a2·b1 + b2)``: ⌈log2 S⌉ steps."""
+    ``(a1, b1) ∘ (a2, b2) = (a1·a2, a2·b1 + b2)``: ⌈log2 S⌉ steps.  Under
+    autograd it is a :class:`_LinearScan`, whose backward is the same scan
+    run backwards over the cotangents.  Without autograd the scan
+    overwrites ``a`` and ``b`` (the result is ``b``): the caller gives
+    them up."""
+    if not untracked(a, b):
+        return _LinearScan.apply(a, b)
+    return _doubling_scan(a, b)
+
+
+def _doubling_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The doubling scan on ``a`` and ``b``, overwriting both; returns
+    ``b``.  Each step computes the shifted products into one temporary and
+    adds them in place, so ``b``'s values are ``a·b_prev + b`` with the
+    same two roundings as the out-of-place form."""
     S = a.shape[1]
     off = 1
     while off < S:
-        a_prev, b_prev = a[:, :-off], b[:, :-off]
-        b = torch.cat([b[:, :off], a[:, off:] * b_prev + b[:, off:]], dim=1)
-        a = torch.cat([a[:, :off], a[:, off:] * a_prev], dim=1)
+        b[:, off:].add_(a[:, off:] * b[:, :-off])
+        if off * 2 < S:
+            a[:, off:].mul_(a[:, :-off].clone())
         off *= 2
     return b
+
+
+class _LinearScan(torch.autograd.Function):
+    """:func:`linear_scan` with its own backward: for ``h = scan(a, b)``,
+    the cotangent ``u`` of ``b`` is the scan backwards in time of
+    ``(a_{t+1}, g_t)``, and that of ``a`` is ``u_t · h_{t-1}`` — the
+    gradient of the recurrence itself, where autograd of the doubling
+    scan would keep every step's ``[B, S, R]`` pair for its backward."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        h = _doubling_scan(a.clone(), b.clone())
+        ctx.save_for_backward(a, h)
+        return h
+
+    @staticmethod
+    def backward(ctx, g):
+        a, h = ctx.saved_tensors
+        ar = torch.zeros_like(a)
+        ar[:, 1:] = a[:, 1:].flip(1)            # a_{t+1}, reversed in time
+        u = _doubling_scan(ar, g.flip(1)).flip(1)
+        ga = torch.zeros_like(a)
+        ga[:, 1:] = u[:, 1:] * h[:, :-1]
+        return ga, u
 
 
 def rglru_apply(p, x: torch.Tensor, cfg: ArchConfig,
@@ -93,17 +151,25 @@ def rglru_apply(p, x: torch.Tensor, cfg: ArchConfig,
     xi = rms_norm(x, p.norm)
     gate_br = F.gelu(xi @ p.w_gate_br.to(dtype), approximate="tanh")
     xr = xi @ p.w_in.to(dtype)
+    del xi                      # each [B, S, .] temporary freed once used
     buf = state["conv"] if state is not None else None
     xr, new_buf = _causal_conv(xr, p.conv_w.to(dtype), p.conv_b.to(dtype), buf)
+    # a copy: the view would keep the padded input alive
+    new_buf = new_buf.to(torch.float32, copy=True)
     xr = shard(xr, "batch", "seq", "mlp")
     a, b = _gates(p, xr)
+    del xr
     if state is not None:                      # the state seeds step 0
         b = torch.cat([b[:, :1] + a[:, :1] * state["h"].float()[:, None],
                        b[:, 1:]], dim=1)
     h = linear_scan(a, b)
+    del a, b
     y = h.to(dtype) * gate_br
+    # the last step alone: a view would keep the whole scan alive
+    h_last = h[:, -1, :].clone()
+    del h, gate_br
     out = y @ p.w_out.to(dtype)
-    return x + out, {"h": h[:, -1, :], "conv": new_buf.float()}
+    return x + out, {"h": h_last, "conv": new_buf}
 
 
 def rglru_decode(p, x: torch.Tensor, cfg: ArchConfig, state: dict

@@ -100,9 +100,27 @@ def loss_fn(model: tfm.Transformer, batch: dict) -> torch.Tensor:
     if get_device_mesh() is not None:
         return _loss_on_mesh(logits, targets)
     logits = logits[:, :-1, :]
-    lse = torch.logsumexp(logits, dim=-1)
+    lse = _LogSumExp.apply(logits)
     picked = torch.gather(logits, -1, targets[..., None])[..., 0]
     return (lse - picked).mean()
+
+
+class _LogSumExp(torch.autograd.Function):
+    """``torch.logsumexp`` over the last dimension, whose backward builds
+    ``g · exp(x - lse)`` in one ``[.., V]`` buffer updated in place: the
+    same values as autograd's formula, which makes three (the difference,
+    its exponential and the product)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        lse = torch.logsumexp(x, dim=-1)
+        ctx.save_for_backward(x, lse)
+        return lse
+
+    @staticmethod
+    def backward(ctx, g):
+        x, lse = ctx.saved_tensors
+        return (x - lse[..., None]).exp_().mul_(g[..., None])
 
 
 def _loss_on_mesh(logits: torch.Tensor, targets: torch.Tensor
@@ -116,19 +134,24 @@ def _loss_on_mesh(logits: torch.Tensor, targets: torch.Tensor
     placed as the batch (so the mean's gradient reaches each device as its
     own rows, not expanded whole).  Each is the plain op where the
     vocabulary is not split."""
+    from torch.distributed.tensor import DTensor, Replicate
     names = ("batch", "seq", "vocab")
     logits = local(lambda t: t[:, :-1, :], (names,), names)(logits)
-    vocab = torch.arange(logits.shape[-1], device=logits.device)
+    mesh = logits.device_mesh
+    # the iota placed as the vocabulary, so each device compares its own
+    # columns and no [B, S, V] mask of the whole vocabulary is made
+    vocab = shard(DTensor.from_local(
+        torch.arange(logits.shape[-1], device=logits.device), mesh,
+        (Replicate(),) * mesh.ndim, run_check=False), "vocab")
     hit = shard(vocab == targets[..., None], *names)
     picked = shard(torch.where(hit, logits, 0.0).sum(-1), "batch", "seq")
-    mesh = logits.device_mesh
     if any(p.is_shard() and p.dim == 2 and size > 1
            for p, size in zip(logits.placements, mesh.shape)):
         m = logits.detach().amax(-1, keepdim=True)
         total = shard(torch.exp(logits - m).sum(-1), "batch", "seq")
         lse = torch.log(total) + m[..., 0]
     else:
-        lse = torch.logsumexp(logits, dim=-1)
+        lse = _LogSumExp.apply(logits)
     return shard(lse - picked, "batch", "seq").mean()
 
 

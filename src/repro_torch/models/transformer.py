@@ -36,7 +36,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.device_index import resolve_device
 from repro_torch.distributed.sharding import (batch_local, divisible,
-                                              is_dtensor, like, shard,
+                                              is_dtensor, like, local, shard,
                                               write_slot)
 from . import griffin, moe as moe_mod, xlstm
 from .common import (DTYPES, PSpec, abstract, attention, decode_attention,
@@ -310,17 +310,35 @@ def _self_attention(p: Params, x: torch.Tensor, ctx: Ctx, cache: dict | None,
                         chunk=cfg.attn_chunk)
         if ctx.mode == "prefill":
             if window and x.shape[1] > window:
-                # ring-buffer alignment: position p lives at slot p % window
+                # ring-buffer alignment: position p lives at slot p % window;
+                # on a mesh on each device's shard (the sequence is whole
+                # there; DTensor has no sharding strategy for roll in every
+                # torch version)
                 shift = x.shape[1] % window
-                new_cache = {"k": torch.roll(k[:, -window:], shift, 1).to(dtype),
-                             "v": torch.roll(v[:, -window:], shift, 1).to(dtype)}
+                names = ("batch", None, _heads(cfg.n_kv_heads), None)
+                ring = local(lambda t: torch.roll(t[:, -window:], shift, 1),
+                             (names,), names)
+                new_cache = {"k": ring(k).to(dtype), "v": ring(v).to(dtype)}
             else:
                 new_cache = {"k": k.to(dtype), "v": v.to(dtype)}
+            new_cache = _cache_placed(new_cache, cfg)
     out = shard(out, "batch", "seq", "heads", None)
     B, Sq = out.shape[:2]
     o = shard(out.reshape(B, Sq, cfg.q_dim), "batch", "seq",
               _heads(cfg.n_heads)) @ p.wo.to(dtype)
     return x + like(o, x), new_cache
+
+
+def _cache_placed(cache: dict, cfg: ArchConfig) -> dict:
+    """A prefill's attention cache.  Where the mesh's model axis does not
+    divide the kv heads (so each device projected them all), placed as the
+    decode step reads it (``_attn_cache``'s names: the sequence over the
+    model axis), so each device keeps its slice and not a replica; as it
+    is otherwise, and without a mesh."""
+    if _heads(cfg.n_kv_heads) is not None:
+        return cache
+    return {key: shard(t, "batch", "cache_seq", "kv", None)
+            for key, t in cache.items()}
 
 
 def _cross_attention(p: Params, x: torch.Tensor, ctx: Ctx, cache: dict | None
@@ -343,7 +361,8 @@ def _cross_attention(p: Params, x: torch.Tensor, ctx: Ctx, cache: dict | None
         q, k, v = _project_qkv(p, h, ctx.enc.to(dtype), cfg)
         out = attention(q, k, v, causal=False, chunk=cfg.attn_chunk)
         if ctx.mode == "prefill":
-            new_cache = {"xk": k.to(dtype), "xv": v.to(dtype)}
+            new_cache = _cache_placed({"xk": k.to(dtype), "xv": v.to(dtype)},
+                                      cfg)
     B, Sq = out.shape[:2]
     o = shard(out.reshape(B, Sq, cfg.q_dim), "batch", "seq",
               _heads(cfg.n_heads)) @ p.wo.to(dtype)

@@ -18,7 +18,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.distributed.sharding import shard
-from .common import PSpec, rms_norm
+from .common import PSpec, rms_norm, scan
 
 MLSTM_CHUNK = 256
 
@@ -55,7 +55,11 @@ def mlstm_state_specs(cfg: ArchConfig, batch: int) -> dict:
     }
 
 
-def _mlstm_qkvif(p, x: torch.Tensor, cfg: ArchConfig):
+def _mlstm_qkvif(p, x: torch.Tensor, cfg: ArchConfig, *,
+                 scaled_q: bool = True):
+    """The mLSTM's projections.  ``q`` comes as float32 divided by
+    ``sqrt(dh)``, or, without ``scaled_q``, in the compute dtype for
+    :func:`_mlstm_q` to scale a chunk at a time."""
     dtype = x.dtype
     nh = cfg.n_heads
     dh = cfg.d_model // nh
@@ -66,12 +70,55 @@ def _mlstm_qkvif(p, x: torch.Tensor, cfg: ArchConfig):
     v = xm @ p.wv.to(dtype)
     gates = xm @ p.w_if.to(dtype)
     B, S = x.shape[:2]
-    # the reference divides by a float64 scalar, which promotes to float32
-    q = q.reshape(B, S, nh, dh).float() / math.sqrt(dh)
+    q = q.reshape(B, S, nh, dh)
+    if scaled_q:
+        q = _mlstm_q(q)
     k = k.reshape(B, S, nh, dh)
     v = v.reshape(B, S, nh, dh)
     i_g, f_g = gates.float().chunk(2, dim=-1)                 # [B, S, NH]
     return q, k, v, torch.sigmoid(i_g), torch.sigmoid(f_g) * 0.999 + 5e-4, z
+
+
+def _mlstm_q(q: torch.Tensor) -> torch.Tensor:
+    """``q [.., dh]`` as float32 over ``sqrt(dh)`` (the reference divides
+    by a float64 scalar, which promotes to float32)."""
+    return q.float() / math.sqrt(q.shape[-1])
+
+
+def _mlstm_chunk(carry, xs, consts):
+    """One chunk of :func:`mlstm_apply`'s loop: the carry ``(C, n)`` and
+    the chunk's ``q, k, v [B, L, NH, dh]`` (made float32 here, ``q``
+    scaled, a chunk at a time), ``i, f [B, L, NH]`` → the next carry and
+    the chunk's ``h [B, L, NH, dh]``."""
+    C, n = carry
+    qb, kb, vb, ib, fb = xs
+    qb, kb, vb = _mlstm_q(qb), kb.float(), vb.float()
+    causal, ones = consts
+    cl = torch.cumsum(torch.log(fb), dim=1)        # decay from chunk start
+    dstart = torch.exp(cl)                         # Π_{s<=t} f_s
+    # inter-chunk: h_t += (d_t · q_t)ᵀ C_prev
+    h_inter = torch.einsum("blhd,bhde->blhe", qb * dstart[..., None], C)
+    # intra-chunk: S[t,s] = exp(cl_t − cl_s) · i_s · (q_t·k_s), s ≤ t.
+    # Mask the *exponent*: exp of the (discarded) upper triangle would
+    # overflow and its inf·0 poisons the backward pass with NaNs.
+    qk = torch.einsum("blhd,bmhd->bhlm", qb, kb)
+    expo = cl[:, :, None, :] - cl[:, None, :, :]              # [B, L, M, NH]
+    expo = torch.where(causal[None, :, :, None], expo, -30.0)
+    gate = torch.exp(expo) * ib[:, None, :, :]
+    gate = torch.where(causal[None, :, :, None], gate, 0.0)
+    sc = qk * gate.permute(0, 3, 1, 2)
+    h_intra = torch.einsum("bhlm,bmhd->blhd", sc, vb)
+    n_inter = torch.einsum("blhd,bhd->blh", qb * dstart[..., None], n)
+    n_intra = torch.einsum("bhlm,bmh->blh", sc, ones)         # Σ weights proxy
+    denom = torch.clamp_min(torch.abs(n_inter + n_intra), 1.0)[..., None]
+    h = (h_inter + h_intra) / denom
+    # state to the next chunk
+    dtail = torch.exp(cl[:, -1:, :] - cl)                     # Π_{s<t<=L}
+    kw = kb * (dtail * ib)[..., None]
+    decay = torch.exp(cl[:, -1, :])
+    C = C * decay[:, :, None, None] + torch.einsum("blhd,blhe->bhde", kw, vb)
+    n = n * decay[:, :, None] + kw.sum(dim=1)
+    return (C, n), h
 
 
 def mlstm_apply(p, x: torch.Tensor, cfg: ArchConfig,
@@ -82,11 +129,11 @@ def mlstm_apply(p, x: torch.Tensor, cfg: ArchConfig,
     nh = cfg.n_heads
     dh = D // nh
     h = rms_norm(x, p.norm)
-    q, k, v, ig, fg, z = _mlstm_qkvif(p, h, cfg)
+    q, k, v, ig, fg, z = _mlstm_qkvif(p, h, cfg, scaled_q=False)
+    del h                       # each [B, S, .] temporary freed once used
 
     L = min(MLSTM_CHUNK, S)
     assert S % L == 0, f"mLSTM chunk {L} must divide seq {S}"
-    q, k, v = q.float(), k.float(), v.float()
 
     C = torch.zeros((B, nh, dh, dh), dtype=torch.float32, device=x.device)
     n = torch.zeros((B, nh, dh), dtype=torch.float32, device=x.device)
@@ -96,37 +143,12 @@ def mlstm_apply(p, x: torch.Tensor, cfg: ArchConfig,
 
     causal = torch.tril(torch.ones((L, L), dtype=torch.bool, device=x.device))
     ones = torch.ones((B, L, nh), dtype=torch.float32, device=x.device)
-    hs = []
-    for c0 in range(0, S, L):
-        qb, kb, vb = q[:, c0:c0 + L], k[:, c0:c0 + L], v[:, c0:c0 + L]
-        ib, fb = ig[:, c0:c0 + L], fg[:, c0:c0 + L]          # [B, L, NH]
-        cl = torch.cumsum(torch.log(fb), dim=1)    # decay from chunk start
-        dstart = torch.exp(cl)                     # Π_{s<=t} f_s
-        # inter-chunk: h_t += (d_t · q_t)ᵀ C_prev
-        h_inter = torch.einsum("blhd,bhde->blhe", qb * dstart[..., None], C)
-        # intra-chunk: S[t,s] = exp(cl_t − cl_s) · i_s · (q_t·k_s), s ≤ t.
-        # Mask the *exponent*: exp of the (discarded) upper triangle would
-        # overflow and its inf·0 poisons the backward pass with NaNs.
-        qk = torch.einsum("blhd,bmhd->bhlm", qb, kb)
-        expo = cl[:, :, None, :] - cl[:, None, :, :]          # [B, L, M, NH]
-        expo = torch.where(causal[None, :, :, None], expo, -30.0)
-        gate = torch.exp(expo) * ib[:, None, :, :]
-        gate = torch.where(causal[None, :, :, None], gate, 0.0)
-        sc = qk * gate.permute(0, 3, 1, 2)
-        h_intra = torch.einsum("bhlm,bmhd->blhd", sc, vb)
-        n_inter = torch.einsum("blhd,bhd->blh", qb * dstart[..., None], n)
-        n_intra = torch.einsum("bhlm,bmh->blh", sc, ones)     # Σ weights proxy
-        denom = torch.clamp_min(torch.abs(n_inter + n_intra), 1.0)[..., None]
-        hs.append((h_inter + h_intra) / denom)
-        # state to the next chunk
-        dtail = torch.exp(cl[:, -1:, :] - cl)                 # Π_{s<t<=L}
-        kw = kb * (dtail * ib)[..., None]
-        decay = torch.exp(cl[:, -1, :])
-        C = C * decay[:, :, None, None] + torch.einsum("blhd,blhe->bhde",
-                                                       kw, vb)
-        n = n * decay[:, :, None] + kw.sum(dim=1)
-    hs = torch.cat(hs, dim=1).reshape(B, S, D)
-    hs = rms_norm(hs.to(dtype), p.out_norm)
+    hs, (C, n) = scan("mlstm.chunks", _mlstm_chunk, L, (C, n),
+                      (q, k, v, ig, fg), (causal, ones), (B, S, nh, dh),
+                      torch.float32)
+    del q, k, v, ig, fg
+    hs = hs.reshape(B, S, D).to(dtype)
+    hs = rms_norm(hs, p.out_norm)
     y = hs * F.silu(z)
     y = shard(y, "batch", "seq", None)
     out = y @ p.w_down.to(dtype)
@@ -197,6 +219,14 @@ def _slstm_cell(gx, h, c, n, r_g):
     return h_new, c_new, n_new
 
 
+def _slstm_step(carry, xs, consts):
+    """One step of :func:`slstm_apply`'s loop: ``(h, c, n)`` and the step's
+    ``gx [B, 1, NH, 4dh]`` (as float32 here, a step at a time) → the next
+    carry and ``h [B, 1, NH, dh]``."""
+    h, c, n = _slstm_cell(xs[0][:, 0].float(), *carry, consts[0])
+    return (h, c, n), h[:, None]
+
+
 def slstm_apply(p, x: torch.Tensor, cfg: ArchConfig,
                 state: dict | None) -> tuple[torch.Tensor, dict]:
     dtype = x.dtype
@@ -204,18 +234,18 @@ def slstm_apply(p, x: torch.Tensor, cfg: ArchConfig,
     nh = cfg.n_heads
     dh = D // nh
     xi = rms_norm(x, p.norm)
-    gx = (xi @ p.w_g.to(dtype)).reshape(B, S, nh, 4 * dh).float()
+    gx = (xi @ p.w_g.to(dtype)).reshape(B, S, nh, 4 * dh)
+    del xi
     r_g = p.r_g.float()
     if state is not None:
         h, c, n = (state[key].float() for key in ("h", "c", "n"))
     else:
         h = torch.zeros((B, nh, dh), dtype=torch.float32, device=x.device)
         c, n = torch.zeros_like(h), torch.zeros_like(h)
-    hs = []
-    for t in range(S):
-        h, c, n = _slstm_cell(gx[:, t], h, c, n, r_g)
-        hs.append(h)
-    hs = torch.stack(hs, dim=1).reshape(B, S, D).to(dtype)
+    hs, (h, c, n) = scan("slstm.steps", _slstm_step, 1, (h, c, n), (gx,),
+                         (r_g,), (B, S, nh, dh), torch.float32)
+    del gx
+    hs = hs.reshape(B, S, D).to(dtype)
     hs = rms_norm(hs, p.out_norm)
     out = hs @ p.w_down.to(dtype)
     return x + out, {"h": h, "c": c, "n": n}

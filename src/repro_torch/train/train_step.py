@@ -63,9 +63,31 @@ def _placed(model):
     return implicit_replication()
 
 
+@contextlib.contextmanager
+def _grads_placed_as_made(model):
+    """On a placed model, each gradient redistributed to its parameter's
+    placements as soon as the backward pass has accumulated it (as the
+    reference's compiler reduces a weight's gradient where it is made), so
+    the partial gradients of every layer are not all held at once; nothing
+    without a mesh."""
+    if _mesh(model) is None:
+        yield
+        return
+
+    def hook(p):
+        p.grad = like(p.grad, p)
+    handles = [p.register_post_accumulate_grad_hook(hook)
+               for p in model.parameters()]
+    try:
+        yield
+    finally:
+        for h in handles:
+            h.remove()
+
+
 def _loss_and_grads(model, batch: dict) -> tuple[torch.Tensor, dict]:
     model.zero_grad(set_to_none=True)
-    with _placed(model):
+    with _placed(model), _grads_placed_as_made(model):
         loss = loss_fn(model, batch)
         loss.backward()
     # a gradient in its parameter's placements (DTensor may return one

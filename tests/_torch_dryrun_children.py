@@ -7,7 +7,13 @@ jobs start a process group) and prints one JSON object as its last line.
 Jobs: ``ref`` / ``port`` (placements of every parameter and moment leaf
 of the ten reduced configs on a (4, 2) and a (2, 2, 2) mesh, and reduced
 OLMo's per-device FLOPs and argument bytes for train, prefill and decode
-on (1, 1) and (4, 2)), ``mlp`` (a column-then-row sharded MLP on (1, 2)),
+on (1, 1) and (4, 2)); ``ref peaks`` / ``port peaks`` (the per-device
+peak of each reduced config's train and prefill step on (4, 2): the
+reference's ``memory_analysis`` split, the port's ``op_cost`` one, for
+the kinds given or both);
+``ref prod <cells>`` / ``port prod <cells>`` (the same at full size on
+the 16 x 16 production mesh, for the ``arch:shape`` cells given), ``mlp``
+(a column-then-row sharded MLP on (1, 2)),
 ``gloo`` (a real step on a one-rank gloo mesh against the plain step),
 ``exact <spec>`` (the reference's exact search cells lowered at the sizes
 of the JSON ``spec``: ``hlo_cost`` and the loops of each).
@@ -42,7 +48,27 @@ def _norm(spec, ndim):
     return out + [None] * (ndim - len(out))
 
 
-def ref() -> dict:
+PEAK_MESH = "4x2"
+PEAK_KINDS = ("train", "prefill")
+
+
+def _memory(m) -> dict:
+    """A ``memory_analysis`` as the dry run's record splits it."""
+    return {"argument_bytes": m.argument_size_in_bytes,
+            "output_bytes": m.output_size_in_bytes,
+            "temp_bytes": m.temp_size_in_bytes,
+            "alias_bytes": m.alias_size_in_bytes,
+            "peak_per_device": (m.argument_size_in_bytes
+                                + m.output_size_in_bytes
+                                + m.temp_size_in_bytes
+                                - m.alias_size_in_bytes)}
+
+
+def ref(part: str = "", cells: str = "") -> dict:
+    if part == "peaks":
+        return ref_peaks()
+    if part == "prod":
+        return ref_prod(cells)
     os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
     sys.path.insert(0, str(ROOT / "src"))
     import jax
@@ -110,7 +136,119 @@ def ref() -> dict:
     return {"placements": place, "cost": cost}
 
 
-def port() -> dict:
+def ref_peaks() -> dict:
+    """Each reduced config's train and prefill step on (4, 2), compiled
+    as the reference's dry run compiles a cell (its ``rules_for``, bf16
+    moments where the config asks, the train step donating its
+    parameters and moments): ``memory_analysis``."""
+    os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
+    sys.path.insert(0, str(ROOT / "src"))
+    import jax
+    from repro.configs.base import RunShape, reduced
+    from repro.distributed.sharding import (logical_rules, make_mesh,
+                                            shardings_for)
+    from repro.launch.dryrun import rules_for
+    from repro.models import registry, transformer as tfm
+    from repro.models.common import logical_tree
+    from repro.train import optimizer as opt
+    from repro.train.train_step import make_train_step
+
+    shape, names = MESHES[PEAK_MESH]
+    mesh = make_mesh(shape, names)
+    out = {}
+    for arch in registry.ARCH_NAMES:
+        cfg = reduced(registry.get_config(arch))
+        for kind in PEAK_KINDS:
+            rs = RunShape("t", S, B, kind)
+            with logical_rules(mesh, rules_for(cfg, rs, mesh)):
+                pa = tfm.abstract_params(cfg)
+                pl = logical_tree(tfm.init_specs(cfg))
+                psh = shardings_for(pa, pl)
+                ba = registry.input_specs(cfg, rs)
+                bsh = shardings_for(ba, registry.batch_logical(cfg, rs))
+                if kind == "train":
+                    bf16 = cfg.moment_dtype == "bfloat16"
+                    ocfg = opt.AdamWConfig(
+                        moment_dtype=cfg.moment_dtype,
+                        accum_dtype="bfloat16" if bf16 else "float32",
+                        math_dtype="bfloat16" if bf16 else "float32")
+                    oa = opt.abstract_state(pa, ocfg)
+                    osh = shardings_for(oa, opt.state_logical(pl))
+                    j = jax.jit(make_train_step(cfg, ocfg),
+                                in_shardings=(psh, osh, bsh),
+                                out_shardings=(psh, osh, None),
+                                donate_argnums=(0, 1))
+                    args = (pa, oa, ba)
+                else:
+                    j = jax.jit(registry.make_prefill_step(cfg),
+                                in_shardings=(psh, bsh))
+                    args = (pa, ba)
+                c = j.lower(*args).compile()
+            out[f"{arch}|{kind}"] = _memory(c.memory_analysis())
+    return out
+
+
+def ref_prod(cells: str) -> dict:
+    """The reference's own dry-run records of the ``arch:shape`` cells
+    (comma-separated) on the 16 x 16 production mesh: their memory."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro.launch import dryrun                 # sets XLA_FLAGS first
+    from repro.launch.mesh import make_production_mesh
+    mesh = make_production_mesh(multi_pod=False)
+    out = {}
+    for cell in cells.split(","):
+        arch, shape = cell.split(":")
+        out[cell] = dryrun.lower_cell(arch, shape, mesh, "pod_16x16")["memory"]
+    return out
+
+
+def port_peaks(kinds: str = "") -> dict:
+    """:func:`ref_peaks` counted by the port's dry run (``op_cost`` on a
+    fake 8-rank world), for the comma-separated ``kinds`` (all by
+    default)."""
+    from repro_torch.configs.base import RunShape, reduced
+    from repro_torch.distributed import op_cost
+    from repro_torch.distributed.sharding import fake_world, named_mesh
+    from repro_torch.launch import dryrun
+    from repro_torch.models import registry
+    shape, names = MESHES[PEAK_MESH]
+    out = {}
+    with fake_world(8):
+        mesh = named_mesh(shape, names, "cpu")
+        for arch in registry.ARCH_NAMES:
+            cfg = reduced(registry.get_config(arch))
+            for kind in (kinds.split(",") if kinds else PEAK_KINDS):
+                rs = RunShape("t", S, B, kind)
+                rules = dryrun.rules_for(cfg, rs, mesh)
+                step, args = dryrun.cell_program(cfg, rs, mesh, rules, "cpu")
+                with dryrun.traced(mesh, rules):
+                    c = op_cost.analyze(step, *args)
+                out[f"{arch}|{kind}"] = c.memory()
+    return out
+
+
+def port_prod(cells: str) -> dict:
+    """:func:`ref_prod` counted by the port's dry run."""
+    import math
+    from repro_torch.distributed.sharding import fake_world
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import (PRODUCTION_MESHES,
+                                         production_device_mesh)
+    out = {}
+    with fake_world(math.prod(PRODUCTION_MESHES["pod_16x16"][0])):
+        mesh = production_device_mesh(multi_pod=False, device="cpu")
+        for cell in cells.split(","):
+            arch, shape = cell.split(":")
+            rec = dryrun.lower_cell(arch, shape, mesh, "pod_16x16", "cpu")
+            out[cell] = rec["memory"]
+    return out
+
+
+def port(part: str = "", cells: str = "") -> dict:
+    if part == "peaks":
+        return port_peaks(cells)
+    if part == "prod":
+        return port_prod(cells)
     import torch
     from repro_torch.configs.base import RunShape, reduced
     from repro_torch.distributed import op_cost
