@@ -265,7 +265,14 @@ Phases, each printed with its seconds:
    checkpoint, each step's ms beside 15 (d)'s plain steps and their bound.
    Two ranks on the one card are not run: NCCL refuses two ranks on one
    device and gloo's CUDA collectives crash there
-   (``scripts/probe_two_ranks_one_card.py``, ``PERF.md``).
+   (``scripts/probe_two_ranks_one_card.py``, ``PERF.md``).  (c), where four
+   cards or more are visible (else one line says so and nothing runs):
+   ``scripts/train_over_cards.py`` on the ``smoke`` preset (float32), 2
+   steps of 8 x 128 on a ``(2, 2)`` mesh from two ``torchrun`` launchers
+   that act as two hosts of two cards, against one card drawing the same
+   rows: the first loss within 1e-5, every first-step gradient leaf within
+   1e-4 by both of the script's measures, each rank's rows, each host's
+   tokens bitwise; the step ms beside one card's.
 18. the skewed collection and Dumpy-Fuzzy (run in the search slice, after
    16 (b)'s exact cells; ``--skew-only`` runs phases 1, 2 and 18 alone):
    (a) ``clustered_series`` at the run's size x 256, 64 clusters, seed 1
@@ -275,7 +282,8 @@ Phases, each printed with its seconds:
    beside it, the SHA-256 of their tree JSON, leaf layout, routing arrays
    and stats equal; plain Dumpy built on the host; each layout's leaves,
    height, nodes, fill factor, leaf sizes, ``lmax`` and bytes on the card;
-   (c) exact ED (128 queries) and DTW (64, band 25, ``cluster``) on both
+   (c) exact ED (128 queries) and DTW (32, band 25, ``cluster``; 16 where
+   four cards or more are visible, which phase 17 (c) uses) on both
    layouts, held against float64 checks over the collection itself, no
    repeated id, the two layouts equal up to ties; (d) approximate and
    extended ED at nbr 1, 4, 16 and extended DTW at nbr 4 on both layouts,
@@ -427,6 +435,8 @@ FULL_B, FULL_S, FULL_STEPS = 4, 2048, 3
 # phase 17: OLMo-1B's full-width steps on one NCCL rank, and each
 # torchrun launch's time limit
 RANK_FULL_STEPS, RANK_TIMEOUT_S = 2, 240
+# ... and (c), the smoke preset on (2, 2) from two launchers (four cards)
+HOSTS_B, HOSTS_S, HOSTS_STEPS = 8, 128, 2
 # phase 16: the dry run's production cells (16 x 16), their time limit,
 # the steps timed against the 1 x 1 bounds, and PERF.md's hand bound of
 # OLMo-1B's decode step (the float32 weights read once)
@@ -4124,9 +4134,10 @@ def train_rank_child(argv: list) -> None:
         Path(out).write_text(json.dumps(dict(report, marks=marks)))
 
 
-def train_ranks_phase(np, shutil, lm_entry: dict, smi) -> dict:
-    """Phase 17 (a) and (b) on one rank (module docstring); ``lm_entry`` is
-    phase 15's result, whose (c) and (d) these runs are held against."""
+def train_ranks_phase(np, shutil, lm_entry: dict, smi, cards: int) -> dict:
+    """Phase 17 (a) and (b) on one rank and (c) on four cards (module
+    docstring); ``lm_entry`` is phase 15's result, whose parts (c) and (d)
+    (a) and (b) are held against; ``cards`` the visible count."""
     import signal
     root = ROOT / "build" / "phase17"
     shutil.rmtree(root, ignore_errors=True)
@@ -4146,13 +4157,60 @@ def train_ranks_phase(np, shutil, lm_entry: dict, smi) -> dict:
                 start_ranks(1, root / "b.json", gates[2], -1, b)]
     gates[0].touch()
     try:
-        return train_ranks_checks(np, shutil, lm_entry, smi, root, ckpt,
-                                  gates, launches, t1)
+        out = train_ranks_checks(np, shutil, lm_entry, smi, root, ckpt,
+                                 gates, launches, t1)
     finally:        # a launch still waiting on its gate when a check fails
         for proc, *_ in launches:
             if proc.poll() is None:
                 os.killpg(proc.pid, signal.SIGKILL)
                 proc.communicate()
+    out["c"] = train_two_hosts(smi, cards)
+    return out
+
+
+def train_two_hosts(smi, cards: int) -> dict:
+    """Phase 17 (c): ``scripts/train_over_cards.py`` on the smoke preset,
+    ``(2, 2)`` from two launchers against one card (module docstring);
+    fails on any gate."""
+    import signal
+    if cards < 4:
+        print(f"  (c) needs four cards, {cards} visible: not run")
+        return {"cards": cards}
+    cmd = [sys.executable, str(ROOT / "scripts" / "train_over_cards.py"),
+           "--preset", "smoke", "--batch", HOSTS_B, "--seq", HOSTS_S,
+           "--steps", HOSTS_STEPS, "--tol", "1e-4", "--meshes", "1x1,2x2",
+           "--hosts", "2", "--timeout", RANK_TIMEOUT_S]
+    # lint: allow-timing: the launches end with their processes (host time)
+    t1 = time.perf_counter()
+    proc = subprocess.Popen([str(a) for a in cmd], cwd=str(ROOT), text=True,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            start_new_session=True)
+    try:
+        log, err = proc.communicate(timeout=2 * RANK_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        fail(f"phase 17 (c) ran past {2 * RANK_TIMEOUT_S} s")
+    secs = time.perf_counter() - t1
+    lines = log.strip().splitlines()
+    if proc.returncode != 0 or not lines:
+        print(log[-6000:], err[-4000:])
+        fail(f"phase 17 (c): train_over_cards.py exited {proc.returncode}")
+    res = json.loads(lines[-1])
+    ref, run = res["runs"]
+    if not (res["ok"] and run["hosts"] == 2 and run["mesh"] == [2, 2]):
+        fail(f"phase 17 (c): {res}")
+    print(f"  (c) smoke on (2, 2) from two launchers (two hosts of two "
+          f"cards), {HOSTS_STEPS} steps of {HOSTS_B} x {HOSTS_S}, against "
+          f"one card drawing the same rows: rows {run['rows']}, the first "
+          f"loss within {run['loss_rel']:.3g} (bound 1e-05), the gradients "
+          f"within {run['grad_worst']:.3g} (bound 1e-4), each host's tokens "
+          f"bitwise; median step {run['median_step_ms']:.3f} ms against "
+          f"{ref['median_step_ms']:.3f} ms on one card; {secs:.3f} s [{smi}]")
+    return {"loss_rel": run["loss_rel"], "grad_worst": run["grad_worst"],
+            "step_ms_median": run["median_step_ms"],
+            "one_card_step_ms_median": ref["median_step_ms"],
+            "seconds": secs}
 
 
 def train_ranks_checks(np, shutil, lm_entry, smi, root, ckpt, gates,
@@ -4972,7 +5030,10 @@ def skew_fuzzy_phase(torch, np, sd, hs, ops, ref, mods, DumpyIndex, params,
 
     # -- (c) exact ED and DTW on both layouts --------------------------------
     t1 = time.perf_counter()
-    dtw_b = ed_b[0][:SKEW_DTW_QUERIES]
+    # cut on four cards or more, where phase 17 (c) adds its launches
+    dtw_q = SKEW_DTW_QUERIES // (2 if device == "cuda"
+                                 and torch.cuda.device_count() >= 4 else 1)
+    dtw_b = ed_b[0][:dtw_q]
     exact, figures = {}, {}
     for label, ix in layouts.items():
         for metric, bs in (("ED", ed_b), ("DTW", [dtw_b])):
@@ -5034,7 +5095,7 @@ def skew_fuzzy_phase(torch, np, sd, hs, ops, ref, mods, DumpyIndex, params,
                  f"{r['qps']:.2f} qps, peak {r['peak_bytes']} bytes)"
                  if r else "") + f" [{smi}]")
     print(f"  (c) every exact batch (ED: {SKEW_ED_QUERIES} queries, DTW: "
-          f"{SKEW_DTW_QUERIES}, band {BAND}, order cluster) of both layouts "
+          f"{dtw_q}, band {BAND}, order cluster) of both layouts "
           f"equal to "
           f"the float64 check over the collection (DTW's DP on {dp_rows} "
           f"(query, row) pairs), no repeated id, Dumpy-Fuzzy equal to Dumpy "
@@ -5303,7 +5364,7 @@ def main() -> None:
         t0 = time.perf_counter()
         torch.cuda.empty_cache()
         print(json.dumps({"train_ranks": train_ranks_phase(
-            np, shutil, lm_entry, smi)}))
+            np, shutil, lm_entry, smi, torch.cuda.device_count())}))
         phase("training over ranks", t0)
         return
     dry_dir = ROOT / "build" / "phase16"
@@ -5628,8 +5689,8 @@ def main() -> None:
     import shutil
     t0 = time.perf_counter()
     torch.cuda.empty_cache()
-    print(json.dumps({"train_ranks": train_ranks_phase(np, shutil, lm_entry,
-                                                       smi)}))
+    print(json.dumps({"train_ranks": train_ranks_phase(
+        np, shutil, lm_entry, smi, torch.cuda.device_count())}))
     phase("training over ranks", t0)
     print(f"[phase] whole run: {time.perf_counter() - t_run:.3f} s")
 

@@ -5,6 +5,8 @@
     torchrun --standalone --nproc-per-node N tests/_torch_mesh_children.py \\
         train <npz or -> <sigterm rank:step or -> [launch.train arguments]
     python tests/_torch_mesh_children.py refstep <out>
+    torchrun --nnodes 2 --node-rank H ... tests/_torch_mesh_children.py \
+        tokens <out> <batch> <seq> <vocab>
 
 The rank jobs join a gloo group of ``size`` ranks through the ``file://``
 store ``store`` and print one JSON object as their last line: ``elastic``
@@ -14,8 +16,9 @@ checkpoint saved by the ranks, the tokens each rank makes).  ``train`` is
 the reference's parameters in an ``.npz`` (``-``: its own seed-0
 parameters), and a rank that sends itself SIGTERM while the data of a step
 is drawn.  ``refstep`` is the reference's loss and gradients, jitted with
-the placements of each mesh on 4 host devices.  No child ends another
-process; files go where the test says.
+the placements of each mesh on 4 host devices.  ``tokens`` is one gloo
+rank under ``torchrun``, which writes the rows it draws.  No child ends
+another process; files go where the test says.
 """
 from __future__ import annotations
 
@@ -275,10 +278,29 @@ def train(npz: str, sigterm: str, argv: list[str]) -> None:
     launch_train.main(argv)
 
 
+def tokens(out_dir: str, batch: int, seq: int, vocab: int) -> None:
+    """This ``torchrun`` rank in a gloo group: its host's rows of
+    ``batch_at(0)`` and ``batch_at(1)`` into ``out_dir/rank<RANK>.npz``."""
+    import numpy as np
+    import torch.distributed as dist
+    from repro_torch.data.tokens import TokenPipeline, TokenPipelineConfig
+    dist.init_process_group("gloo")
+    try:
+        pipe = TokenPipeline(TokenPipelineConfig(vocab=vocab, seq_len=seq,
+                                                 global_batch=batch))
+        np.savez(f"{out_dir}/rank{dist.get_rank()}.npz",
+                 **{f"step{s}": pipe.batch_at(s)["tokens"] for s in (0, 1)})
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
 if __name__ == "__main__":
     job = sys.argv[1]
     if job == "refstep":
         refstep(sys.argv[2])
+    elif job == "tokens":
+        tokens(sys.argv[2], *map(int, sys.argv[3:6]))
     elif job == "train":
         train(sys.argv[2], sys.argv[3], sys.argv[4:])
     else:
