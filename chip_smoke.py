@@ -271,8 +271,9 @@ Phases, each printed with its seconds:
    steps of 8 x 128 on a ``(2, 2)`` mesh from two ``torchrun`` launchers
    that act as two hosts of two cards, against one card drawing the same
    rows: the first loss within 1e-5, every first-step gradient leaf within
-   1e-4 by both of the script's measures, each rank's rows, each host's
-   tokens bitwise; the step ms beside one card's.
+   1e-4 by both of the script's measures, the same step in float64 within
+   1e-12 and 1e-8, each rank's rows, each host's tokens bitwise; the step
+   ms beside one card's.
 18. the skewed collection and Dumpy-Fuzzy (run in the search slice, after
    16 (b)'s exact cells; ``--skew-only`` runs phases 1, 2 and 18 alone):
    (a) ``clustered_series`` at the run's size x 256, 64 clusters, seed 1
@@ -4205,9 +4206,14 @@ def train_two_hosts(smi, cards: int) -> dict:
           f"one card drawing the same rows: rows {run['rows']}, the first "
           f"loss within {run['loss_rel']:.3g} (bound 1e-05), the gradients "
           f"within {run['grad_worst']:.3g} (bound 1e-4), each host's tokens "
-          f"bitwise; median step {run['median_step_ms']:.3f} ms against "
+          f"bitwise; in float64 the first loss within "
+          f"{run['float64_loss_rel']:.3g} (bound 1e-12) and the gradients "
+          f"within {run['float64_grad_worst']:.3g} (bound 1e-08); median "
+          f"step {run['median_step_ms']:.3f} ms against "
           f"{ref['median_step_ms']:.3f} ms on one card; {secs:.3f} s [{smi}]")
     return {"loss_rel": run["loss_rel"], "grad_worst": run["grad_worst"],
+            "float64_loss_rel": run["float64_loss_rel"],
+            "float64_grad_worst": run["float64_grad_worst"],
             "step_ms_median": run["median_step_ms"],
             "one_card_step_ms_median": ref["median_step_ms"],
             "seconds": secs}

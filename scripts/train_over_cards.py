@@ -55,10 +55,22 @@ its reference:
   within 1e-5 and every gradient leaf within 1e-4 by both measures, the
   bound of a float32 placed step in ``tests/test_torch_train_mesh.py``.
   bf16 roundings move a gradient by up to its floor (below), and a
-  placement rounds anew; without them less hides a fault.  At width the
-  query and key projections' gradients are ill-conditioned even so: the
-  ``100m`` preset's move 2.9e-4 when only its sums over rows are split in
-  two (one NVIDIA H100 80GB HBM3 at 700.00 W), above this bound;
+  placement rounds anew; without them less hides a fault.  At width
+  float32 itself hides it: one card's float32 step lies 7.7e-3 from its
+  float64 step for the ``100m`` preset and 0.21 for ``full`` (the query
+  and key projections at initialisation), above this bound, and placed
+  runs miss it by up to 7.0e-3 and 3.9e-3;
+* the same first step in float64 on both sides (the config's
+  ``param_dtype`` and ``compute_dtype`` ``"float64"``, the parameters
+  cast, the roundings the identity): the loss within 1e-12 and every
+  gradient leaf within 1e-8 by both measures.  In float64 a right
+  placement agrees with one card to ~1e-12 whatever the conditioning (the
+  ``100m`` preset 1.0e-14–1.4e-12 on (2, 2), (4, 1), (1, 4), (2, 1),
+  (1, 2) from one and two launchers, ``full`` 1.2e-11 on (2, 2); four
+  NVIDIA H100 80GB HBM3 at 700.00 W), and a term lost, doubled or scaled
+  on a shard does not.  Also printed: this run's float32 step against
+  the reference's float64 step, beside the reference's own float32 step
+  against it;
 * restores: each target's restored parameter and AdamW moment leaves,
   saved again by its ranks, bitwise the files restored; its last
   checkpoint within 5e-3 of the reference's in both measures (the bound
@@ -89,8 +101,9 @@ The ``100m`` preset's floor measured so is 7.6e-2 in its gradient (the
 attention's bf16 probabilities) and 1.3e-6 in its loss.  Each reference
 also prints, without bf16, its gradient against the mean of its batch's
 two halves' gradients: what a data axis of 2 changes in the sums over
-rows.  The last line is a JSON object: ``ok`` and each launch's
-numbers.
+rows.  Each rank records ``allow_tf32``, the float32 matmul precision
+and the NCCL version it ran with (none is set here).  The last line is a
+JSON object: ``ok`` and each launch's numbers.
 """
 from __future__ import annotations
 
@@ -111,6 +124,7 @@ ROOT = Path(__file__).resolve().parents[1]
 AHEAD = 3           # launches started and waiting behind the running one
 RESTORE_TOL = 5e-3
 UNROUNDED_TOL = 1e-4    # a float32 placed step's (tests/test_torch_train_mesh)
+F64_LOSS_TOL, F64_TOL = 1e-12, 1e-8     # the float64 step's
 PLACE_ROWS_ERROR = "lie outside its host's"
 
 
@@ -131,9 +145,7 @@ def child(out: str, gate: str, mesh: str, role: str, argv: list) -> None:
     from repro_torch.distributed.sharding import (batch_rows, is_dtensor,
                                                   named_mesh, whole)
     from repro_torch.launch import train
-    from repro_torch.models import common, transformer as tfm
-    from repro_torch.models.common import map_tree
-    from repro_torch.models.weights import param_tree
+    from repro_torch.models import common
     from repro_torch.train import checkpoint, train_step, trainer
     torch.use_deterministic_algorithms(True, warn_only=True)
     rank, local = int(os.environ["RANK"]), int(os.environ["LOCAL_RANK"])
@@ -157,12 +169,14 @@ def child(out: str, gate: str, mesh: str, role: str, argv: list) -> None:
     hosts_of = tokens.process_rank_and_count
 
     def gathered(grads) -> dict:
-        """The leaves whole (a collective), as float32 numpy on rank 0."""
+        """The leaves whole (a collective), as numpy on rank 0: float64
+        leaves as they are, any other as float32."""
         out = {}
         for k, g in named(grads):
             g = whole(g)
             if rank == 0:
-                out[k] = g.float().cpu().numpy()
+                out[k] = (g if g.dtype == torch.float64 else
+                          g.float()).cpu().numpy()
         return out
 
     def loss_and_grads(model, batch):
@@ -172,30 +186,39 @@ def child(out: str, gate: str, mesh: str, role: str, argv: list) -> None:
         train_step._loss_and_grads = first          # the first step only
         tok = batch["tokens"]
         rec["rows"] = (tok.to_local() if is_dtensor(tok) else tok).shape[0]
+        rec.update(settings())
         arrays = gathered(grads)
         if rank == 0:
             np.savez(out + ".npz", **arrays, loss=float(loss))
-        if kind != "restore":       # the same step without bf16
-            f32 = tfm.Transformer(dataclasses.replace(
-                model.cfg, compute_dtype="float32"),
-                map_tree(torch.Tensor.detach, param_tree(model)))
-            rounds = common._RoundBF16, common._GradRoundBF16
-            common._RoundBF16 = common._GradRoundBF16 = Unrounded
-            try:
-                loss32, grads32 = first(f32, batch)
-                arrays = gathered(grads32)
-                if kind == "ref":   # the row split a data axis of 2 makes
-                    n = tok.shape[0] // 2
-                    halves = [gathered(first(f32, {
-                        k: batch_rows(v, a, b) for k, v in batch.items()})[1])
-                        for a, b in ((0, n), (n, 2 * n))]
-            finally:
-                common._RoundBF16, common._GradRoundBF16 = rounds
-            if rank == 0:
-                np.savez(out + ".f32.npz", **arrays, loss=float(loss32))
-                if kind == "ref":
-                    np.savez(out + ".halves.npz", **{
-                        k: (halves[0][k] + halves[1][k]) / 2 for k in arrays})
+        if kind == "restore":
+            return loss, grads
+        # the same step without bf16 (float32 compute, the attention's
+        # roundings the identity), then in float64
+        rounds = common._RoundBF16, common._GradRoundBF16
+        common._RoundBF16 = common._GradRoundBF16 = Unrounded
+        try:
+            f32 = copy_as(model, compute_dtype="float32")
+            loss32, grads32 = first(f32, batch)
+            arrays = gathered(grads32)
+            del grads32
+            if kind == "ref":       # the row split a data axis of 2 makes
+                n = tok.shape[0] // 2
+                halves = [gathered(first(f32, {
+                    k: batch_rows(v, a, b) for k, v in batch.items()})[1])
+                    for a, b in ((0, n), (n, 2 * n))]
+            del f32
+            loss64, grads64 = first(copy_as(
+                model, param_dtype="float64", compute_dtype="float64"), batch)
+            arrays64 = gathered(grads64)
+            del grads64
+        finally:
+            common._RoundBF16, common._GradRoundBF16 = rounds
+        if rank == 0:
+            np.savez(out + ".f32.npz", **arrays, loss=float(loss32))
+            np.savez(out + ".f64.npz", **arrays64, loss=float(loss64))
+            if kind == "ref":
+                np.savez(out + ".halves.npz", **{
+                    k: (halves[0][k] + halves[1][k]) / 2 for k in arrays})
         return loss, grads
 
     def recorded(self, model, opt_state):
@@ -241,6 +264,19 @@ def child(out: str, gate: str, mesh: str, role: str, argv: list) -> None:
     Path(f"{out}.r{rank}.json").write_text(json.dumps(rec))
 
 
+def copy_as(model, **dtypes):
+    """``model`` with its config's ``dtypes`` replaced and its parameters
+    (placed as they are) cast to its ``param_dtype``: the steps without
+    bf16 (with :class:`Unrounded`) are taken on such copies."""
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.common import DTYPES, map_tree
+    from repro_torch.models.weights import param_tree
+    cfg = dataclasses.replace(model.cfg, **dtypes)
+    dt = DTYPES[cfg.param_dtype]
+    return tfm.Transformer(cfg, map_tree(lambda p: p.detach().to(dt),
+                                         param_tree(model)))
+
+
 class Unrounded:
     """Stands for ``models.common``'s bf16 roundings of the attention
     probabilities and their cotangents: the identity."""
@@ -248,6 +284,20 @@ class Unrounded:
     @staticmethod
     def apply(x):
         return x
+
+
+SETTINGS = ("allow_tf32", "float32_matmul_precision", "nccl")
+
+
+def settings() -> dict:
+    """The settings that choose a float32 product's arithmetic, and the
+    NCCL version where CUDA is present."""
+    import torch
+    cuda = torch.cuda.is_available()
+    return {"allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+            "float32_matmul_precision": torch.get_float32_matmul_precision(),
+            "nccl": ".".join(map(str, torch.cuda.nccl.version()))
+            if cuda else None}
 
 
 def named(tree, at: str = ""):
@@ -307,6 +357,7 @@ class Launch:
     argv: list
     raises: bool = False
     ref: "Launch | None" = None     # the reference it is held against
+    result: "dict | None" = None    # what check() found
     procs: list = dataclasses.field(default_factory=list)
 
     def start(self, device: str) -> None:
@@ -449,8 +500,8 @@ def drive(args, runs: list) -> list:
             name = f"step_{args.ckpt_every:08d}"
             shutil.copytree(source_of(runs).ckpt / name, r.ckpt / name)
         rcs, out, errs, secs = r.finish(args.timeout)
-        res = {"run": r.label, "mesh": list(r.shape), "hosts": r.hosts,
-               "seconds": secs}
+        res = r.result = {"run": r.label, "mesh": list(r.shape),
+                          "hosts": r.hosts, "seconds": secs}
         results.append(res)
         if r.raises:
             said = any(PLACE_ROWS_ERROR in e for e in errs)
@@ -467,6 +518,12 @@ def drive(args, runs: list) -> list:
         if r.role.startswith("ref:") and not res["ok"]:
             break
     return results
+
+
+def settings_of(ranks: list) -> dict:
+    """Rank 0's :func:`settings` and whether every rank's agree."""
+    got = [{k: r.get(k) for k in SETTINGS} for r in ranks]
+    return {"settings": got[0], "settings_agree": got == got[:1] * len(got)}
 
 
 def source_of(runs: list) -> Launch:
@@ -507,6 +564,13 @@ def check(args, r: Launch, out: str, secs: float, runs: list) -> dict:
                    loss_floor=abs(loss - loss32) / abs(loss32))
         halves = measures(dict(np.load(f"{r.out}.halves.npz")), f32)
         res["halves_floor"] = worst(halves)
+        f64 = dict(np.load(f"{r.out}.f64.npz"))
+        loss64 = float(f64.pop("loss"))
+        f32_f64 = measures(f32, f64)
+        res.update(float64_loss=loss64, f32_from_float64=worst(f32_f64),
+                   f32_loss_from_float64=abs(loss32 - loss64) / abs(loss64),
+                   f32_from_float64_rows=f32_f64[:3],
+                   **settings_of(ranks))
         print(f"  the floor: against the same step without bf16 (float32, "
               f"attention probabilities unrounded), its loss within "
               f"{res['loss_floor']:.3g} and its gradient within "
@@ -514,6 +578,10 @@ def check(args, r: Launch, out: str, secs: float, runs: list) -> dict:
               f"mean of its batch's two halves' gradients (a data axis's "
               f"split of the sums over rows) within {worst(halves):.3g}, "
               f"worst {halves[:3]}")
+        print(f"  float32's own error: the step without bf16 against the "
+              f"same step in float64, its loss within "
+              f"{res['f32_loss_from_float64']:.3g} and its gradient within "
+              f"{worst(f32_f64):.3g}, worst {f32_f64[:3]}; {res['settings']}")
         return res
     ref = r.ref
     until = int(ref.role.rsplit(":", 1)[1])     # its batches are the run's
@@ -538,9 +606,16 @@ def check(args, r: Launch, out: str, secs: float, runs: list) -> dict:
         u_loss0, u_loss = float(u0.pop("loss")), float(u.pop("loss"))
         unrounded = measures(u, u0)
         u_loss_rel = abs(u_loss - u_loss0) / abs(u_loss0)
+        f0 = dict(np.load(f"{ref.out}.f64.npz"))
+        f = dict(np.load(f"{r.out}.f64.npz"))
+        f_loss0, f_loss = float(f0.pop("loss")), float(f.pop("loss"))
+        f64 = measures(f, f0)
+        f64_loss_rel = abs(f_loss - f_loss0) / abs(f_loss0)
+        truth = measures(u, f0)     # this run's float32 step from float64
         ok &= (rows == [args.batch // d] * (d * m) and loss_rel <= 1e-5
                and worst(grads) <= args.tol and tokens
-               and u_loss_rel <= 1e-5 and worst(unrounded) <= UNROUNDED_TOL)
+               and u_loss_rel <= 1e-5 and worst(unrounded) <= UNROUNDED_TOL
+               and f64_loss_rel <= F64_LOSS_TOL and worst(f64) <= F64_TOL)
         each = [max(a, b) for a, b, _ in grads]
         above = sum(x > args.tol for x in each)
         res.update(rows=rows, loss_rel=loss_rel, grad_worst=worst(grads),
@@ -549,7 +624,12 @@ def check(args, r: Launch, out: str, secs: float, runs: list) -> dict:
                    grad_rows=grads[:3], later_losses_rel=later,
                    tokens_bitwise=tokens, unrounded_loss_rel=u_loss_rel,
                    unrounded_grad_worst=worst(unrounded),
-                   unrounded_rows=unrounded[:3])
+                   unrounded_rows=unrounded[:3],
+                   float64_loss_rel=f64_loss_rel,
+                   float64_grad_worst=worst(f64), float64_rows=f64[:3],
+                   unrounded_from_float64=worst(truth),
+                   unrounded_from_float64_rows=truth[:3],
+                   **settings_of(ranks))
         print(f"  against {ref.label}: rows {rows} (want {args.batch // d} "
               f"each); the first loss within {loss_rel:.3g} (bound 1e-05); "
               f"its gradient leaves within {worst(grads):.3g} (bound "
@@ -562,7 +642,14 @@ def check(args, r: Launch, out: str, secs: float, runs: list) -> dict:
         print(f"  the same step without bf16 on both: the first loss within "
               f"{u_loss_rel:.3g} (bound 1e-05), the gradient leaves within "
               f"{worst(unrounded):.3g} (bound {UNROUNDED_TOL:g}), worst "
-              f"{unrounded[:3]}")
+              f"{unrounded[:3]}; against {ref.label}'s float64 step "
+              f"{worst(truth):.3g} ({ref.label}'s own "
+              f"{ref.result['f32_from_float64']:.3g}), worst "
+              f"{truth[:3]}")
+        print(f"  the same step in float64 on both: the first loss within "
+              f"{f64_loss_rel:.3g} (bound {F64_LOSS_TOL:g}), the gradient "
+              f"leaves within {worst(f64):.3g} (bound {F64_TOL:g}), worst "
+              f"{f64[:3]}; {res['settings']}")
     else:                                       # a restore
         mid = args.ckpt_every
         src = leaves(source_of(runs).ckpt / f"step_{mid:08d}")

@@ -23,7 +23,15 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.distributed.sharding import local, shard
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
-          "float16": torch.float16}
+          "float16": torch.float16, "float64": torch.float64}
+
+
+def work_dtype(x: torch.Tensor) -> torch.dtype:
+    """The dtype of the reference's float32 arithmetic on operand ``x``:
+    float64 for a float64 operand, float32 for any other.  A float64 step
+    (``param_dtype`` and ``compute_dtype`` ``"float64"``) is a check of a
+    placement, held to one device's float64 step; no preset offers it."""
+    return torch.float64 if x.dtype == torch.float64 else torch.float32
 
 
 @dataclasses.dataclass(frozen=True)
@@ -278,19 +286,19 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor | None,
     if not untracked(x, scale):
         return checkpoint(_rms_norm, x, scale, eps, use_reentrant=False,
                           preserve_rng_state=False)
-    x32 = x.float()
+    x32 = x.to(work_dtype(x))
     r = torch.rsqrt((x32 * x32).mean(-1, keepdim=True) + eps)
     y = x32.mul_(r) if x32 is not x else x32 * r
     if scale is not None:
-        y.mul_(1.0 + scale.float())
+        y.mul_(1.0 + scale.to(x32.dtype))
     return y.to(x.dtype)
 
 
 def _rms_norm(x, scale, eps: float):
-    x32 = x.float()
+    x32 = x.to(work_dtype(x))
     y = x32 * torch.rsqrt((x32 * x32).mean(-1, keepdim=True) + eps)
     if scale is not None:
-        y = y * (1.0 + scale.float())
+        y = y * (1.0 + scale.to(x32.dtype))
     return y.to(x.dtype)
 
 
@@ -301,7 +309,7 @@ def layer_norm_nonparam(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     if not untracked(x):
         return checkpoint(_layer_norm_nonparam, x, eps, use_reentrant=False,
                           preserve_rng_state=False)
-    x32 = x.float()
+    x32 = x.to(work_dtype(x))
     mu = x32.mean(-1, keepdim=True)
     c = x32.sub_(mu) if x32 is not x else x32 - mu
     var = (c ** 2).mean(-1, keepdim=True)
@@ -309,7 +317,7 @@ def layer_norm_nonparam(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
 
 
 def _layer_norm_nonparam(x, eps: float):
-    x32 = x.float()
+    x32 = x.to(work_dtype(x))
     mu = x32.mean(-1, keepdim=True)
     var = ((x32 - mu) ** 2).mean(-1, keepdim=True)
     return ((x32 - mu) * torch.rsqrt(var + eps)).to(x.dtype)
@@ -328,10 +336,10 @@ def rope(x: torch.Tensor, pos: torch.Tensor, theta: float) -> torch.Tensor:
     """``x [B, S, H, D]``, ``pos [S]`` — rotate the two halves of each head
     (NeoX style, not interleaved pairs)."""
     half = x.shape[-1] // 2
-    exps = -torch.arange(0, half, dtype=torch.float32, device=x.device) / half
-    freqs = torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                   device=x.device), exps)
-    ang = pos[..., None].float() * freqs                     # [S, half]
+    wd = work_dtype(x)
+    exps = -torch.arange(0, half, dtype=wd, device=x.device) / half
+    freqs = torch.pow(torch.tensor(theta, dtype=wd, device=x.device), exps)
+    ang = pos[..., None].to(wd) * freqs                      # [S, half]
     cos, sin = torch.cos(ang)[None, :, None, :], torch.sin(ang)[None, :, None, :]
     x1, x2 = x[..., :half], x[..., half:]
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
@@ -339,15 +347,17 @@ def rope(x: torch.Tensor, pos: torch.Tensor, theta: float) -> torch.Tensor:
 
 
 def sinusoidal_at(pos: torch.Tensor, d: int) -> torch.Tensor:
-    """Sinusoidal embeddings of the float positions ``pos [S]`` → ``[S, d]``."""
-    dim = torch.arange(d // 2, dtype=torch.float32, device=pos.device)[None, :]
-    ang = pos.float()[:, None] / (10_000.0 ** (2 * dim / d))
+    """Sinusoidal embeddings of the float positions ``pos [S]`` → ``[S, d]``,
+    in :func:`work_dtype` of ``pos``."""
+    wd = work_dtype(pos)
+    dim = torch.arange(d // 2, dtype=wd, device=pos.device)[None, :]
+    ang = pos.to(wd)[:, None] / (10_000.0 ** (2 * dim / d))
     return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
-def sinusoidal(seq: int, d: int, device=None) -> torch.Tensor:
-    return sinusoidal_at(torch.arange(seq, dtype=torch.float32,
-                                      device=device), d)
+def sinusoidal(seq: int, d: int, device=None,
+               dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    return sinusoidal_at(torch.arange(seq, dtype=dtype, device=device), d)
 
 
 # ---------------------------------------------------------------------------
@@ -365,11 +375,12 @@ def _repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
 
 
 class _RoundBF16(torch.autograd.Function):
-    """Rounds to bfloat16 (held in float32); the gradient passes through."""
+    """Rounds to bfloat16 (held in ``x``'s dtype); the gradient passes
+    through."""
 
     @staticmethod
     def forward(ctx, x):
-        return x.to(torch.bfloat16).float()
+        return x.to(torch.bfloat16).to(x.dtype)
 
     @staticmethod
     def backward(ctx, g):
@@ -391,7 +402,7 @@ class _GradRoundBF16(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return g.to(torch.bfloat16).float()
+        return g.to(torch.bfloat16).to(g.dtype)
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -400,7 +411,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Chunked online-softmax attention with the reference's arithmetic.
 
     ``q [B, Sq, H, D]``; ``k/v [B, Sk, KV, D]`` (GQA broadcast inside).  A
-    loop over KV chunks carries (max, denom, acc) in float32: masked logits
+    loop over KV chunks carries (max, denom, acc) in float32 (float64 for
+    float64 operands, :func:`work_dtype`): masked logits
     are ``-1e30`` while the running max starts at ``-inf``, and the
     probabilities are rounded to bfloat16 for the PV product (``l`` sums
     the rounded values) whatever the compute dtype.  ``window > 0`` adds a
@@ -432,7 +444,8 @@ def _attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     scale = 1.0 / math.sqrt(d)
     chunk = min(chunk, k.shape[1])
     # the scaled query, rounded to the key dtype, as float32 operands
-    qf = (q.float() * scale).to(k.dtype).float()
+    wd = work_dtype(q)
+    qf = (q.to(wd) * scale).to(k.dtype).to(wd)
     if not untracked(q, k, v):
         _, l, acc = _ChunkedAttention.apply(qf, k, v, causal, window, chunk)
     else:
@@ -448,10 +461,10 @@ def _attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def _attention_init(qf: torch.Tensor) -> tuple:
     """The online softmax's first carry ``(m, l, acc)``."""
     b, sq, h, d = qf.shape
-    return (torch.full((b, h, sq), -math.inf, dtype=torch.float32,
+    return (torch.full((b, h, sq), -math.inf, dtype=qf.dtype,
                        device=qf.device),
-            torch.zeros((b, h, sq), dtype=torch.float32, device=qf.device),
-            torch.zeros((b, h, sq, d), dtype=torch.float32, device=qf.device))
+            torch.zeros((b, h, sq), dtype=qf.dtype, device=qf.device),
+            torch.zeros((b, h, sq, d), dtype=qf.dtype, device=qf.device))
 
 
 class _ChunkedAttention(torch.autograd.Function):
@@ -528,7 +541,7 @@ def _attention_chunk(qf, kb, vb, m, l, acc, lo: int, causal: bool,
     softmax: the carry ``(m, l, acc)`` → the next.  Masked logits are
     ``-1e30`` while the running max starts at ``-inf``; the probabilities
     are rounded to bf16 for the PV product."""
-    kb, vb = kb.float(), vb.float()                       # [B, C, H, D]
+    kb, vb = kb.to(qf.dtype), vb.to(qf.dtype)             # [B, C, H, D]
     logits = torch.einsum("bqhd,bkhd->bhqk", qf, kb)
     logits = shard(logits, "batch", "heads", None, None)
     mask = _chunk_mask(qf.shape[1], lo, kb.shape[1], causal, window,
@@ -550,7 +563,7 @@ def _attention_chunk_inplace(qf, kb, vb, m, l, acc, lo: int, causal: bool,
     """:func:`_attention_chunk` without autograd: the logits masked,
     shifted and exponentiated in place, the accumulator updated in place
     (the same values, op for op)."""
-    kb, vb = kb.float(), vb.float()
+    kb, vb = kb.to(qf.dtype), vb.to(qf.dtype)
     logits = torch.einsum("bqhd,bkhd->bhqk", qf, kb)
     logits = shard(logits, "batch", "heads", None, None)
     mask = _chunk_mask(qf.shape[1], lo, kb.shape[1], causal, window,
@@ -559,7 +572,7 @@ def _attention_chunk_inplace(qf, kb, vb, m, l, acc, lo: int, causal: bool,
     m_new = torch.maximum(m, logits.amax(-1))
     p = logits.sub_(m_new[..., None]).exp_().to(torch.bfloat16)
     del logits
-    p = p.float()
+    p = p.to(qf.dtype)
     corr = torch.exp(m - m_new)
     l = l * corr + p.sum(-1)
     pv = torch.einsum("bhqk,bkhd->bhqd", p, vb)

@@ -17,6 +17,7 @@ from repro_torch.configs.base import (ArchConfig, RunShape, SHAPES,
                                       cell_applicable)
 from repro_torch.distributed.sharding import get_device_mesh, local, shard
 from . import transformer as tfm
+from .common import work_dtype
 
 _CONFIG_MODULES = {
     "whisper-base": "whisper_base",
@@ -91,11 +92,13 @@ def batch_logical(cfg: ArchConfig, shape: RunShape) -> dict[str, Any]:
 # ---------------------------------------------------------------------------
 
 def loss_fn(model: tfm.Transformer, batch: dict) -> torch.Tensor:
-    """Next-token cross entropy, float32 logsumexp over the vocab.  The
+    """Next-token cross entropy, float32 logsumexp over the vocab (float64
+    for a float64 model, ``common.work_dtype``).  The
     target's logit is picked by a gather, which equals the reference's
     iota-mask sum exactly (one term is nonzero); on a ``DeviceMesh`` by
     that sum itself (:func:`_loss_on_mesh`)."""
-    logits = tfm.forward_train(model, batch).float()
+    logits = tfm.forward_train(model, batch)
+    logits = logits.to(work_dtype(logits))
     targets = batch["tokens"][:, 1:].long()
     if get_device_mesh() is not None:
         return _loss_on_mesh(logits, targets)

@@ -43,7 +43,7 @@ from .common import (DTYPES, PSpec, abstract, attention, decode_attention,
                      default_scale, gelu_mlp, init_one, init_params as
                      init_tree, layer_norm_nonparam, leaves,
                      map_tree, norm, rms_norm, rope, sinusoidal,
-                     sinusoidal_at, swiglu)
+                     sinusoidal_at, swiglu, work_dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -494,8 +494,8 @@ class Encoder(nn.Module):
 
     def forward(self, frames: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
         dtype = frames.dtype
-        x = frames + sinusoidal(frames.shape[1], cfg.d_model,
-                                frames.device).to(dtype)[None]
+        x = frames + sinusoidal(frames.shape[1], cfg.d_model, frames.device,
+                                work_dtype(frames)).to(dtype)[None]
         ctx = Ctx(cfg=cfg, mode="train")
         for layer in self.layers:
             x, _ = _self_attention(layer.attn, x, ctx, None, causal=False)
@@ -601,9 +601,11 @@ def _embed(model: Transformer, tokens: torch.Tensor,
         ids, _gathered_where_sharded(model.embed, ids)).to(dtype)
     if not cfg.rope_theta:                          # sinusoidal positions
         if pos_offset is None:
-            pe = sinusoidal(tokens.shape[1], cfg.d_model, x.device)
+            pe = sinusoidal(tokens.shape[1], cfg.d_model, x.device,
+                            work_dtype(x))
         else:
             pe = sinusoidal_at(torch.full((1,), float(pos_offset),
+                                          dtype=work_dtype(x),
                                           device=x.device), cfg.d_model)
         x = x + pe.to(dtype)[None]
     return shard(x, "batch", "seq", None)

@@ -1,5 +1,6 @@
 """Child processes of the multi-rank training tests
-(``tests/test_torch_train_mesh.py``, ``tests/test_torch_launch.py``).
+(``tests/test_torch_train_mesh.py``, ``tests/test_torch_launch.py``,
+``tests/test_torch_train_float64.py``).
 
     python tests/_torch_mesh_children.py <job> <rank> <size> <store> [args]
     torchrun --standalone --nproc-per-node N tests/_torch_mesh_children.py \\
@@ -11,11 +12,12 @@
 The rank jobs join a gloo group of ``size`` ranks through the ``file://``
 store ``store`` and print one JSON object as their last line: ``elastic``
 (restores across mesh sizes), ``step`` (a placed step on three meshes, a
-checkpoint saved by the ranks, the tokens each rank makes).  ``train`` is
-``repro_torch.launch.train.main`` under ``torchrun``, its model built from
-the reference's parameters in an ``.npz`` (``-``: its own seed-0
-parameters), and a rank that sends itself SIGTERM while the data of a step
-is drawn.  ``refstep`` is the reference's loss and gradients, jitted with
+checkpoint saved by the ranks, the tokens each rank makes), ``float64``
+(the placed float64 step on three meshes under a census of its ops).
+``train`` is ``repro_torch.launch.train.main`` under ``torchrun``, its
+model built from the reference's parameters in an ``.npz`` (``-``: its
+own seed-0 parameters), and a rank that sends itself SIGTERM while the
+data of a step is drawn.  ``refstep`` is the reference's loss and gradients, jitted with
 the placements of each mesh on 4 host devices.  ``tokens`` is one gloo
 rank under ``torchrun``, which writes the rows it draws.  No child ends
 another process; files go where the test says.
@@ -31,6 +33,11 @@ ROOT = Path(__file__).resolve().parents[1]
 SHAPES = ((2, 2), (1, 4), (4, 1))
 OCFG = dict(lr=1e-3, warmup_steps=2, total_steps=50)
 B, S = 4, 32
+# the float64 step's cases: reduced OLMo-1B overrides, batch, sequence;
+# "wide" has the full preset's remat and sequence-sharded residual
+CASES64 = {"smoke": ({}, B, S),
+           "wide": (dict(d_model=256, n_layers=2, head_dim=64, d_ff=1024,
+                         vocab=2048, remat="full", act_shard="seq"), 8, 64)}
 
 
 def flat(tree, prefix=""):
@@ -206,6 +213,102 @@ def step(rank: int, size: int, store: str, npz: str, out_dir: str) -> dict:
     return out
 
 
+def script():
+    """``scripts/train_over_cards.py`` as a module."""
+    import importlib.util
+    name = "train_over_cards"
+    if name not in sys.modules:
+        spec = importlib.util.spec_from_file_location(
+            name, ROOT / "scripts" / f"{name}.py")
+        sys.modules[name] = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(sys.modules[name])
+    return sys.modules[name]
+
+
+def float64_model(case: str, mesh=None):
+    """Case ``case`` of :data:`CASES64` in float64, as
+    ``scripts/train_over_cards.py`` builds its float64 step (``copy_as``):
+    the seed-0 float32 model, placed where a ``mesh`` is given, copied
+    with ``param_dtype`` and ``compute_dtype`` ``"float64"``.  Returns the
+    model and its batch ``batch_at(0)`` (numpy)."""
+    import torch
+    from repro_torch.configs.base import reduced
+    from repro_torch.data.tokens import TokenPipeline, TokenPipelineConfig
+    from repro_torch.models import registry, transformer as tfm
+    from repro_torch.models.weights import place_model
+    over, batch, seq = CASES64[case]
+    cfg = reduced(registry.get_config("olmo-1b"), **over)
+    model = tfm.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    if mesh is not None:
+        model = place_model(model)
+    pipe = TokenPipeline(TokenPipelineConfig(vocab=cfg.vocab, seq_len=seq,
+                                             global_batch=batch))
+    return script().copy_as(model, param_dtype="float64",
+                            compute_dtype="float64"), pipe.batch_at(0)
+
+
+def census():
+    """A ``TorchDispatchMode`` that counts the ops it sees (``.ops``) and,
+    by op, the floating outputs that are not float64 (``.found``)."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+
+    class Census(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.found: dict = {}
+            self.ops = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            self.ops += 1
+            for t in tree_leaves(out):
+                if isinstance(t, torch.Tensor) and t.is_floating_point() \
+                        and t.dtype != torch.float64:
+                    key = f"{func} -> {t.dtype}"
+                    self.found[key] = self.found.get(key, 0) + 1
+            return out
+    return Census()
+
+
+def float64(rank: int, size: int, store: str, out_dir: str) -> dict:
+    """Four ranks: on each of :data:`SHAPES` and each case of
+    :data:`CASES64`, the placed float64 first step
+    (``train_step._loss_and_grads``, the bf16 roundings the script's
+    ``Unrounded``) under :func:`census`; rank 0 writes the loss and the gradients whole into
+    ``out_dir/<case>_<mesh>.npz``.  Reports each step's census."""
+    import numpy as np
+    import torch.distributed as dist
+    from repro_torch.distributed.sharding import (DEFAULT_RULES,
+                                                  logical_rules, named_mesh)
+    from repro_torch.models import common, weights
+    from repro_torch.train import train_step as ts
+    _join(rank, size, store)
+    common._RoundBF16 = common._GradRoundBF16 = script().Unrounded
+    out = {}
+    try:
+        for case in CASES64:
+            for shape in SHAPES:
+                name = f"{case}_{shape[0]}x{shape[1]}"
+                mesh = named_mesh(shape, ("data", "model"), "cpu")
+                with logical_rules(mesh, DEFAULT_RULES):
+                    model, batch = float64_model(case, mesh)
+                    batch = ts._model_batch(model, batch)
+                    with census() as seen:
+                        loss, grads = ts._loss_and_grads(model, batch)
+                    whole = weights.tree_to_reference(_whole(grads))
+                if rank == 0:
+                    np.savez(f"{out_dir}/{name}.npz", loss=float(loss),
+                             **flat(whole))
+                out[name] = {"census": seen.found, "ops": seen.ops,
+                             "dtype": str(loss.dtype)}
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
 def refstep(out_dir: str) -> None:
     """The reference's loss and gradients on ``batch_at(0)`` of its seed-0
     reduced OLMo, jitted with the placements of each of :data:`SHAPES`
@@ -304,7 +407,7 @@ if __name__ == "__main__":
     elif job == "train":
         train(sys.argv[2], sys.argv[3], sys.argv[4:])
     else:
-        fn = {"elastic": elastic, "step": step}[job]
+        fn = {"elastic": elastic, "step": step, "float64": float64}[job]
         res = fn(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
                  *sys.argv[5:])
         print(json.dumps(res))

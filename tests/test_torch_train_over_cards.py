@@ -9,6 +9,7 @@ files under ``tmp_path``.  Bounds, as the script holds them:
   against one process drawing the same rows: the first loss within 1e-5,
   every first-step gradient leaf within 1e-4 in both of the script's
   measures [4.8e-7 and 5.2e-7 here], the same with no bf16 on either side,
+  the same in float64 within 1e-12 (loss) and 1e-10 (leaves) [1.2e-15],
   each rank's rows ``batch // D``, each host's rows bitwise;
 * the two-launcher (2, 2) checkpoint of step 6 restored on (1, 1), (2, 2)
   and (4, 1) from one launcher: every parameter and moment leaf, saved
@@ -79,7 +80,14 @@ def test_two_launchers_rehearsal_with_restores(tmp_path):
         assert r["loss_rel"] <= 1e-5 and r["grad_worst"] <= 1e-4, r
         assert r["unrounded_loss_rel"] <= 1e-5, r
         assert r["unrounded_grad_worst"] <= 1e-4, r
+        assert r["float64_loss_rel"] <= 1e-12, r
+        assert r["float64_grad_worst"] <= 1e-10, r
+        assert r["settings_agree"], r
         assert r["tokens_bitwise"] and np.isfinite(r["losses"]).all()
+    ref = runs["ref_h2"]
+    assert ref["settings"] == {"allow_tf32": False, "nccl": None,
+                               "float32_matmul_precision": "highest"}, ref
+    assert 0 < ref["f32_from_float64"] < 1e-4, ref
     for name in ("restore1x1", "restore2x2", "restore4x1"):
         r = runs[name]
         assert r["restored_bitwise"] and r["resumed_from"] == 6, r
